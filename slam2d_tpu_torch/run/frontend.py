@@ -1,0 +1,256 @@
+"""Scan-matching SLAM frontend driver, port of slam2d_tpu/run/frontend.py.
+
+Per scan: prior = pose ⊕ odometry delta; a motion-gated correlative match
+against the cached search space inside a scan window; a motion-gated
+log-odds update of an update window, whose search-space window is then
+rebuilt and written back.
+
+The two gates are read on the host: each is one small device-to-host read
+per scan that also brings back the integer window center, so a window
+costs no second read. The trajectory stays on the device until the end of
+`run_frontend`. Plain integers on `frontend_step` count the host reads
+(`host_syncs`) and the scans that were matched (`matches`) and integrated
+(`updates`); a caller may reset them.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from slam2d_tpu.config import FrontendConfig
+from slam2d_tpu_torch.core import se2
+from slam2d_tpu_torch.grid.occupancy import (
+    integrate_scan,
+    make_grid,
+    window_origin_xy,
+    world_to_cell,
+)
+from slam2d_tpu_torch.grid.window import (
+    blur_halo_cells,
+    extract_window,
+    scan_window_cells,
+    update_window_cells,
+    write_window,
+    write_window_blur_exact,
+)
+from slam2d_tpu_torch.match.correlative import build_search_space, match_scan
+
+
+class FrontendState(NamedTuple):
+    logodds: torch.Tensor        # [H, W]
+    search_space: torch.Tensor   # [H, W] cached blurred likelihood field
+    pose: torch.Tensor           # [3] current corrected pose estimate
+    prev_odom: torch.Tensor      # [3] odometry pose at the previous scan
+    dist: torch.Tensor           # scalar: cumulative distance traveled
+    last_map_pose: torch.Tensor  # [3] pose at the last map integration
+    since_match: torch.Tensor    # [2] (translation, rotation) since last match
+
+
+def frontend_init(
+    cfg: FrontendConfig, device, start_pose=None, start_odom=None,
+    plain: bool = False,
+):
+    """Fresh state on `device`: an empty map and its search space."""
+    f32 = dict(dtype=torch.float32, device=device)
+    pose = (
+        torch.zeros(3, **f32) if start_pose is None
+        else torch.as_tensor(np.asarray(start_pose, np.float32), device=device)
+    )
+    odom = (
+        pose.clone() if start_odom is None
+        else torch.as_tensor(np.asarray(start_odom, np.float32), device=device)
+    )
+    grid = make_grid(cfg.grid, device)
+    return FrontendState(
+        grid,
+        build_search_space(grid, cfg.matcher, cfg.grid.resolution, plain=plain),
+        pose, odom.clone(), torch.zeros((), **f32), pose.clone(),
+        torch.zeros(2, **f32),
+    )
+
+
+def _read_gate(gate, center_rc=None):
+    """One device-to-host read of a gate (and a window center with it)."""
+    frontend_step.host_syncs += 1
+    if center_rc is None:
+        return bool(gate), None
+    # one copy to the host: tolist() of a CUDA tensor copies per element
+    packed = torch.cat([gate.reshape(1).to(torch.int32), center_rc]).cpu()
+    g, r, c = packed.tolist()
+    return bool(g), (r, c)
+
+
+def frontend_step(
+    state: FrontendState, odom, ranges, cfg: FrontendConfig,
+    plain: bool = False,
+):
+    """One scan: odometry prior -> gated correlative match -> gated map update.
+
+    `odom` [3] and `ranges` [B] are float32 tensors on the state's device.
+    Returns (state, (pose [3], score)). The map tensors of `state` are
+    updated in place when the scan is integrated. `plain=True` runs every
+    kernel's plain PyTorch version even on a CUDA device (for checks).
+    Bootstrap (first `bootstrap_dist` meters) trusts the odometry prior
+    and integrates every scan; afterwards the matcher and the map update
+    each run only after enough motion (see FrontendConfig).
+    """
+    if cfg.localize_only:
+        raise NotImplementedError("localization mode is not ported yet")
+    gcfg = cfg.grid
+    delta = se2.between(state.prev_odom, odom)
+    step_len = torch.hypot(delta[0], delta[1])
+    prior = se2.compose(state.pose, delta)
+    in_boot = state.dist < cfg.bootstrap_dist
+    since_m = state.since_match + torch.stack(
+        [step_len, torch.abs(se2.wrap_angle(delta[2]))]
+    )
+    do_match = (~in_boot) & (
+        (since_m[0] >= cfg.match_min_motion) | (since_m[1] >= cfg.match_min_rot)
+    )
+
+    win = scan_window_cells(gcfg, cfg.sensor, cfg.matcher)
+    windowed = win < min(gcfg.height, gcfg.width)
+    uwin = update_window_cells(gcfg, cfg.sensor, cfg.matcher)
+    uwindowed = uwin < min(gcfg.height, gcfg.width)
+
+    match, center = _read_gate(
+        do_match, world_to_cell(prior[:2], gcfg) if windowed else None
+    )
+    frontend_step.matches += match
+    if not match:
+        pose = prior
+        score = torch.full((), -1.0, dtype=torch.float32, device=odom.device)
+    elif not windowed:
+        pose, score = match_scan(
+            state.logodds, ranges, prior, gcfg, cfg.matcher, cfg.sensor,
+            search_space=state.search_space, plain=plain,
+        )
+        since_m = torch.zeros_like(since_m)
+    else:
+        Sw, origin_rc = extract_window(state.search_space, center, win)
+        pose, score = match_scan(
+            state.logodds, ranges, prior, gcfg, cfg.matcher, cfg.sensor,
+            search_space=Sw, origin_xy=window_origin_xy(gcfg, origin_rc),
+            plain=plain,
+        )
+        since_m = torch.zeros_like(since_m)
+    dist = state.dist + step_len
+
+    moved = torch.hypot(
+        pose[0] - state.last_map_pose[0], pose[1] - state.last_map_pose[1]
+    )
+    rotated = torch.abs(se2.wrap_angle(pose[2] - state.last_map_pose[2]))
+    do_update = in_boot | (moved >= cfg.map_update_min_motion) | (
+        rotated >= cfg.map_update_min_rot
+    )
+    update, center = _read_gate(
+        do_update, world_to_cell(pose[:2], gcfg) if uwindowed else None
+    )
+    logodds, search_space = state.logodds, state.search_space
+    last_map_pose = state.last_map_pose
+    frontend_step.updates += update
+    if update:
+        last_map_pose = pose
+        if not uwindowed:
+            logodds = integrate_scan(
+                logodds, pose, ranges, gcfg, cfg.sensor, plain=plain
+            )
+            search_space = build_search_space(
+                logodds, cfg.matcher, gcfg.resolution, plain=plain
+            )
+        else:
+            gw, origin_rc = extract_window(logodds, center, uwin)
+            gw = integrate_scan(
+                gw, pose, ranges, gcfg, cfg.sensor, origin_rc=origin_rc,
+                plain=plain,
+            )
+            write_window(logodds, gw, origin_rc)
+            # rebuild the field on the window; its outer blur-halo ring
+            # saw a truncated neighbourhood and is trimmed, except where
+            # the window is clamped against the grid border
+            Sw = build_search_space(
+                gw, cfg.matcher, gcfg.resolution, plain=plain
+            )
+            halo = blur_halo_cells(cfg.matcher, gcfg.resolution)
+            write_window_blur_exact(search_space, Sw, origin_rc, halo)
+    return (
+        FrontendState(
+            logodds, search_space, pose, odom, dist, last_map_pose, since_m
+        ),
+        (pose, score),
+    )
+
+
+frontend_step.host_syncs = 0
+frontend_step.matches = 0
+frontend_step.updates = 0
+
+
+def _chunk_iter(odom: np.ndarray, ranges: np.ndarray, K: int):
+    """Yield (o [K,3], r [K,B]) with the tail chunk padded by repeating
+    the last record, exactly as the JAX driver does (the padded scans run
+    and change the final state)."""
+    T = len(odom)
+    for s in range(0, T, K):
+        o = odom[s : s + K]
+        r = ranges[s : s + K]
+        if len(o) < K:
+            pad = K - len(o)
+            o = np.concatenate([o, np.repeat(o[-1:], pad, axis=0)])
+            r = np.concatenate([r, np.repeat(r[-1:], pad, axis=0)])
+        yield o, r
+
+
+def run_frontend(
+    log: dict, cfg: FrontendConfig, device, state: FrontendState | None = None,
+    plain: bool = False,
+):
+    """Run the frontend over a host-side log dict {odom, ranges} on `device`.
+
+    Each chunk of cfg.chunk scans is copied to the device at once; the
+    tail chunk is padded by repeating the last record and the outputs are
+    truncated. `plain=True` runs every kernel's plain version (checks only).
+
+    Returns (final_state, traj [T, 3] np.ndarray, scores [T] np.ndarray).
+    """
+    odom = np.asarray(log["odom"], np.float32)
+    ranges = np.asarray(log["ranges"], np.float32)
+    T = len(odom)
+    K = cfg.chunk
+    if state is None:
+        state = frontend_init(
+            cfg, device, start_pose=odom[0], start_odom=odom[0], plain=plain
+        )
+    n_pad = -(-T // K) * K
+    traj = torch.empty((n_pad, 3), dtype=torch.float32, device=device)
+    scores = torch.empty(n_pad, dtype=torch.float32, device=device)
+    for i, (o, r) in enumerate(_chunk_iter(odom, ranges, K)):
+        o = torch.as_tensor(o, device=device)
+        r = torch.as_tensor(r, device=device)
+        for k in range(K):
+            state, (pose, score) = frontend_step(
+                state, o[k], r[k], cfg, plain=plain
+            )
+            traj[i * K + k] = pose
+            scores[i * K + k] = score
+    return state, traj[:T].cpu().numpy(), scores[:T].cpu().numpy()
+
+
+def state_from_numpy(arrays, device) -> FrontendState:
+    """FrontendState on `device` from its fields as numpy arrays, in field
+    order — e.g. `[np.asarray(x) for x in jax_state]` of a JAX
+    FrontendState, whose fields are the same."""
+    return FrontendState(
+        *(
+            torch.as_tensor(np.array(a, np.float32), device=device)
+            for a in arrays
+        )
+    )
+
+
+def state_to_numpy(state: FrontendState) -> FrontendState:
+    """The state's fields as numpy float32 arrays (a FrontendState)."""
+    return FrontendState(*(t.cpu().numpy() for t in state))

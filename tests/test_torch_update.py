@@ -1,0 +1,181 @@
+"""PyTorch port: the hybrid map update and the occupancy helpers against
+the JAX package (CPU; the TPU kernel runs in interpret mode).
+
+The port's update computes bearings with atan2 and endpoints with the
+framework's cos/sin, where the TPU kernel uses a polynomial atan2 and
+XLA's cos/sin. A last-bit difference there moves a cell across a beam
+slot or an endpoint across a cell edge, so the contract is: at least
+99.95% of cells bit-identical, and every other cell off by exactly one
+l_free or one l_occ.
+"""
+
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam2d_tpu.config import GridConfig, SensorConfig
+from slam2d_tpu.grid import occupancy as jocc
+from slam2d_tpu.ops.pallas_update import pallas_dense_update
+from slam2d_tpu_torch.grid import occupancy as tocc
+from slam2d_tpu_torch.ops import update as tupd
+from torch_parity import SENSOR, synth_ranges
+
+torch.set_num_threads(1)
+
+GCFG = GridConfig(
+    height=256, width=256, resolution=0.1, center_x=10.0, center_y=10.0,
+    update_impl="pallas_hybrid",
+)
+POSE = np.array([6.3, 5.8, 0.4], np.float32)
+
+
+def _ranges(case: str) -> np.ndarray:
+    r = synth_ranges(POSE)
+    if case == "short":
+        r = r * np.float32(0.3)
+    elif case == "all_invalid":
+        r = np.full_like(r, 0.05)
+    elif case == "nan":
+        r = r.copy()
+        r[::7] = np.nan
+        r[3::11] = np.inf
+    return r
+
+
+def _assert_update_parity(ref: np.ndarray, out: np.ndarray, cfg: GridConfig):
+    assert out.shape == ref.shape and out.dtype == np.float32
+    diff = np.abs(out - ref)
+    n_diff = int((diff != 0).sum())
+    print(f"cells differing: {n_diff} of {ref.size}")
+    assert n_diff <= 0.0005 * ref.size
+    off = diff[diff != 0]
+    one_step = np.isclose(off, abs(cfg.l_free), atol=1e-5) | np.isclose(
+        off, cfg.l_occ, atol=1e-5
+    )
+    assert one_step.all(), off[~one_step]
+
+
+@pytest.mark.parametrize(
+    "case,enable",
+    [("scan", 1.0), ("short", 1.0), ("all_invalid", 1.0), ("nan", 1.0),
+     ("scan", 0.0)],
+)
+def test_update_matches_pallas_hybrid(case, enable):
+    grid = np.random.default_rng(1).uniform(-5, 5, (256, 256)).astype(
+        np.float32
+    )
+    ranges = _ranges(case)
+    ref = np.asarray(
+        pallas_dense_update(
+            jnp.asarray(grid), jnp.asarray(POSE), jnp.asarray(ranges), GCFG,
+            SENSOR, enable=enable, interpret=True, variant="hybrid",
+        )
+    )
+    out = tocc.integrate_scan(
+        torch.from_numpy(grid), torch.from_numpy(POSE),
+        torch.from_numpy(ranges), GCFG, SENSOR, enable=enable,
+    ).numpy()
+    _assert_update_parity(ref, out, GCFG)
+    if case == "all_invalid" or enable == 0.0:
+        np.testing.assert_array_equal(out, grid)
+    else:
+        assert (out != grid).sum() > 500
+
+
+def test_update_window_with_integer_origin():
+    gcfg = dataclasses.replace(GCFG, height=512, width=512)
+    full = np.random.default_rng(2).uniform(-3, 3, (512, 512)).astype(
+        np.float32
+    )
+    r0, c0 = 100, 84
+    win = full[r0 : r0 + 272, c0 : c0 + 272]
+    ranges = _ranges("scan")
+    ref = np.asarray(
+        jocc.integrate_scan(
+            jnp.asarray(win), jnp.asarray(POSE), jnp.asarray(ranges), gcfg,
+            SENSOR, origin_rc=(jnp.int32(r0), jnp.int32(c0)),
+        )
+    )
+    out = tocc.integrate_scan(
+        torch.from_numpy(np.ascontiguousarray(win)), torch.from_numpy(POSE),
+        torch.from_numpy(ranges), gcfg, SENSOR, origin_rc=(r0, c0),
+    ).numpy()
+    _assert_update_parity(ref, out, gcfg)
+    assert (out != win).sum() > 1000
+
+
+def test_occupancy_helpers_match_jax():
+    xy = np.random.default_rng(3).uniform(-5, 25, (50, 2)).astype(np.float32)
+    for name in ("world_to_cell_float", "world_to_cell"):
+        # jitted, as the JAX frontend runs it: XLA turns the division by
+        # the cell size into a multiplication by its reciprocal
+        fn = jax.jit(getattr(jocc, name), static_argnums=1)
+        ref = np.asarray(fn(jnp.asarray(xy), GCFG))
+        out = getattr(tocc, name)(torch.from_numpy(xy), GCFG).numpy()
+        np.testing.assert_array_equal(out, ref)
+    ranges = _ranges("nan")
+    pts_j, valid_j = jocc.scan_endpoints_local(jnp.asarray(ranges), SENSOR)
+    pts_t, valid_t = tocc.scan_endpoints_local(torch.from_numpy(ranges), SENSOR)
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    np.testing.assert_allclose(pts_t.numpy(), np.asarray(pts_j), atol=1e-5)
+    np.testing.assert_array_equal(
+        tocc.beam_angles(SENSOR, torch.device("cpu")).numpy(),
+        np.asarray(jocc.beam_angles(SENSOR)),
+    )
+    lo = np.linspace(-12, 12, 97, dtype=np.float32)
+    np.testing.assert_allclose(
+        tocc.occupancy_prob(torch.from_numpy(lo)).numpy(),
+        np.asarray(jocc.occupancy_prob(jnp.asarray(lo))), atol=1e-7,
+    )
+    g = tocc.make_grid(GCFG, torch.device("cpu"))
+    assert g.shape == (256, 256) and g.dtype == torch.float32
+    assert not g.any()
+
+
+@pytest.mark.parametrize(
+    "gcfg,sensor",
+    [
+        (dataclasses.replace(GCFG, update_impl="sparse"), SENSOR),
+        (GCFG, SensorConfig(n_beams=270, fov_rad=1.5 * math.pi)),
+    ],
+)
+def test_unported_update_paths_raise(gcfg, sensor):
+    with pytest.raises(NotImplementedError):
+        tocc.integrate_scan(
+            torch.zeros(64, 64), torch.from_numpy(POSE),
+            torch.ones(sensor.n_beams), gcfg, sensor,
+        )
+
+
+@pytest.mark.parametrize(
+    "bad",
+    ["grid_dtype", "pose_shape", "ranges_device", "noncontiguous", "device"],
+)
+def test_update_wrapper_rejects_bad_input(bad):
+    grid = torch.zeros(32, 32)
+    pose = torch.from_numpy(POSE)
+    ranges = torch.ones(180)
+    angles = tocc.beam_angles(SENSOR, torch.device("cpu"))
+    if bad == "grid_dtype":
+        grid = grid.double()
+    elif bad == "pose_shape":
+        pose = torch.zeros(4)
+    elif bad == "ranges_device":
+        ranges = ranges.to("meta")
+    elif bad == "noncontiguous":
+        grid = torch.zeros(32, 64)[:, ::2]
+    else:
+        grid, pose, ranges, angles = (
+            t.to("meta") for t in (grid, pose, ranges, angles)
+        )
+    with pytest.raises(ValueError):
+        tupd.update_hybrid(
+            grid, pose, ranges, angles, origin_xy=(0.0, 0.0),
+            resolution=0.1, step=0.01, angle_min=-1.5, min_range=0.1,
+            max_range=12.0, l_free=-0.4, l_occ=0.85, l_clamp=10.0,
+        )
