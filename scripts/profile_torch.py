@@ -1,0 +1,193 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port on one GPU.
+
+    python3 scripts/profile_torch.py frontend [--warm 256] [--scans 256]
+    python3 scripts/profile_torch.py fastslam [--warm 128] [--scans 192]
+        [--seeds N]
+    (both: [--out profile_out])
+
+Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend)
+or at bench_pf.py's default config and log (fastslam: 100 particles, bf16
+512^2 maps): a warmup over the first `--warm` scans, then a torch.profiler
+trace (CPU and CUDA activities) of the next `--scans` scans. Prints the
+kernels by device time, then one JSON line: the device busy share of the
+traced wall time, per-scan host time and the step's counters. Writes the
+gzipped Chrome trace to `--out`. For fastslam, `--seeds N` first runs the
+whole log for proposal seeds 0..N-1 and prints each run's ATE and scans/s
+(CUDA events), their median and range. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from slam2d_tpu.metrics import ate_rmse  # noqa: E402
+from slam2d_tpu_torch.pf.fastslam import (  # noqa: E402
+    fastslam_init,
+    fastslam_step,
+    host_gate_flags,
+)
+from slam2d_tpu_torch.run import bench_configs  # noqa: E402
+from slam2d_tpu_torch.run.fastslam_run import run_fastslam  # noqa: E402
+from slam2d_tpu_torch.run.frontend import (  # noqa: E402
+    frontend_init,
+    frontend_step,
+)
+
+DEFAULTS = {"frontend": (256, 256), "fastslam": (128, 192)}  # warm, scans
+
+
+def _busy_us(events) -> float:
+    """Union of the device kernels' [start, end) intervals, in us."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy += cur_e - cur_s
+    return busy
+
+
+def frontend_steps(dev):
+    """(steps(lo, hi) running the frontend over scans lo..hi-1, counters)."""
+    cfg = bench_configs.bench_config()
+    log = bench_configs.bench_log(cfg.sensor)
+    odom = torch.as_tensor(log["odom"], device=dev)
+    ranges = torch.as_tensor(log["ranges"], device=dev)
+    state = frontend_init(cfg, dev, start_pose=log["odom"][0],
+                          start_odom=log["odom"][0])
+
+    def steps(lo, hi):
+        nonlocal state
+        for k in range(lo, hi):
+            state, _ = frontend_step(state, odom[k], ranges[k], cfg)
+
+    return steps, frontend_step, ("host_syncs", "matches", "updates")
+
+
+def fastslam_steps(dev, seeds):
+    """(steps(lo, hi) running FastSLAM-100 over scans lo..hi-1, counters);
+    with `seeds`, the whole-log sweep first."""
+    cfg, pf = bench_configs.pf_bench_config()
+    log = bench_configs.pf_bench_log(cfg.sensor)
+    if seeds:
+        seed_sweep(cfg, pf, log, dev, seeds)
+    flags = host_gate_flags(log["odom"], cfg, log["odom"][0], 0.0, np.inf)
+    odom = torch.as_tensor(log["odom"], device=dev)
+    ranges = torch.as_tensor(log["ranges"], device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = fastslam_init(cfg, pf, dev, start_pose=log["odom"][0])
+
+    def steps(lo, hi):
+        nonlocal state
+        for k in range(lo, hi):
+            state, _ = fastslam_step(
+                state, odom[k], ranges[k], cfg, pf, gates=flags[k],
+                generator=gen,
+            )
+
+    return steps, fastslam_step, ("host_syncs", "refines", "updates",
+                                  "resamples")
+
+
+def seed_sweep(cfg, pf, log, dev, n):
+    """ATE and scans/s (CUDA events) of whole runs for proposal seeds
+    0..n-1, with their median and range."""
+    ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
+    run_fastslam(log, cfg, pf, dev, seed=0)   # warm
+    out = []
+    for seed in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, traj, _, _ = run_fastslam(log, cfg, pf, dev, seed=seed)
+        end.record()
+        end.synchronize()
+        sec = start.elapsed_time(end) / 1e3
+        out.append(dict(seed=seed, ate_m=ate_rmse(traj, log["gt_poses"],
+                                                  align=False),
+                        scans_per_sec=len(traj) / sec))
+    rates = [r["scans_per_sec"] for r in out]
+    print(json.dumps(dict(
+        card=bench_configs.card(), ate_odom_m=ate_odom, runs=out,
+        scans_per_sec_median=statistics.median(rates),
+        scans_per_sec_range=[min(rates), max(rates)],
+    )))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("pipeline", choices=sorted(DEFAULTS))
+    ap.add_argument("--warm", type=int)
+    ap.add_argument("--scans", type=int)
+    ap.add_argument("--seeds", type=int, default=0)
+    ap.add_argument("--out", default="profile_out")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch.py needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    warm, n = DEFAULTS[args.pipeline]
+    warm = warm if args.warm is None else args.warm
+    n = n if args.scans is None else args.scans
+    if args.pipeline == "frontend":
+        steps, step, counters = frontend_steps(dev)
+    else:
+        steps, step, counters = fastslam_steps(dev, args.seeds)
+
+    steps(0, warm)
+    torch.cuda.synchronize()
+    for name in counters:
+        setattr(step, name, 0)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        steps(warm, warm + n)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    busy = _busy_us(events)
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    kernels = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.time_range.end - e.time_range.start
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    print(json.dumps(dict(
+        card=bench_configs.card(), pipeline=args.pipeline, scans=n,
+        first_scan=warm, wall_ms=wall_us / 1e3, us_per_scan=wall_us / n,
+        device_busy_us=busy, device_busy_share=busy / wall_us,
+        device_kernels=sum(v[0] for v in kernels.values()),
+        **{name: getattr(step, name) for name in counters},
+        top_kernels=[dict(name=k[:90], launches=v[0], us=v[1])
+                     for k, v in top[:14]],
+    )))
+    os.makedirs(args.out, exist_ok=True)
+    prof.export_chrome_trace(
+        os.path.join(args.out, f"torch_{args.pipeline}_trace.json.gz")
+    )
+
+
+if __name__ == "__main__":
+    main()

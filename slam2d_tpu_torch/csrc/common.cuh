@@ -7,6 +7,7 @@
 // contracts.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -28,4 +29,55 @@ __device__ __forceinline__ float mod_pos(float x, float y) {
 // jnp.clip / torch.clamp of a non-NaN value
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);
+}
+
+// Map storage: float32 or bfloat16 (the particle filter's maps). Loads widen
+// to float32 exactly; stores round to nearest even once, as astype does.
+__device__ __forceinline__ float load_f32(const float* p) { return *p; }
+__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// ---- the likelihood field of the matchers (build_search_space) ----------
+//
+// The blur taps travel by value in a launch's parameters.
+constexpr int MAX_TAPS = 63;
+
+struct Taps {
+  float k[MAX_TAPS];
+  int n;
+};
+
+__host__ inline bool load_taps(Taps* taps, const float* host, int n) {
+  if (n < 1 || n > MAX_TAPS || n % 2 == 0) return false;
+  for (int i = 0; i < n; ++i) taps->k[i] = host[i];
+  taps->n = n;
+  return true;
+}
+
+// Clipped occupancy evidence of a log-odds value: clip(l * (1/sat), 0, 1)
+__device__ __forceinline__ float evidence(float l, float inv_sat) {
+  return clampf(F_MUL(l, inv_sat), 0.0f, 1.0f);
+}
+
+// One output of a 1-D blur: sum_k taps[k] * x[k * stride], from tap 0 up, as
+// the JAX package's _separable_blur adds its shifted terms
+__device__ __forceinline__ float blur_dot(const float* x, int stride,
+                                          const Taps& taps) {
+  float acc = 0.0f;
+  for (int k = 0; k < taps.n; ++k) acc = F_ADD(acc, F_MUL(taps.k[k], x[k * stride]));
+  return acc;
+}
+
+// Field value from the clipped blur and the known-free test:
+// blur - free_penalty * free * (1 - blur)
+__device__ __forceinline__ float field_value(float blur_raw, bool is_free,
+                                             float free_penalty) {
+  const float blur = clampf(blur_raw, 0.0f, 1.0f);
+  return F_SUB(blur, F_MUL(F_MUL(free_penalty, is_free ? 1.0f : 0.0f),
+                           F_SUB(1.0f, blur)));
 }

@@ -18,20 +18,15 @@
 // pass 2 blurs along columns and applies the clip and the free penalty in
 // its epilogue. Neighbouring threads take neighbouring columns, so every
 // tap's read is coalesced and the 13-fold reuse is served by L1/L2. The taps
-// travel by value in the launch's parameters.
+// travel by value in the launch's parameters. The evidence clip and the
+// field epilogue are shared with window_field.cu (common.cuh).
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int MAX_TAPS = 63;
 constexpr int BX = 32;
 constexpr int BY = 8;
-
-struct Taps {
-  float k[MAX_TAPS];
-  int n;
-};
 
 __global__ void blur_rows_kernel(const float* __restrict__ l,
                                  float* __restrict__ tmp, int H, int W,
@@ -44,8 +39,7 @@ __global__ void blur_rows_kernel(const float* __restrict__ l,
   for (int k = 0; k < taps.n; ++k) {
     const int r = row + k - hw;
     if (r < 0 || r >= H) continue;  // zero padding adds exactly 0
-    const float occ =
-        clampf(F_MUL(l[(size_t)r * W + col], inv_occ_sat), 0.0f, 1.0f);
+    const float occ = evidence(l[(size_t)r * W + col], inv_occ_sat);
     acc = F_ADD(acc, F_MUL(taps.k[k], occ));
   }
   tmp[(size_t)row * W + col] = acc;
@@ -67,12 +61,10 @@ __global__ void blur_cols_field_kernel(const float* __restrict__ l,
     if (c < 0 || c >= W) continue;
     acc = F_ADD(acc, F_MUL(taps.k[k], line[c]));
   }
-  const float blur = clampf(acc, 0.0f, 1.0f);
   const float lv = l[(size_t)row * W + col];
   const float p = 1.0f / (1.0f + expf(-lv));
-  const float is_free = p < free_threshold ? 1.0f : 0.0f;
   out[(size_t)row * W + col] =
-      F_SUB(blur, F_MUL(F_MUL(free_penalty, is_free), F_SUB(1.0f, blur)));
+      field_value(acc, p < free_threshold, free_penalty);
 }
 
 }  // namespace
@@ -82,11 +74,8 @@ extern "C" int slam2d_search_space(const float* logodds, float* scratch,
                                    const float* taps_host, int n_taps,
                                    float inv_occ_sat, float free_threshold,
                                    float free_penalty, void* stream) {
-  if (n_taps < 1 || n_taps > MAX_TAPS || n_taps % 2 == 0)
-    return (int)cudaErrorInvalidValue;
   Taps taps{};
-  for (int i = 0; i < n_taps; ++i) taps.k[i] = taps_host[i];
-  taps.n = n_taps;
+  if (!load_taps(&taps, taps_host, n_taps)) return (int)cudaErrorInvalidValue;
   const dim3 block(BX, BY);
   const dim3 blocks((W + BX - 1) / BX, (H + BY - 1) / BY);
   cudaStream_t s = (cudaStream_t)stream;

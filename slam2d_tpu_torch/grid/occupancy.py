@@ -1,9 +1,10 @@
-"""Log-odds occupancy grid as a fixed-shape [H, W] float32 tensor.
+"""Log-odds occupancy grid as a fixed-shape [H, W] tensor.
 
-Port of slam2d_tpu/grid/occupancy.py for the frontend slice: rows = y,
-cols = x, world-anchored at GridConfig.origin. Scan integration runs the
-hybrid inverse-sensor-model update (ops/update.py), which is what the JAX
-frontend resolves "auto" to on its accelerator.
+Port of slam2d_tpu/grid/occupancy.py for the frontend and the particle
+filter: rows = y, cols = x, world-anchored at GridConfig.origin. Scan
+integration runs the inverse-sensor-model updates of ops/update.py that
+the JAX package resolves "auto" to on its accelerator: the hybrid update
+for the frontend, the pure ISM update for the particle filter.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import torch
 
 from slam2d_tpu.config import GridConfig, SensorConfig
 from slam2d_tpu_torch.core.numerics import inv_f32
-from slam2d_tpu_torch.ops.update import update_hybrid
+from slam2d_tpu_torch.ops.update import update_hybrid, update_ism
 
 
 def make_grid(cfg: GridConfig, device):
@@ -39,6 +40,15 @@ def world_to_cell_float(xy, cfg: GridConfig):
 def world_to_cell(xy, cfg: GridConfig):
     """World (x, y) -> integer (row, col) cell index (not clipped)."""
     return torch.floor(world_to_cell_float(xy, cfg)).to(torch.int32)
+
+
+def cell_center_world(rc, cfg: GridConfig):
+    """Integer (row, col) -> float32 world (x, y) of the cell center."""
+    row = rc[..., 0].to(torch.float32)
+    col = rc[..., 1].to(torch.float32)
+    x = (col + 0.5) * cfg.resolution + cfg.origin_x
+    y = (row + 0.5) * cfg.resolution + cfg.origin_y
+    return torch.stack([x, y], dim=-1)
 
 
 @functools.cache
@@ -64,46 +74,77 @@ def window_origin_xy(cfg: GridConfig, origin_rc):
     )
 
 
-def integrate_scan(
-    logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig,
-    enable: float = 1.0, origin_xy=None, origin_rc=None, plain: bool = False,
-):
-    """Integrate one scan taken from `pose` into `logodds` (the full grid
-    or a window of it) and return the updated map.
-
-    `origin_rc` is the window's integer top-left cell (host ints) on the
-    config grid's lattice; like the JAX package's inverse-sensor-model
-    kernels it is turned into the equivalent float origin. `origin_xy`
-    gives that float origin directly; neither means the grid's own origin.
-
-    Only the hybrid update (wedge free carve + exact endpoint cells) is
-    ported: GridConfig.update_impl "auto" and "pallas_hybrid" select it.
-    Every other impl, and a field of view wider than pi (which the
-    hybrid kernel's unwrapped bearing test cannot cover), raises.
-    `plain=True` runs the kernel's plain version on a CUDA tensor too
-    (for checks only).
-    """
-    if cfg.update_impl not in ("auto", "pallas_hybrid"):
+def resolve_update_impl(
+    cfg: GridConfig, sensor: SensorConfig, auto_ctx: str = "frontend"
+) -> str:
+    """GridConfig.update_impl with "auto" resolved as the JAX package
+    resolves it on its accelerator: the pure inverse-sensor-model update
+    ("pallas") for the particle filter (`auto_ctx="pf"`), the hybrid
+    update ("pallas_hybrid") for the frontend. Only these two are ported;
+    every other impl, and a field of view wider than pi (which the
+    kernels' unwrapped bearing test cannot cover), raises."""
+    impl = cfg.update_impl
+    if impl == "auto":
+        impl = "pallas" if auto_ctx == "pf" else "pallas_hybrid"
+    if impl not in ("pallas", "pallas_hybrid"):
         raise NotImplementedError(
-            f"update_impl={cfg.update_impl!r}: only the hybrid update "
-            "('auto' / 'pallas_hybrid') is ported"
+            f"update_impl={cfg.update_impl!r}: only the inverse-sensor-model "
+            "updates ('auto', 'pallas', 'pallas_hybrid') are ported"
         )
     if sensor.fov_rad > math.pi + 1e-6:
         raise NotImplementedError(
             "field of view wider than pi needs the sparse update, which is "
             "not ported"
         )
+    return impl
+
+
+def update_constants(cfg: GridConfig, sensor: SensorConfig) -> dict:
+    """The grid and sensor constants the update kernels take."""
+    return dict(
+        resolution=cfg.resolution,
+        step=sensor.fov_rad / max(sensor.n_beams - 1, 1),
+        angle_min=sensor.angle_min, min_range=sensor.min_range,
+        max_range=sensor.max_range, l_free=cfg.l_free, l_occ=cfg.l_occ,
+        l_clamp=cfg.l_clamp,
+    )
+
+
+def integrate_scan(
+    logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig,
+    enable: float = 1.0, origin_xy=None, origin_rc=None, plain: bool = False,
+    auto_ctx: str = "frontend",
+):
+    """Integrate one scan taken from `pose` into `logodds` (the full grid
+    or a window of it) and return the updated map, a new tensor.
+
+    `origin_rc` is the window's integer top-left cell (host ints) on the
+    config grid's lattice; like the JAX package's inverse-sensor-model
+    kernels it is turned into the equivalent float origin. `origin_xy`
+    gives that float origin directly; neither means the grid's own origin.
+
+    `resolve_update_impl(cfg, sensor, auto_ctx)` picks the update: the
+    hybrid one (wedge free carve + exact endpoint cells) takes float32
+    maps; the ISM one (wedge free carve + the beams' arcs) float32 or
+    bfloat16 maps, accumulating in float32. `plain=True` runs the kernel's
+    plain version on a CUDA tensor too (for checks only).
+    """
+    impl = resolve_update_impl(cfg, sensor, auto_ctx)
     if origin_rc is not None:
         origin_xy = window_origin_xy(cfg, origin_rc)
     elif origin_xy is None:
         origin_xy = (cfg.origin_x, cfg.origin_y)
+    consts = update_constants(cfg, sensor)
+    if impl == "pallas":
+        out = logodds.clone()
+        update_ism(
+            out[None], pose[None], ranges, region=tuple(logodds.shape),
+            origin_xy=origin_xy, enable=enable, plain=plain, **consts,
+        )
+        return out
     return update_hybrid(
         logodds, pose, ranges, beam_angles(sensor, logodds.device),
-        origin_xy=origin_xy, resolution=cfg.resolution,
-        step=sensor.fov_rad / max(sensor.n_beams - 1, 1),
-        angle_min=sensor.angle_min, min_range=sensor.min_range,
-        max_range=sensor.max_range, l_free=cfg.l_free, l_occ=cfg.l_occ,
-        l_clamp=cfg.l_clamp, enable=enable, plain=plain,
+        origin_xy=origin_xy, enable=enable, plain=plain, **consts,
     )
 
 

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-All of `slam2d_tpu_torch/csrc/*.cu` is compiled by `nvcc` for sm_90a into
-one shared library with a plain C interface, on first use, and loaded
-with ctypes. The library lands in `slam2d_tpu_torch/_build/` (listed in
+Each of `slam2d_tpu_torch/csrc/*.cu` is compiled by its own `nvcc -c` for
+sm_90a, all of them started together, and the objects are linked into one
+shared library with a plain C interface, on first use, and loaded with
+ctypes. The library lands in `slam2d_tpu_torch/_build/` (listed in
 .gitignore) under a name keyed by a hash of the sources and flags, so an
 edited source builds anew and an unchanged one is reused. A build or load
 failure raises; there is no fallback.
@@ -29,23 +30,36 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # argtypes of every C entry point, in the order of its parameters
 _SIGNATURES = {
     # grid, out, pose, ranges, angles, H, W, B, ox, oy, res, step,
     # angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable, stream
     "slam2d_update_hybrid": [_P, _P, _P, _P, _P, _I, _I, _I]
     + [_F] * 11 + [_P],
+    # maps, is_bf16, poses, ranges, P, H, W, Hr, Wr, B, gox, goy, res,
+    # inv_res, step, half_step, angle_min, min_range, max_range, occ_tol,
+    # l_free, l_occ, l_clamp, enable, stream
+    "slam2d_update_ism": [_P, _I, _P, _P] + [_I] * 6 + [_F] * 14 + [_P],
     # S, pos_row, pos_col, valid, out, H, W, T, B, R, C, bilinear, stream
     "slam2d_score_offsets": [_P] * 5 + [_I] * 7 + [_P],
     # logodds, scratch, out, H, W, taps (host array), n_taps, 1/occ_sat,
     # free_threshold, free_penalty, stream
     "slam2d_search_space": [_P, _P, _P, _I, _I, _P, _I, _F, _F, _F, _P],
+    # maps, in_bf16, origins, out, out_bf16, P, Hm, Wm, win, taps (host
+    # array), n_taps, 1/occ_sat, free_logit, free_penalty, stream
+    "slam2d_window_field": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I]
+    + [_F] * 3 + [_P],
+    # E, out, elem_bytes, G, R, C, win, stream
+    "slam2d_shift_stack": [_P, _P] + [_I] * 5 + [_P],
+    # x, out, ancestors, P, row_bytes, stream
+    "slam2d_gather_rows": [_P, _P, _P, _I, _L, _P],
 }
 
 
@@ -72,24 +86,38 @@ def library_path() -> pathlib.Path:
     return BUILD_DIR / f"libslam2d_kernels_{h.hexdigest()[:16]}.so"
 
 
-def _build(out: pathlib.Path) -> None:
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build into a temporary name and rename, so a concurrent or cut-off
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side; raise with the output of the first
+    that fails, after all have ended."""
+    procs = [
+        subprocess.Popen(
+            c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, out in zip(cmds, procs, outs):
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}"
+                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}"
             )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+
+
+def _build(out: pathlib.Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # build in a temporary directory and rename the library into place, so
+    # a concurrent or cut-off build never leaves a half-written library
+    # under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        nvcc = _nvcc()
+        objs = [os.path.join(tmp, src.stem + ".o") for src in _sources()]
+        _run_all([
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            for src, obj in zip(_sources(), objs)
+        ])
+        lib = os.path.join(tmp, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
 
 
 @functools.cache

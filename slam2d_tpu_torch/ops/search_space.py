@@ -25,13 +25,14 @@ _MAX_TAPS = 63  # csrc/search_space.cu passes the taps by value
 
 
 def separable_blur(img, taps: np.ndarray):
-    """Zero-padded separable blur, axis 0 then axis 1, each accumulating
-    from tap 0 upward (the JAX package's _separable_blur)."""
+    """Zero-padded separable blur of the last two axes of `img` (rows,
+    then columns), each accumulating from tap 0 upward (the JAX package's
+    _separable_blur, batched over any leading axes)."""
     hw = len(taps) // 2
 
     def blur_axis(x, axis):
         size = x.shape[axis]
-        pad = (0, 0, hw, hw) if axis == 0 else (hw, hw, 0, 0)
+        pad = (0, 0, hw, hw) if axis == -2 else (hw, hw, 0, 0)
         xp = F.pad(x, pad)
         acc = None
         for i, kv in enumerate(taps):
@@ -39,7 +40,7 @@ def separable_blur(img, taps: np.ndarray):
             acc = term if acc is None else acc + term
         return acc
 
-    return blur_axis(blur_axis(img, 0), 1)
+    return blur_axis(blur_axis(img, -2), -1)
 
 
 def search_space_plain(logodds, taps, occ_sat, free_threshold, free_penalty):

@@ -1,25 +1,31 @@
-"""Hybrid inverse-sensor-model log-odds update of a map window.
+"""Inverse-sensor-model log-odds updates of a map window.
 
-Kernel: csrc/update_hybrid.cu, the port of
-slam2d_tpu/ops/pallas_update.py:_update_kernel, variant "hybrid". The
-contract is `pallas_dense_update(..., variant="hybrid")`:
+Kernels: csrc/update_hybrid.cu and csrc/update_ism.cu, the ports of
+slam2d_tpu/ops/pallas_update.py:_update_kernel, variants "hybrid" (the
+frontend's update) and "ism" (the particle filter's). The contract is
+`pallas_dense_update(..., variant=...)`:
 
 - a cell is FREE if some beam b has the cell's bearing within half a beam
   step of b's angle and the cell is nearer than rmin3[b] - res, where
   rmin3[b] is the min valid range of b and its two neighbours (ends
   replicated);
-- it gains l_occ once for every hitting beam whose floor-exact endpoint
-  cell it is (the counts stack);
-- out = clip(g + (l_free * free + l_occ * count) * enable, +-l_clamp).
+- "hybrid": it gains l_occ once for every hitting beam whose floor-exact
+  endpoint cell it is (the counts stack);
+- "ism": it is OCCUPIED if some hitting beam b has the cell's bearing
+  within 0.75 * res / d of b's angle and |d - r_b| <= 0.75 * res (the
+  beam's arc), and gains l_occ once;
+- out = clip(g + (l_free * free + l_occ * occ) * enable, +-l_clamp),
+  in float32, stored in the map's dtype.
 
-`update_hybrid` sends a CUDA tensor to the kernel and a CPU tensor to
-`update_hybrid_plain`; anything else raises.
+`update_hybrid` and `update_ism` send a CUDA tensor to the kernel and a
+CPU tensor to their plain versions; anything else raises.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from slam2d_tpu_torch.core.numerics import inv_f32
@@ -149,3 +155,164 @@ def update_hybrid(
 
 
 update_hybrid.launches = 0
+
+
+def _beam_tables(ranges, min_range, max_range):
+    """(r_hit, rmin3) [B]: a hitting beam's clipped range (else -1), and
+    the min valid clipped range of each beam and its two neighbours
+    (else -1), as the TPU kernel's wrapper builds them."""
+    r = torch.clamp(ranges, 0.0, max_range)
+    valid = (ranges > min_range) & torch.isfinite(ranges)
+    r_hit = torch.where(valid & (ranges < max_range), r, -1.0)
+    rv = torch.where(valid, r, math.inf)
+    rmin3 = torch.minimum(
+        rv,
+        torch.minimum(
+            torch.cat([rv[:1], rv[:-1]]), torch.cat([rv[1:], rv[-1:]])
+        ),
+    )
+    return r_hit, torch.where(valid & torch.isfinite(rmin3), rmin3, -1.0)
+
+
+def window_origins(poses, region, shape, origin_xy, resolution):
+    """Each particle's update window: integer top-left cells [P] x 2 (the
+    pose's cell minus half the window, clamped into the map, as
+    grid/window.py:window_origin does) and float world origins [P] x 2
+    (ox + f32(c0) * res, as integrate_scan derives them)."""
+    (Hr, Wr), (H, W) = region, shape
+    inv_res = inv_f32(resolution)
+    cr = torch.floor((poses[:, 1] - origin_xy[1]) * inv_res).to(torch.int64)
+    cc = torch.floor((poses[:, 0] - origin_xy[0]) * inv_res).to(torch.int64)
+    r0 = torch.clamp(cr - Hr // 2, 0, H - Hr)
+    c0 = torch.clamp(cc - Wr // 2, 0, W - Wr)
+    ox = origin_xy[0] + c0.to(torch.float32) * resolution
+    oy = origin_xy[1] + r0.to(torch.float32) * resolution
+    return (r0, c0), (ox, oy)
+
+
+def update_ism_plain(
+    maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
+    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
+):
+    """Plain PyTorch version of the kernel, same float32 operations, in
+    place. The occupied test loops over every beam, as the TPU kernel
+    does; the free test checks the two beams whose slots can hold the
+    cell's bearing (see update_hybrid_plain)."""
+    P, H, W = maps.shape
+    Hr, Wr = region
+    B = ranges.shape[0]
+    dev = maps.device
+    (r0, c0), (ox, oy) = window_origins(
+        poses, region, (H, W), origin_xy, resolution
+    )
+    pidx = torch.arange(P, device=dev)[:, None, None]
+    rows = (r0[:, None] + torch.arange(Hr, device=dev))[:, :, None]
+    cols = (c0[:, None] + torch.arange(Wr, device=dev))[:, None, :]
+    g = maps[pidx, rows, cols].to(torch.float32)            # [P, Hr, Wr]
+
+    r_hit, rmin3 = _beam_tables(ranges, min_range, max_range)
+    col = torch.arange(Wr, dtype=torch.float32, device=dev)
+    row = torch.arange(Hr, dtype=torch.float32, device=dev)
+    px, py, pth = (poses[:, i, None, None] for i in range(3))
+    cx = ox[:, None, None] + ((col + 0.5) * resolution)[None, None, :] - px
+    cy = oy[:, None, None] + ((row + 0.5) * resolution)[None, :, None] - py
+    d = torch.sqrt(cx * cx + cy * cy)
+    phi = torch.atan2(cy.expand(P, Hr, Wr), cx.expand(P, Hr, Wr))
+    phi = phi - pth - angle_min
+    phi = torch.remainder(phi + math.pi, 2 * math.pi) - math.pi
+
+    k0 = torch.floor(phi / step)
+    free = torch.zeros_like(d, dtype=torch.bool)
+    for k in (k0, k0 + 1):
+        kb = torch.clamp(k, 0, B - 1).to(torch.int64)
+        free |= (
+            (k >= 0) & (k <= B - 1)
+            & (torch.abs(phi - kb.to(torch.float32) * step) <= 0.5 * step)
+            & (d < rmin3[kb] - resolution)
+        )
+    occ_tol = float(np.float32(0.75 * resolution))
+    # a true division (a Python number over a tensor would be rounded
+    # twice, through the tensor's reciprocal)
+    tol = torch.full_like(d, occ_tol) / torch.clamp(d, min=1e-6)
+    ab = torch.arange(B, dtype=torch.float32, device=dev) * step
+    occ = torch.zeros_like(free)
+    for b in range(B):
+        occ |= (torch.abs(phi - ab[b]) <= tol) & (
+            torch.abs(d - r_hit[b]) <= occ_tol
+        )
+
+    upd = (l_free * free.to(torch.float32) + l_occ * occ.to(torch.float32))
+    out = torch.clamp(g + upd * enable, -l_clamp, l_clamp)
+    maps[pidx, rows, cols] = out.to(maps.dtype)
+    return maps
+
+
+def _check_ism(maps, poses, ranges, region):
+    dev = maps.device
+    if maps.dim() != 3 or maps.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(
+            "maps must be a [P, H, W] float32 or bfloat16 tensor, got "
+            f"{maps.dtype} {tuple(maps.shape)}"
+        )
+    P, H, W = maps.shape
+    B = ranges.shape[0] if ranges.dim() == 1 else -1
+    for name, t, shape in (("poses", poses, (P, 3)), ("ranges", ranges, (B,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} must be float32 of shape {shape}, got {t.dtype} "
+                f"{tuple(t.shape)}"
+            )
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, maps on {dev}")
+    for name, t in (("maps", maps), ("poses", poses), ("ranges", ranges)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= B <= _MAX_BEAMS:
+        raise ValueError(f"need 1..{_MAX_BEAMS} beams, got {B}")
+    if not (1 <= region[0] <= H and 1 <= region[1] <= W):
+        raise ValueError(f"window {region} does not fit maps of {H}x{W}")
+    if not 1 <= P <= 65535:
+        raise ValueError(f"need 1..65535 maps, got {P}")
+
+
+def update_ism(
+    maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
+    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, plain=False,
+):
+    """Integrate one scan into every particle's map, IN PLACE; returns
+    `maps` [P, H, W] (float32 or bfloat16).
+
+    Particle p's scan is taken from `poses[p]`; it updates the
+    `region` = (Hr, Wr) window of maps[p] around that pose, placed as
+    `window_origins` says (a region the size of the map is the whole map).
+    `origin_xy` is the float world origin of cell (0, 0) of the maps. The
+    other arguments are the sensor and grid constants. `plain=True` runs
+    the plain version on a CUDA tensor too: it is meant for checks of the
+    kernel against it, not for use."""
+    _check_ism(maps, poses, ranges, region)
+    kw = dict(
+        region=region, origin_xy=origin_xy, resolution=resolution, step=step,
+        angle_min=angle_min, min_range=min_range, max_range=max_range,
+        l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
+    )
+    if plain or maps.device.type == "cpu":
+        return update_ism_plain(maps, poses, ranges, **kw)
+    if maps.device.type != "cuda":
+        raise ValueError(f"no update kernel for device {maps.device}")
+    P, H, W = maps.shape
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    lib = _build.load_library()
+    err = lib.slam2d_update_ism(
+        maps.data_ptr(), int(maps.dtype == torch.bfloat16), poses.data_ptr(),
+        ranges.data_ptr(), P, H, W, region[0], region[1], ranges.shape[0],
+        origin_xy[0], origin_xy[1], resolution, inv_f32(resolution), step,
+        f32(0.5 * f32(step)), angle_min, min_range, max_range,
+        f32(0.75 * resolution), l_free, l_occ, l_clamp, enable,
+        _build.stream_handle(maps.device),
+    )
+    _build.check(err, "slam2d_update_ism")
+    update_ism.launches += 1
+    return maps
+
+
+update_ism.launches = 0

@@ -1,0 +1,84 @@
+"""The configurations and synthetic logs of the JAX package's bench.py
+(the frontend) and bench_pf.py (FastSLAM-100, its defaults), for the
+scripts that drive the port on a GPU (chip_smoke.py, scripts/profile_torch.py),
+and the card's name and power limit as nvidia-smi reports them.
+"""
+
+from __future__ import annotations
+
+import subprocess
+
+import numpy as np
+
+from slam2d_tpu.config import (
+    FrontendConfig,
+    GridConfig,
+    MatcherConfig,
+    PFConfig,
+    SensorConfig,
+)
+from slam2d_tpu.data.synth import SynthWorld, simulate_log
+
+LOG_SEED = 0
+_ROUTE = [[3.0, 3.0], [3.0, 8.0], [8.0, 8.0], [12.0, 3.5], [16.0, 3.5],
+          [17.0, 9.0], [12.0, 14.0], [9.0, 17.0], [4.0, 16.0], [3.0, 4.0]]
+
+
+def bench_config():
+    """bench.py's frontend config (chunk 64)."""
+    return FrontendConfig(
+        sensor=SensorConfig(n_beams=180, max_range=12.0),
+        grid=GridConfig(
+            height=1024, width=1024, resolution=0.05, ray_samples=256,
+            center_x=10.0, center_y=10.0,
+        ),
+        matcher=MatcherConfig(search_xy=0.3, search_theta=0.15, n_theta=13),
+        chunk=64,
+        match_min_motion=0.25,
+    )
+
+
+def bench_log(sensor):
+    """bench.py's synthetic log (seed 0, 0.05 m steps, 1078 scans)."""
+    return simulate_log(
+        SynthWorld.box_rooms(20.0), np.array(_ROUTE), sensor, step=0.05,
+        seed=LOG_SEED,
+    )
+
+
+def pf_bench_config():
+    """bench_pf.py's default config: FastSLAM-100 on bf16 512^2 maps."""
+    cfg = FrontendConfig(
+        sensor=SensorConfig(n_beams=180, max_range=12.0),
+        grid=GridConfig(
+            height=512, width=512, resolution=0.1, ray_samples=128,
+            center_x=10.0, center_y=10.0,
+        ),
+        matcher=MatcherConfig(search_xy=0.25, search_theta=0.12, n_theta=9),
+        chunk=32,
+        bootstrap_dist=2.0,
+    )
+    pf = PFConfig(
+        n_particles=100, map_dtype="bfloat16", noise_xy=0.01,
+        noise_theta=0.005,
+    )
+    return cfg, pf
+
+
+def pf_bench_log(sensor):
+    """bench_pf.py's synthetic log (seed 0, 0.05 m steps, 653 scans): the
+    first seven waypoints of bench.py's route."""
+    return simulate_log(
+        SynthWorld.box_rooms(20.0), np.array(_ROUTE[:7]), sensor, step=0.05,
+        seed=LOG_SEED,
+    )
+
+
+def card() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return out[0]

@@ -1,0 +1,322 @@
+"""PyTorch port: the particle filter's kernels against the JAX package's
+TPU kernels, run on the CPU in interpret mode (the port's plain versions).
+
+- ISM update (ops/update.py:update_ism) against the JAX particle filter's
+  windowed update, pallas_dense_update(variant="ism"), on float32 and
+  bfloat16 maps, with windows clamped at the map's edges. The port's
+  atan2 replaces the TPU kernel's polynomial one, so the contract is the
+  update's: at least 99.95% of cells bit-identical, every other cell off
+  by one l_free or l_occ (rounded to the map's dtype).
+- window field (ops/field.py) against fused_window_field, with origins off
+  every edge of the map: float32 within 1e-6; a bfloat16 field is the
+  float32 one rounded once, so it may differ by one bf16 ulp where the
+  float32 sums differ in their last bit.
+- shift stack (ops/stack.py) and row gather (ops/gather.py): bit-exact.
+"""
+
+import dataclasses
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam2d_tpu.config import FrontendConfig, GridConfig, MatcherConfig, PFConfig
+from slam2d_tpu.grid.window import blur_halo_cells
+from slam2d_tpu.match.correlative import _gaussian_kernel_1d
+from slam2d_tpu.ops.pallas_field import fused_field_supported, fused_window_field
+from slam2d_tpu.ops.pallas_gather import gather_rows_pallas
+from slam2d_tpu.ops.pallas_stack import shift_stack_pallas
+from slam2d_tpu.pf import fastslam as jfs
+from slam2d_tpu_torch.ops import field as tfield
+from slam2d_tpu_torch.ops import gather as tgather
+from slam2d_tpu_torch.ops import stack as tstack
+from slam2d_tpu_torch.ops import update as tupd
+from slam2d_tpu_torch.pf import fastslam as tfs
+from torch_parity import SENSOR, synth_ranges
+
+torch.set_num_threads(1)
+
+GCFG = GridConfig(
+    height=320, width=320, resolution=0.1, center_x=10.0, center_y=10.0,
+    update_impl="pallas",
+)
+CFG = FrontendConfig(sensor=SENSOR, grid=GCFG)
+# one pose whose 256^2 update window clamps at the low edges, one inside,
+# one clamping at the high edges
+POSES = np.array(
+    [[0.5, 0.6, 0.3], [10.2, 9.7, -1.1], [19.4, 19.3, 2.5]], np.float32
+)
+DTYPES = {"float32": (jnp.float32, torch.float32),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _maps(P, H, W, seed, jdtype, lo=-5.0, hi=5.0):
+    """Seeded maps as a (JAX array, torch tensor) pair of one dtype."""
+    m = np.random.default_rng(seed).uniform(lo, hi, (P, H, W)).astype(np.float32)
+    jm = jnp.asarray(m).astype(jdtype)
+    bits = np.array(jm.astype(jnp.float32))  # exact for bf16 values
+    tdtype = DTYPES["bfloat16" if jdtype == jnp.bfloat16 else "float32"][1]
+    return jm, torch.from_numpy(bits).to(tdtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ism_update_matches_jax_windowed_update(dtype):
+    jdtype, _ = DTYPES[dtype]
+    jm, tm = _maps(3, 320, 320, 0, jdtype)
+    ranges = synth_ranges(POSES[1])
+    ranges[::23] = np.nan  # invalid beams
+    fn = jax.jit(jax.vmap(
+        lambda g, p: jfs._windowed_update(g, p, jnp.asarray(ranges), CFG)
+    ))
+    ref = np.asarray(fn(jm, jnp.asarray(POSES)).astype(jnp.float32))
+    before = tm.float().numpy().copy()
+    out = tfs._update_all(
+        tm, torch.from_numpy(POSES), torch.from_numpy(ranges), CFG,
+        PFConfig(n_particles=3),
+    )
+    assert out is tm and tm.dtype == DTYPES[dtype][1]   # in place
+    out = tm.float().numpy()
+    diff = np.abs(out - ref)
+    n_diff = int((diff != 0).sum())
+    print(f"cells differing: {n_diff} of {ref.size}")
+    assert n_diff <= 0.0005 * ref.size
+    off = diff[diff != 0]
+    atol = 1e-5 if dtype == "float32" else 0.07   # bf16 ulp at |l| <= 10
+    one_step = np.isclose(off, abs(GCFG.l_free), atol=atol) | np.isclose(
+        off, GCFG.l_occ, atol=atol
+    )
+    assert one_step.all(), off[~one_step]
+    for p in range(3):
+        assert (out[p] != before[p]).sum() > 1000
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["pallas", "auto"])
+def test_integrate_scan_ism_matches_jax(impl, dtype):
+    """integrate_scan of one map window at a clamped integer origin:
+    update_impl "pallas", and "auto" in the particle filter's context
+    (auto_ctx="pf", which resolves to it as on the accelerator), against
+    the JAX package's integrate_scan with "pallas" (interpret mode)."""
+    from slam2d_tpu.grid.occupancy import integrate_scan
+    from slam2d_tpu_torch.grid import occupancy as tocc
+
+    jdtype, tdtype = DTYPES[dtype]
+    jm, tm = _maps(1, 320, 320, 4, jdtype)
+    r0 = c0 = 64
+    win_j, win_t = jm[0, r0:, c0:], tm[0, r0:, c0:].contiguous()
+    ranges = synth_ranges(POSES[2])
+    ref = np.asarray(integrate_scan(
+        win_j, jnp.asarray(POSES[2]), jnp.asarray(ranges), GCFG, SENSOR,
+        origin_rc=(jnp.int32(r0), jnp.int32(c0)),
+    ).astype(jnp.float32))
+    gcfg = dataclasses.replace(GCFG, update_impl=impl)
+    assert tocc.resolve_update_impl(gcfg, SENSOR, auto_ctx="pf") == "pallas"
+    out = tocc.integrate_scan(
+        win_t, torch.from_numpy(POSES[2]), torch.from_numpy(ranges), gcfg,
+        SENSOR, origin_rc=(r0, c0), auto_ctx="pf",
+    )
+    assert out.dtype == tdtype and out.data_ptr() != win_t.data_ptr()
+    out = out.float().numpy()
+    diff = np.abs(out - ref)
+    assert (diff != 0).mean() <= 0.0005
+    atol = 1e-5 if dtype == "float32" else 0.07   # bf16 ulp at |l| <= 10
+    off = diff[diff != 0]
+    assert (np.isclose(off, abs(GCFG.l_free), atol=atol)
+            | np.isclose(off, GCFG.l_occ, atol=atol)).all(), off
+    assert (out != win_t.float().numpy()).sum() > 1000
+
+
+def test_cell_center_world_matches_jax():
+    """Bit-exact against the JAX function run eagerly; within one float32
+    ulp when jitted, where XLA contracts the multiply-add into an FMA."""
+    from slam2d_tpu.grid.occupancy import cell_center_world
+    from slam2d_tpu_torch.grid import occupancy as tocc
+
+    rc = np.random.default_rng(6).integers(-40, 360, (64, 2)).astype(np.int32)
+    out = tocc.cell_center_world(torch.from_numpy(rc), GCFG).numpy()
+    np.testing.assert_array_equal(
+        out, np.asarray(cell_center_world(jnp.asarray(rc), GCFG))
+    )
+    jitted = jax.jit(cell_center_world, static_argnums=1)
+    ref = np.asarray(jitted(jnp.asarray(rc), GCFG))
+    np.testing.assert_allclose(out, ref, rtol=0, atol=np.spacing(np.float32(64)))
+
+
+def test_ism_windows_follow_window_origin():
+    """The kernel's per-particle window origin is grid/window.py's
+    window_origin of the pose's cell (clamped), and its float origin is
+    ox + f32(c0) * res."""
+    from slam2d_tpu.grid.occupancy import world_to_cell
+    from slam2d_tpu.grid.window import window_origin
+
+    (r0, c0), (ox, oy) = tupd.window_origins(
+        torch.from_numpy(POSES), (256, 256), (320, 320),
+        (GCFG.origin_x, GCFG.origin_y), GCFG.resolution,
+    )
+    for p in range(3):
+        center = jax.jit(world_to_cell, static_argnums=1)(
+            jnp.asarray(POSES[p, :2]), GCFG
+        )
+        jr, jc = window_origin(center, 256, 320, 320)
+        assert (int(r0[p]), int(c0[p])) == (int(jr), int(jc))
+        assert float(ox[p]) == float(
+            np.float32(GCFG.origin_x) + np.float32(int(jc)) * np.float32(0.1)
+        )
+    assert (int(r0[0]), int(c0[0])) == (0, 0)
+    assert (int(r0[2]), int(c0[2])) == (64, 64)
+
+
+def _field_args(mcfg, res):
+    hw = blur_halo_cells(mcfg, res)
+    taps = _gaussian_kernel_1d(mcfg.sigma_m / res, hw)
+    thr = mcfg.free_threshold
+    return taps, dict(
+        inv_sat=1.0 / mcfg.occ_evidence_sat,
+        free_logit=math.log(thr / (1.0 - thr)),
+        free_penalty=mcfg.free_penalty,
+    )
+
+
+@pytest.mark.parametrize(
+    "map_dtype,out_dtype",
+    [("float32", "float32"), ("bfloat16", "float32"),
+     ("bfloat16", "bfloat16")],
+)
+def test_window_field_matches_fused_window_field(map_dtype, out_dtype):
+    P, Hm, Wm, win = 5, 128, 256, 96
+    mcfg = MatcherConfig(sigma_m=0.1)
+    jm, tm = _maps(P, Hm, Wm, 1, DTYPES[map_dtype][0], -4.0, 4.0)
+    # interior, off the top-left, off the bottom-right, half off the
+    # bottom, beyond the top-right corner
+    origins = np.array(
+        [[10, 50], [-20, -30], [Hm - 40, Wm - 40], [Hm - win // 2, 5],
+         [-90, Wm - 8]], np.int32,
+    )
+    taps, kw = _field_args(mcfg, 0.1)
+    assert fused_field_supported(Hm, Wm, win, 8)
+    ref = fused_window_field(
+        jm, jnp.asarray(origins), win, tuple(float(t) for t in taps),
+        kw["inv_sat"], kw["free_logit"], kw["free_penalty"],
+        out_dtype=DTYPES[out_dtype][0], interpret=True,
+    )
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = tfield.window_field(
+        tm, torch.from_numpy(origins), win, taps,
+        out_dtype=DTYPES[out_dtype][1], **kw,
+    )
+    assert out.dtype == DTYPES[out_dtype][1] and out.shape == (P, win, win)
+    out = out.float().numpy()
+    if out_dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    else:
+        diff = np.abs(out - ref)
+        assert (diff != 0).mean() <= 1e-3
+        assert (diff <= 2.0 ** -8 * np.maximum(np.abs(ref), 2.0 ** -8)).all()
+    # off the map and beyond the blur halo (4 cells) of its edge
+    assert (out[1, :16, :] == 0).all() and (out[1, :, :26] == 0).all()
+    assert np.abs(out[0]).max() > 0.5
+
+
+def test_aligned_origins_match_jax_aligned_window():
+    """The port's window origins and anchors against the JAX package's
+    aligned_window: the window read at the origin (cells off the map 0)
+    is its window, bit for bit."""
+    from slam2d_tpu.pf.shared_refine import aligned_window as jaligned
+    from slam2d_tpu_torch.pf.shared_refine import aligned_origins
+
+    gcfg = GridConfig(height=64, width=128, resolution=0.1)
+    g = np.random.default_rng(2).uniform(-3, 3, (64, 128)).astype(np.float32)
+    fn = jax.jit(jaligned, static_argnums=(2, 3))
+    priors = np.array(
+        [[1.0, 0.5, 0.3], [0.2, 0.1, 0.3], [12.0, 6.0, 0.3], [-3.0, 2.0, 0.3]],
+        np.float32,
+    )
+    origins, anchors = aligned_origins(torch.from_numpy(priors), gcfg, 32)
+    assert origins.dtype == torch.int32 and origins.shape == (4, 2)
+    windows = tfield.unclamped_windows(
+        torch.from_numpy(g)[None].expand(4, -1, -1), origins, 32
+    )
+    for p, prior in enumerate(priors):
+        ref_w, ref_a = fn(jnp.asarray(g), jnp.asarray(prior), gcfg, 32)
+        np.testing.assert_array_equal(windows[p].numpy(), np.asarray(ref_w))
+        # XLA's CPU backend fuses the anchor's ox + (col + 0.5) * res into
+        # one FMA; the port rounds the product and the sum as written
+        # (apart by at most one float32 ulp of the operands, |ox| = 6.4)
+        np.testing.assert_allclose(
+            anchors[p].numpy(), np.asarray(ref_a), rtol=0, atol=1e-6
+        )
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("win,R,C", [(48, 5, 5), (40, 3, 7)])
+def test_shift_stack_matches_pallas_bit_exact(dtype, win, R, C):
+    jdtype, _ = DTYPES[dtype]
+    jE, tE = _maps(3, win, win, 3, jdtype, 0.0, 1.0)
+    ref = np.asarray(
+        shift_stack_pallas(jE, R, C, interpret=True).astype(jnp.float32)
+    )
+    out = tstack.shift_stack(tE, R, C)
+    assert out.dtype == tE.dtype and out.shape == (3, R * C, win, win)
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_rows_matches_pallas_bit_exact(dtype):
+    jdtype, _ = DTYPES[dtype]
+    jx, tx = _maps(6, 16, 64, 4, jdtype)
+    anc = np.array([5, 5, 0, 2, 2, 2], np.int32)   # repeats, one row kept
+    ref = np.asarray(
+        gather_rows_pallas(jx, jnp.asarray(anc), interpret=True)
+        .astype(jnp.float32)
+    )
+    out = tgather.gather_rows(tx, torch.from_numpy(anc))
+    assert out.dtype == tx.dtype and out.data_ptr() != tx.data_ptr()
+    np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+def _field(maps, origins=None):
+    origins = torch.zeros(4, 2, dtype=torch.int32) if origins is None else origins
+    return tfield.window_field(
+        maps, origins.to(maps.device), 16, np.ones(3, np.float32),
+        inv_sat=0.5, free_logit=-0.2, free_penalty=0.6,
+    )
+
+
+def _ism(maps, poses=None, region=(16, 16)):
+    poses = torch.zeros(4, 3) if poses is None else poses
+    return tupd.update_ism(
+        maps, poses.to(maps.device), torch.ones(180, device=maps.device),
+        region=region, origin_xy=(0.0, 0.0), resolution=0.1, step=0.01,
+        angle_min=-1.5, min_range=0.1, max_range=12.0, l_free=-0.4,
+        l_occ=0.85, l_clamp=10.0,
+    )
+
+
+_MAPS = torch.zeros(4, 32, 32)
+_ANC = torch.zeros(4, dtype=torch.int32)
+BAD_CALLS = {
+    "field_dtype": lambda: _field(_MAPS.double()),
+    "field_origins_dtype": lambda: _field(_MAPS, torch.zeros(4, 2).long()),
+    "field_noncontiguous": lambda: _field(torch.zeros(4, 32, 64)[:, :, ::2]),
+    "field_device": lambda: _field(_MAPS.to("meta")),
+    "ism_dtype": lambda: _ism(_MAPS.half()),
+    "ism_poses_shape": lambda: _ism(_MAPS, torch.zeros(4, 2)),
+    "ism_region": lambda: _ism(_MAPS, region=(64, 16)),
+    "ism_device": lambda: _ism(_MAPS.to("meta")),
+    "gather_anc_dtype": lambda: tgather.gather_rows(_MAPS, _ANC.long()),
+    "gather_anc_shape": lambda: tgather.gather_rows(_MAPS, _ANC[:3]),
+    "gather_device": lambda: tgather.gather_rows(
+        _MAPS.to("meta"), _ANC.to("meta")
+    ),
+    "stack_shape": lambda: tstack.shift_stack(torch.zeros(3, 8, 9), 3, 3),
+    "stack_device": lambda: tstack.shift_stack(_MAPS.to("meta"), 3, 3),
+}
+
+
+@pytest.mark.parametrize("bad", sorted(BAD_CALLS))
+def test_pf_kernel_wrappers_reject_bad_input(bad):
+    with pytest.raises(ValueError):
+        BAD_CALLS[bad]()

@@ -41,6 +41,24 @@ def test_se2_matches_jax(name):
     np.testing.assert_allclose(out, ref, rtol=0, atol=2e-5)
 
 
+BROADCASTS = {
+    # the particle filter's forms: [P, 3] poses with one [1, 3] delta
+    "compose_particles_delta": (lambda m, a, b: m.compose(a, b[None, 0])),
+    "compose_delta_particles": (lambda m, a, b: m.compose(a[0], b)),
+    "between_one_to_many": (lambda m, a, b: m.between(a[0], b)),
+    "wrap_angle_particles": (lambda m, a, b: m.wrap_angle(a[:, 2:3] - b[:, 2])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BROADCASTS))
+def test_se2_broadcasts_over_particles(name):
+    fn = BROADCASTS[name]
+    ref = np.asarray(fn(jse2, jnp.asarray(A), jnp.asarray(B)))
+    out = fn(tse2, torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    assert out.shape == ref.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=2e-5)
+
+
 def test_wrap_angle_range():
     th = torch.linspace(-50.0, 50.0, 10001)
     w = tse2.wrap_angle(th)
