@@ -9,10 +9,13 @@ nvcc; it imports nothing of JAX. Phases, each of which raises on failure:
 1. the card: its name and power limit (nvidia-smi);
 2. the build of every kernel in slam2d_tpu_torch/csrc/ (nvcc, sm_90a, one
    nvcc per source, all started together);
-3. each kernel against its plain PyTorch version on the card, at its main
-   path's shapes (the frontend's and FastSLAM-100's), with inputs made
-   from a seed; both timed with CUDA events (median of 30 launches after
-   warmup);
+3. each of the ten kernels against its plain PyTorch version on the card,
+   at its main path's shapes (the frontend's, FastSLAM-100's,
+   FastSLAM-1000's, FastSLAM-16's and the exact-ray frontend's), with
+   inputs made from a seed; both timed with CUDA events (median of 30
+   launches after warmup), beside the least time the card could take
+   (bytes at 3.35 TB/s or operations at the float32 peak) and, where one
+   PyTorch call computes the same function, that call's time;
 4. the frontend at bench.py's config and log (1024^2 grid at 0.05 m, 180
    beams, 1078 scans, chunk 64): finite trajectory, ATE below odometry,
    every kernel launched (updates, search-space builds and scorer passes
@@ -28,7 +31,20 @@ nvcc; it imports nothing of JAX. Phases, each of which raises on failure:
    against odometry's, host reads per scan;
 7. the first 8 refine events of that run, each from the same state with
    the same draws through the kernels and through their plain versions:
-   poses, log-weights and maps must agree within the stated tolerances.
+   poses, log-weights and maps must agree within the stated tolerances;
+8. FastSLAM-1000 (`bench_pf.py --particles 1000`: the shared update,
+   kernel 8, and the shared refine) over the same log: the phase 6 checks,
+   with the apply and the image build (one ISM launch) once per update
+   event; scans/s, seconds, peak device memory;
+9. its first 4 update events after the bootstrap, kernel step against
+   plain step from the same state and draws (phase 7's tolerances);
+10. FastSLAM-16 (`bench_pf.py --particles 16`: the per-particle refine,
+   kernel 5) over the same log: the phase 6 checks, with one field launch
+   and one correlation launch per pass per refine event; then kernel step
+   against plain step at its first 8 refine events;
+11. the frontend with update_impl="pallas_ray" (kernel 1 "ray") over
+   bench.py's log: finite trajectory, one ray launch per update event,
+   ATE at most 1 m, printed beside odometry's and phase 4's.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -43,8 +59,8 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from slam2d_tpu.metrics import ate_rmse
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.window import (
     blur_halo_cells,
@@ -53,21 +69,28 @@ from slam2d_tpu_torch.grid.window import (
     update_window_cells,
 )
 from slam2d_tpu_torch.match import correlative
+from slam2d_tpu_torch.metrics import ate_rmse
 from slam2d_tpu_torch.ops import _build
+from slam2d_tpu_torch.ops.apply import shared_apply
+from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.gather import gather_rows
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space
 from slam2d_tpu_torch.ops.stack import shift_stack
-from slam2d_tpu_torch.ops.update import update_hybrid, update_ism
+from slam2d_tpu_torch.ops.update import update_hybrid, update_ism, update_ray
 from slam2d_tpu_torch.pf import fastslam
 from slam2d_tpu_torch.pf.shared_refine import endpoint_splat
+from slam2d_tpu_torch.pf.shared_update import apply_operands
 from slam2d_tpu_torch.run.bench_configs import (
     bench_config,
     bench_log,
     card,
+    pf1000_bench_config,
     pf_bench_config,
     pf_bench_log,
+    pf_per_particle_bench_config,
+    ray_bench_config,
 )
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
 from slam2d_tpu_torch.run.frontend import frontend_step, run_frontend
@@ -83,6 +106,13 @@ PF_POSE_TOL = 2e-4        # phase 7, m and rad
 PF_LOGW_TOL = 3e-3        # phase 7: 30 x score 5e-5 on two particles
 MAP_CELL_SHARE = 0.0005   # cells an update may flip (one l_free / l_occ)
 BF16_STEP_ATOL = 0.07     # a flipped bf16 cell: the step +- one bf16 ulp
+PF1000_PARITY_UPDATES = 4  # phase 9
+CORR_RTOL = 1e-5          # kernel 5: |err| <= this x sum|E| x max|Sp|
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
+# least time of a call is the larger of bytes / HBM rate and operations /
+# float32 rate (no kernel here runs on the tensor cores)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
 
 
 def _cuda_ms(fn, runs: int = KERNEL_TIMING_RUNS, warmup: int = 3) -> float:
@@ -100,6 +130,44 @@ def _cuda_ms(fn, runs: int = KERNEL_TIMING_RUNS, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _bound(n_bytes: float, n_ops: float) -> dict:
+    """bound_ms, bound_by: the larger of the bytes at the HBM rate and the
+    operations at the float32 rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return dict(
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=n_bytes, operations=n_ops,
+    )
+
+
+def _corr_check(E, Sp, R, name):
+    """Kernel 5 against its plain version on E [P, T, H, W], Sp [P, H+R,
+    W+R]: |err| <= CORR_RTOL x sum|E| x max|Sp| per (p, t), the float32
+    summation-order bound. Returns (max |err|, kernel out)."""
+    out = corr_scores(E, Sp, R, R)
+    ref = corr_scores(E, Sp, R, R, plain=True)
+    err = (out - ref).abs()
+    scale = E.float().abs().sum(dim=(-2, -1)) * Sp.abs().amax(dim=(-2, -1))[:, None]
+    ok = bool((err <= CORR_RTOL * scale[..., None] + 1e-6).all())
+    print(f"corr_scores {name} {list(E.shape)} R={R}: max |err| "
+          f"{float(err.max()):.3g} (tolerance {CORR_RTOL} x sum|E| x max|Sp|)")
+    if not ok:
+        raise AssertionError(f"corr_scores {name} disagrees with its plain version")
+    return float(err.max()), out
+
+
+def _conv_corr(E, Sp, R):
+    """The same lag correlation as one grouped torch.nn.functional.conv2d
+    (TF32 off): the library call kernel 5 is timed against."""
+    P, T, H, W = E.shape
+    return F.conv2d(
+        Sp[None, :, : H + R - 1, : W + R - 1], E.reshape(P * T, 1, H, W),
+        groups=P,
+    ).reshape(P, T, R * R)
 
 
 def kernel_checks(cfg, log, device):
@@ -143,7 +211,9 @@ def kernel_checks(cfg, log, device):
         tolerance="<=0.05% of cells, each by one l_free or l_occ",
         ms=_cuda_ms(lambda: update(False)),
         plain_ms=_cuda_ms(lambda: update(True)),
-        shape=[uwin, uwin],
+        library_ms=None, shape=[uwin, uwin],
+        # the window read and written once, the scan; ~30 operations a cell
+        **_bound(2 * gw.numel() * 4 + 8 * ranges.numel() + 12, 30 * gw.numel()),
     )
 
     # kernel 3: search-space build of the update window and of the full map
@@ -157,12 +227,17 @@ def kernel_checks(cfg, log, device):
               f"{errs[name]:.3g} (tolerance 1e-6)")
     if max(errs.values()) > 1e-6:
         raise AssertionError("search_space disagrees with its plain version")
+    n_taps = 2 * blur_halo_cells(m, g.resolution) + 1
     results["search_space"] = dict(
         max_abs_err=max(errs.values()), tolerance="atol 1e-6",
         ms=_cuda_ms(lambda: field(gw, False)),
         plain_ms=_cuda_ms(lambda: field(gw, True)), shape=[uwin, uwin],
         full_map_ms=_cuda_ms(lambda: field(full, False)),
         full_map_plain_ms=_cuda_ms(lambda: field(full, True)),
+        library_ms=None,
+        # read and write the window once; two blur passes and ~8 more
+        # operations a cell
+        **_bound(2 * gw.numel() * 4, gw.numel() * (4 * n_taps + 8)),
     )
 
     # kernel 2: coarse [13, 5, 5] on the 136^2 pooled window, fine
@@ -197,11 +272,35 @@ def kernel_checks(cfg, log, device):
               f"{errs[name]:.3g} (tolerance 1e-5)")
     if max(errs.values()) > 1e-5:
         raise AssertionError("score_offsets disagrees with its plain version")
+    T_f, B = pos_f[0].shape
+    n_f = 2 * m.coarse_factor + 1
     results["score_offsets"] = dict(
         max_abs_err=max(errs.values()), tolerance="atol 1e-5",
         ms=times["fine"][0], plain_ms=times["fine"][1], shape=[5, 9, 9],
         coarse_ms=times["coarse"][0], coarse_plain_ms=times["coarse"][1],
+        library_ms=None,
+        # the fine pass: S and the positions read once; 4 taps x 2
+        # operations per beam and candidate
+        **_bound(Sw.numel() * 4 + 2 * T_f * B * 4 + B + T_f * n_f * n_f * 4,
+                 T_f * n_f * n_f * B * 8),
     )
+
+    # kernel 5 on the two passes of bench.py's matcher, as a config that
+    # pins score_impl="cmx" would run them
+    n_c = 2 * r_coarse + 1
+    corr = {}
+    for name, S_, pos, R, bil in (("coarse", Sc, pos_c, n_c, False),
+                                  ("fine", Sw, pos_f, n_f, True)):
+        sp = correlative.splat_inputs(S_.shape, *pos, valid, R, R, bil)
+        E = correlative.splat_image(*sp, S_.shape, torch.bfloat16)[None]
+        Sp = F.pad(S_, (0, R, 0, R))[None].contiguous()
+        err, _ = _corr_check(E, Sp, R, f"bench.py {name} pass")
+        corr[name] = dict(
+            max_abs_err=err, shape=list(E.shape), R=R,
+            ms=_cuda_ms(lambda: corr_scores(E, Sp, R, R)),
+            plain_ms=_cuda_ms(lambda: corr_scores(E, Sp, R, R, plain=True)),
+        )
+    results["corr_frontend"] = corr
     return results
 
 
@@ -340,7 +439,11 @@ def pf_kernel_checks(cfg, pf, log, device):
         tolerance="<=0.05% of window cells, each by one l_free or l_occ",
         ms=_cuda_ms(lambda: ism(scratch, False)),
         plain_ms=_cuda_ms(lambda: ism(scratch, True)),
-        shape=[P, uwin, uwin],
+        library_ms=None, shape=[P, uwin, uwin],
+        # every window read and written once in the map dtype, the scan and
+        # the poses; ~30 operations a cell
+        **_bound(2 * P * uwin * uwin * maps.element_size()
+                 + 4 * ranges.numel() + 12 * P, 30 * P * uwin * uwin),
     )
 
     # kernel 4: the resample's row gather, with repeated ancestors
@@ -354,11 +457,14 @@ def pf_kernel_checks(cfg, pf, log, device):
     print(f"gather_rows {list(flat.shape)} {pf.map_dtype}: bit-exact {same}")
     if not same:
         raise AssertionError("gather_rows disagrees with its plain version")
+    anc64 = anc.to(torch.int64)
     results["gather_rows"] = dict(
         max_abs_err=0.0, tolerance="bit-exact",
         ms=_cuda_ms(lambda: gather_rows(flat, anc)),
         plain_ms=_cuda_ms(lambda: gather_rows(flat, anc, plain=True)),
-        shape=list(flat.shape),
+        library_ms=_cuda_ms(lambda: flat.index_select(0, anc64)),
+        library_call="index_select", shape=list(flat.shape),
+        **_bound(2 * flat.numel() * flat.element_size() + 4 * P, 0),
     )
 
     # kernel 6: every particle's field over its unclamped 288^2 window,
@@ -392,11 +498,22 @@ def pf_kernel_checks(cfg, pf, log, device):
           "each by one bf16 ulp)")
     if n_diff > 1e-4 * diff.numel() or not one_ulp:
         raise AssertionError("window_field disagrees with its plain version")
+    on_map = sum(
+        max(0, min(g.height, r + win) - max(0, r))
+        * max(0, min(g.width, c + win) - max(0, c))
+        for r, c in org.tolist()
+    )
     results["window_field"] = dict(
         max_abs_err=float(diff.max()), cells_differing=n_diff,
         tolerance="<=0.01% of cells, each by one ulp of the out dtype",
         ms=_cuda_ms(lambda: field(False)),
-        plain_ms=_cuda_ms(lambda: field(True)), shape=[P, win, win],
+        plain_ms=_cuda_ms(lambda: field(True)), library_ms=None,
+        shape=[P, win, win],
+        # the window cells on the map read once, the field written once;
+        # two blur passes and ~8 more operations a cell
+        **_bound(on_map * maps.element_size()
+                 + P * win * win * torch.finfo(cdtype).bits // 8,
+                 P * win * win * (4 * len(taps) + 8)),
     )
 
     # kernel 7: the shift stack of the scan's endpoint splats
@@ -413,9 +530,170 @@ def pf_kernel_checks(cfg, pf, log, device):
         max_abs_err=0.0, tolerance="bit-exact",
         ms=_cuda_ms(lambda: shift_stack(E, R, R)),
         plain_ms=_cuda_ms(lambda: shift_stack(E, R, R, plain=True)),
-        shape=[G, R * R, win, win],
+        library_ms=None, shape=[G, R * R, win, win],
+        **_bound((1 + R * R) * E.numel() * E.element_size(), 0),
     )
     return results
+
+
+def apply_check(cfg, pf, log, device):
+    """Phase 3, kernel 8: the shared update's apply at FastSLAM-1000's
+    shapes (1000 bf16 512^2 maps, 16 float32 256^2 images, 180 beams),
+    with real images and endpoint marks of a scan; bit-exact."""
+    g, s = cfg.grid, cfg.sensor
+    P, H, W = pf.n_particles, g.height, g.width
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    maps = (torch.rand((P, H, W), generator=gen, device=device) * 12 - 6).to(
+        getattr(torch, pf.map_dtype)
+    )
+    i = len(log["odom"]) // 2
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    # a cloud around the log's pose, and a tenth of the particles all over
+    # the map, so that images run off every edge
+    rng = np.random.default_rng(SEED + 3)
+    poses = np.tile(log["gt_poses"][i], (P, 1)).astype(np.float64)
+    poses[:, :2] += rng.normal(0, 0.3, (P, 2))
+    poses[:, 2] += rng.normal(0, 0.1, P)
+    far = P // 10
+    poses[:far, :2] = rng.uniform(0, g.width * g.resolution, (far, 2)) + (
+        g.origin_x, g.origin_y
+    )
+    poses = torch.as_tensor(poses.astype(np.float32), device=device)
+    win = min(update_window_cells(g, s), H, W)
+    anchors, slot, images, ep = apply_operands(poses, ranges, cfg, pf, H, W)
+
+    def apply(m, plain):
+        return shared_apply(m, anchors, slot, images, float(g.l_clamp), *ep,
+                            plain=plain)
+
+    a, b = apply(maps.clone(), False), apply(maps.clone(), True)
+    same = torch.equal(a, b)
+    print(f"shared_apply [{P}, {H}x{W}] {pf.map_dtype} maps, images "
+          f"{list(images.shape)} {images.dtype}, {ep[0].shape[1]} beams: "
+          f"bit-exact {same}")
+    if not same:
+        raise AssertionError("shared_apply disagrees with its plain version")
+    del a, b
+    ar = anchors.cpu().numpy().astype(np.int64) - win // 2
+    rows = np.clip(ar[:, 0] + win, 0, H) - np.clip(ar[:, 0], 0, H)
+    cols = np.clip(ar[:, 1] + win, 0, W) - np.clip(ar[:, 1], 0, W)
+    on_map = int((rows * cols).sum())
+    scratch = maps.clone()
+    return dict(
+        max_abs_err=0.0, tolerance="bit-exact",
+        ms=_cuda_ms(lambda: apply(scratch, False)),
+        plain_ms=_cuda_ms(lambda: apply(scratch, True)), library_ms=None,
+        shape=[P, H, W, win],
+        # each window's cells on the map read and written once, the images
+        # and the endpoint operands read once; an add and a clip a cell
+        **_bound(2 * on_map * maps.element_size()
+                 + images.numel() * images.element_size() + 12 * ep[0].numel()
+                 + 12 * P, 3 * on_map),
+    )
+
+
+def corr_check(cfg, pf, log, device, frontend):
+    """Phase 3, kernel 5: the per-particle refine's correlation at
+    FastSLAM-16's shapes (E [16, 9, 288^2] bf16, Sp [16, 293^2]), with real
+    splats of a scan and fields of random maps; beside it one grouped
+    conv2d (TF32 off) computing the same function."""
+    g, s = cfg.grid, cfg.sensor
+    P, res = pf.n_particles, g.resolution
+    mcfg = fastslam.refine_matcher(cfg, pf)
+    win = scan_window_cells(g, s, mcfg)
+    R = 2 * int(round(mcfg.search_xy / res)) + 1
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 4)
+    maps = (torch.rand((P, g.height, g.width), generator=gen, device=device)
+            * 12 - 6).to(getattr(torch, pf.map_dtype))
+    i = len(log["odom"]) // 2
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    priors = torch.as_tensor(log["gt_poses"][i], device=device) + 0.02 * (
+        torch.randn((P, 3), generator=gen, device=device)
+    )
+    S, origin_xy = fastslam.per_particle_fields(maps, priors, cfg, mcfg)
+    pts, valid = occupancy.scan_endpoints_local(ranges, s)
+    dth = torch.as_tensor(correlative._theta_offsets(mcfg), device=device)
+    pos = correlative.endpoint_positions_batched(
+        priors, pts, valid, dth[None, :].expand(P, -1), res, origin_xy
+    )
+    sp = correlative.splat_inputs(S.shape[1:], *pos, valid, R, R, True)
+    E = correlative.splat_image(*sp, S.shape[1:], torch.bfloat16)
+    Sp = F.pad(S, (0, R, 0, R)).contiguous()
+    err, out = _corr_check(E, Sp, R, "FastSLAM-16 refine")
+
+    Ef = E.float()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib_err = float((_conv_corr(Ef, Sp, R) - out).abs().max())
+        library_ms = _cuda_ms(lambda: _conv_corr(Ef, Sp, R))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    print(f"conv2d (TF32 off) on the same inputs: max |diff| {lib_err:.3g}")
+    nnz = int((E != 0).sum())
+    return dict(
+        max_abs_err=err, tolerance=f"{CORR_RTOL} x sum|E| x max|Sp| per (p, t)",
+        ms=_cuda_ms(lambda: corr_scores(E, Sp, R, R)),
+        plain_ms=_cuda_ms(lambda: corr_scores(E, Sp, R, R, plain=True)),
+        library_ms=library_ms,
+        library_call="torch.nn.functional.conv2d, groups=P, "
+                     "cudnn.allow_tf32=False, E widened to float32 beforehand",
+        library_max_abs_diff=lib_err, shape=list(E.shape) + [R, R],
+        frontend_passes=frontend,
+        # E and Sp read once, the scores written once; a multiply-add per
+        # nonzero E cell and lag (what these splats need)
+        **_bound(E.numel() * E.element_size() + Sp.numel() * 4
+                 + out.numel() * 4, 2 * nnz * R * R),
+    )
+
+
+def ray_check(cfg, log, device):
+    """Phase 3, kernel 1 "ray": the exact-ray update of bench.py's 520^2
+    update window; the kernel and its plain version share the beam tables
+    and must agree bit for bit."""
+    g, m, s = cfg.grid, cfg.matcher, cfg.sensor
+    rng = np.random.default_rng(SEED + 5)
+    uwin = update_window_cells(g, s, m)
+    i = len(log["odom"]) // 2
+    pose = torch.as_tensor(np.asarray(log["gt_poses"][i], np.float32),
+                           device=device)
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    full = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (g.height, g.width)).astype(np.float32),
+        device=device,
+    )
+    center = occupancy.world_to_cell(pose[:2], g).tolist()
+    gw, origin_rc = extract_window(full, center, uwin)
+
+    def update(plain):
+        return occupancy.integrate_scan(
+            gw, pose, ranges, g, s, origin_rc=origin_rc, plain=plain
+        )
+
+    a, b = update(False), update(True)
+    same = torch.equal(a, b)
+    print(f"update_ray [{uwin}x{uwin}]: bit-exact {same} "
+          f"({int((a != gw).sum())} cells updated)")
+    if not same:
+        raise AssertionError("update_ray disagrees with its plain version")
+    B = ranges.numel()
+    Bpad = -(-B // 8) * 8
+    # the touched (cell, beam) pairs: a chord crosses at most
+    # (|dx| + |dy|) * r_free / res + 2 cells
+    r_free = torch.clamp(ranges.clamp(max=s.max_range) - g.resolution, min=0)
+    pairs = float((r_free / g.resolution * 1.5 + 2).sum())
+    return dict(
+        max_abs_err=0.0, tolerance="bit-exact",
+        ms=_cuda_ms(lambda: update(False)),
+        plain_ms=_cuda_ms(lambda: update(True)), library_ms=None,
+        shape=[uwin, uwin],
+        # the window read and written once, the scan and the tables; the
+        # chord (16 operations) of every touched pair, ~10 a cell
+        **_bound(2 * gw.numel() * 4 + 4 * B + 9 * 4 * Bpad + 12,
+                 16 * pairs + 10 * gw.numel()),
+    )
 
 
 def _pf_counters():
@@ -424,6 +702,8 @@ def _pf_counters():
         "window_field": window_field,
         "shift_stack": shift_stack,
         "gather_rows": gather_rows,
+        "shared_apply": shared_apply,
+        "corr_scores": corr_scores,
     }
 
 
@@ -434,13 +714,37 @@ def _reset_pf_counts():
         setattr(fastslam.fastslam_step, name, 0)
 
 
-def run_pf(cfg, pf, log, device):
-    """Phase 6: FastSLAM over the whole bench_pf log through the kernels."""
+def _pf_expected(cfg, pf, counts):
+    """The launches of each PF kernel that the gate decisions call for,
+    as the refine and update modes resolve at this particle count."""
+    P = pf.n_particles
+    mcfg = fastslam.refine_matcher(cfg, pf)
+    shared_refine = fastslam._resolve_refine_mode(pf, mcfg, P) == "shared"
+    mode = pf.update_mode
+    if mode == "auto":
+        mode = "shared" if P >= pf.update_shared_min_particles else "per_particle"
+    r_fine = int(round(mcfg.search_xy / cfg.grid.resolution))
+    passes = 1 if r_fine <= mcfg.coarse_factor else 2
+    return {
+        # the shared update builds its images with one ISM launch
+        "update_ism": counts["updates"],
+        "window_field": counts["refines"],
+        "shift_stack": counts["refines"] if shared_refine else 0,
+        "gather_rows": counts["resamples"],
+        "shared_apply": counts["updates"] if mode == "shared" else 0,
+        "corr_scores": 0 if shared_refine else passes * counts["refines"],
+    }
+
+
+def run_pf(cfg, pf, log, device, label):
+    """Phases 6, 8 and 10: FastSLAM over the whole bench_pf log through
+    the kernels, every launch counted against the gate decisions."""
     warm = {k: np.asarray(v)[:64] for k, v in log.items()}
     run_fastslam(warm, cfg, pf, device, seed=SEED)
     torch.cuda.synchronize()
 
     _reset_pf_counts()
+    torch.cuda.reset_peak_memory_stats(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -458,44 +762,45 @@ def run_pf(cfg, pf, log, device):
     T = len(traj)
 
     if not (np.isfinite(traj).all() and np.isfinite(n_eff).all()):
-        raise AssertionError("trajectory or N_eff is not finite")
+        raise AssertionError(f"{label}: trajectory or N_eff is not finite")
     ate = ate_rmse(traj, log["gt_poses"], align=False)
     ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
-    expect = {
-        "update_ism": counts["updates"],
-        "window_field": counts["refines"],
-        "shift_stack": counts["refines"],
-        "gather_rows": counts["resamples"],
-    }
+    expect = _pf_expected(cfg, pf, counts)
     elapsed = start.elapsed_time(end) / 1e3
     result = dict(
         scans=T, particles=pf.n_particles, map_dtype=pf.map_dtype,
         scans_per_sec=T / elapsed, seconds_cuda_events=elapsed,
         seconds_host=wall, ate_m=ate, ate_odom_m=ate_odom,
         host_reads_per_scan=counts["host_syncs"] / T, launches=launches,
-        min_n_eff=float(n_eff.min()), **counts,
+        min_n_eff=float(n_eff.min()),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device), **counts,
     )
-    print("fastslam:", json.dumps(result))
+    print(f"{label}:", json.dumps(result))
     if not ate <= PF_MAX_ATE_M:
-        raise AssertionError(f"ATE {ate} m above {PF_MAX_ATE_M} m: diverged")
+        raise AssertionError(f"{label}: ATE {ate} m above {PF_MAX_ATE_M} m")
     if counts["resamples"] < 1:
-        raise AssertionError("no resample event")
-    if launches != expect or min(launches.values()) <= 0:
-        raise AssertionError(f"launches {launches}, expected {expect}")
+        raise AssertionError(f"{label}: no resample event")
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected {expect}")
     if counts["host_syncs"] > counts["refines"]:
-        raise AssertionError("more than one host read per refine event")
-    return launches
+        raise AssertionError(f"{label}: more than one host read per refine")
+    return {k: v for k, v in launches.items() if expect[k] > 0}
 
 
-def pf_parity(cfg, pf, log, device):
-    """Phase 7: at each of the first refine events, the same state and the
-    same draws through the kernel step and through the plain step."""
+def pf_parity(cfg, pf, log, device, gate: int, n_events: int, label,
+              after_boot: bool = False):
+    """Phases 7, 9 and 10: at each of the first `n_events` scans whose gate
+    column `gate` fires (0 refine, 1 update; after the bootstrap if asked),
+    the same state and the same draws through the kernel step and through
+    the plain step: poses, log-weights and maps must agree."""
     odom = torch.as_tensor(np.asarray(log["odom"], np.float32), device=device)
     ranges = torch.as_tensor(np.asarray(log["ranges"], np.float32), device=device)
     flags = fastslam.host_gate_flags(
         log["odom"], cfg, log["odom"][0], 0.0, np.inf, 0.0
     )
-    last = int(np.nonzero(flags[:, 0])[0][PF_PARITY_REFINES - 1]) + 1
+    fire = flags[:, gate] & (~flags[:, 2] if after_boot else True)
+    events = set(np.nonzero(fire)[0][:n_events].tolist())
+    last = max(events) + 1
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
     P = pf.n_particles
@@ -505,7 +810,7 @@ def pf_parity(cfg, pf, log, device):
     worst = dict(pose=0.0, log_w=0.0, score=0.0, cells=0)
     for t in range(last):
         kw = dict(gates=flags[t], noise=noise[t], u=u[t])
-        if flags[t, 0]:
+        if t in events:
             twin = state._replace(logodds=state.logodds.clone())
             ref, (_, _, ref_sc) = fastslam.fastslam_step(
                 twin, odom[t], ranges[t], cfg, pf, plain=True, **kw
@@ -513,7 +818,7 @@ def pf_parity(cfg, pf, log, device):
         state, (_, _, sc) = fastslam.fastslam_step(
             state, odom[t], ranges[t], cfg, pf, **kw
         )
-        if flags[t, 0]:
+        if t in events:
             dpose = (state.poses - ref.poses).abs()
             dpose[:, 2] = torch.remainder(dpose[:, 2] + np.pi, 2 * np.pi) - np.pi
             worst["pose"] = max(worst["pose"], float(dpose.abs().max()))
@@ -522,17 +827,61 @@ def pf_parity(cfg, pf, log, device):
             )
             worst["score"] = max(worst["score"], abs(float(sc - ref_sc)))
             cells, _ = _map_cells_ok(
-                state.logodds, ref.logodds, cfg.grid, f"maps at scan {t}"
+                state.logodds, ref.logodds, cfg.grid, f"{label}: maps at scan {t}"
             )
             worst["cells"] = max(worst["cells"], cells)
-    print(f"plain-version FastSLAM steps at the first {PF_PARITY_REFINES} "
-          f"refine events (scans up to {last - 1}): max |dpose| "
-          f"{worst['pose']:.3g}, max |dlog_w| {worst['log_w']:.3g}, max "
-          f"|dscore| {worst['score']:.3g}, at most {worst['cells']} map cells "
-          f"differ (tolerance {PF_POSE_TOL} m and rad, {PF_LOGW_TOL}, "
+            del twin, ref
+    what = ("refine", "update")[gate]
+    print(f"{label}: plain-version FastSLAM steps at the first {n_events} "
+          f"{what} events{' after the bootstrap' if after_boot else ''} "
+          f"(scans {min(events)}-{last - 1}): max |dpose| {worst['pose']:.3g}, "
+          f"max |dlog_w| {worst['log_w']:.3g}, max |dscore| "
+          f"{worst['score']:.3g}, at most {worst['cells']} map cells differ "
+          f"(tolerance {PF_POSE_TOL} m and rad, {PF_LOGW_TOL}, "
           f"{MAP_CELL_SHARE:.2%} of cells)")
     if worst["pose"] > PF_POSE_TOL or worst["log_w"] > PF_LOGW_TOL:
-        raise AssertionError("kernel and plain FastSLAM steps disagree")
+        raise AssertionError(f"{label}: kernel and plain FastSLAM steps disagree")
+    return worst
+
+
+def run_ray(cfg, log, device, hybrid_ate):
+    """Phase 11: the frontend with update_impl="pallas_ray" over bench.py's
+    log through the kernels."""
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    run_frontend(warm, cfg, device)
+    torch.cuda.synchronize()
+    counters = {"update_ray": update_ray, **_counters()}
+    del counters["update_hybrid"]
+    for fn in counters.values():
+        fn.launches = 0
+    for name in ("host_syncs", "matches", "updates"):
+        setattr(frontend_step, name, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, traj, _ = run_frontend(log, cfg, device)
+    end.record()
+    end.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    updates, matches = frontend_step.updates, frontend_step.matches
+    if not np.isfinite(traj).all():
+        raise AssertionError("ray frontend: trajectory is not finite")
+    ate = ate_rmse(traj, log["gt_poses"], align=False)
+    ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
+    elapsed = start.elapsed_time(end) / 1e3
+    print("ray frontend:", json.dumps(dict(
+        scans=len(traj), scans_per_sec=len(traj) / elapsed,
+        seconds_cuda_events=elapsed, ate_m=ate, ate_odom_m=ate_odom,
+        ate_hybrid_m=hybrid_ate, launches=launches, updates=updates,
+        matches=matches, host_syncs=frontend_step.host_syncs,
+    )))
+    expect = {"update_ray": updates, "search_space": updates + 1,
+              "score_offsets": 2 * matches}
+    if launches != expect or min(launches.values()) <= 0:
+        raise AssertionError(f"ray frontend: launches {launches}, expected {expect}")
+    if not ate <= PF_MAX_ATE_M:
+        raise AssertionError(f"ray frontend: ATE {ate} m above {PF_MAX_ATE_M} m")
+    return {"update_ray": launches["update_ray"]}
 
 
 def main():
@@ -552,34 +901,71 @@ def main():
     log = bench_log(cfg.sensor)
     pf_cfg, pf = pf_bench_config()
     pf_log = pf_bench_log(pf_cfg.sensor)
+    cfg1k, pf1k = pf1000_bench_config()
+    cfg16, pf16 = pf_per_particle_bench_config()
+    ray_cfg = ray_bench_config()
+
+    # phase 3: every kernel against its plain version
     checks = kernel_checks(cfg, log, device)
     checks.update(pf_kernel_checks(pf_cfg, pf, pf_log, device))
-    traj, launches = run_slice(cfg, log, device)
+    checks["shared_apply"] = apply_check(cfg1k, pf1k, pf_log, device)
+    checks["corr_scores"] = corr_check(
+        cfg16, pf16, pf_log, device, checks.pop("corr_frontend")
+    )
+    checks["update_ray"] = ray_check(ray_cfg, log, device)
+
+    # the paths, each with its counts set to 0 just before it
+    by_path = {}
+    traj, by_path["4 frontend"] = run_slice(cfg, log, device)
     parity_run(cfg, log, device, traj)
-    launches.update(run_pf(pf_cfg, pf, pf_log, device))
-    pf_parity(pf_cfg, pf, pf_log, device)
+    by_path["6 FastSLAM-100"] = run_pf(pf_cfg, pf, pf_log, device,
+                                       "fastslam-100")
+    pf_parity(pf_cfg, pf, pf_log, device, 0, PF_PARITY_REFINES,
+              "fastslam-100")
+    by_path["8 FastSLAM-1000"] = run_pf(cfg1k, pf1k, pf_log, device,
+                                        "fastslam-1000")
+    pf_parity(cfg1k, pf1k, pf_log, device, 1, PF1000_PARITY_UPDATES,
+              "fastslam-1000", after_boot=True)
+    by_path["10 FastSLAM-16"] = run_pf(cfg16, pf16, pf_log, device,
+                                       "fastslam-16")
+    pf_parity(cfg16, pf16, pf_log, device, 0, PF_PARITY_REFINES,
+              "fastslam-16")
+    hybrid_ate = ate_rmse(traj, log["gt_poses"], align=False)
+    by_path["11 ray frontend"] = run_ray(ray_cfg, log, device, hybrid_ate)
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",
                           "slam2d_tpu/ops/pallas_update.py:97"),
+        "update_ism": ("slam2d_tpu_torch/csrc/update_ism.cu",
+                       "slam2d_tpu/ops/pallas_update.py:97"),
+        "update_ray": ("slam2d_tpu_torch/csrc/update_ray.cu",
+                       "slam2d_tpu/ops/pallas_update.py:97"),
         "score_offsets": ("slam2d_tpu_torch/csrc/score.cu",
                           "slam2d_tpu/ops/pallas_score.py:29"),
         "search_space": ("slam2d_tpu_torch/csrc/search_space.cu",
                          "slam2d_tpu/ops/pallas_blur.py:34"),
-        "update_ism": ("slam2d_tpu_torch/csrc/update_ism.cu",
-                       "slam2d_tpu/ops/pallas_update.py:97"),
         "gather_rows": ("slam2d_tpu_torch/csrc/gather_rows.cu",
                         "slam2d_tpu/ops/pallas_gather.py:27"),
+        "corr_scores": ("slam2d_tpu_torch/csrc/corr.cu",
+                        "slam2d_tpu/ops/pallas_corr.py:36"),
         "window_field": ("slam2d_tpu_torch/csrc/window_field.cu",
                          "slam2d_tpu/ops/pallas_field.py:46"),
         "shift_stack": ("slam2d_tpu_torch/csrc/shift_stack.cu",
                         "slam2d_tpu/ops/pallas_stack.py:31"),
+        "shared_apply": ("slam2d_tpu_torch/csrc/shared_apply.cu",
+                         "slam2d_tpu/ops/pallas_apply.py:42"),
     }
-    kernels = [
-        dict(name=name, route="cuda", source=src, replaces=rep,
-             launches=launches[name], **checks[name])
-        for name, (src, rep) in sources.items()
-    ]
+    kernels = []
+    for name, (src, rep) in sources.items():
+        paths = {k: v[name] for k, v in by_path.items() if name in v}
+        if not paths or min(paths.values()) <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        # `launches`: the first path that runs the kernel (its main path)
+        kernels.append(dict(
+            name=name, route="cuda", source=src, replaces=rep,
+            launches=next(iter(paths.values())), launches_by_path=paths,
+            **checks[name],
+        ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

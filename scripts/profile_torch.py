@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port on one GPU.
 
-    python3 scripts/profile_torch.py frontend [--warm 256] [--scans 256]
-    python3 scripts/profile_torch.py fastslam [--warm 128] [--scans 192]
-        [--seeds N]
-    (both: [--out profile_out])
+    python3 scripts/profile_torch.py frontend|ray [--warm 256] [--scans 256]
+    python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
+        [--warm 128] [--scans 192] [--seeds N]
+    (all: [--out profile_out])
 
-Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend)
-or at bench_pf.py's default config and log (fastslam: 100 particles, bf16
-512^2 maps): a warmup over the first `--warm` scans, then a torch.profiler
+Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend;
+ray: with update_impl="pallas_ray") or at bench_pf.py's default config and
+log with 100, 1000 or 16 particles (fastslam, fastslam1000, fastslam16;
+bf16 512^2 maps): a warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. Prints the
 kernels by device time, then one JSON line: the device busy share of the
 traced wall time, per-scan host time and the step's counters. Writes the
@@ -31,7 +32,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from slam2d_tpu.metrics import ate_rmse  # noqa: E402
+from slam2d_tpu_torch.metrics import ate_rmse  # noqa: E402
 from slam2d_tpu_torch.pf.fastslam import (  # noqa: E402
     fastslam_init,
     fastslam_step,
@@ -44,7 +45,15 @@ from slam2d_tpu_torch.run.frontend import (  # noqa: E402
     frontend_step,
 )
 
-DEFAULTS = {"frontend": (256, 256), "fastslam": (128, 192)}  # warm, scans
+DEFAULTS = {  # warm, scans
+    "frontend": (256, 256), "ray": (256, 256), "fastslam": (128, 192),
+    "fastslam1000": (128, 192), "fastslam16": (128, 192),
+}
+PF_CONFIGS = {
+    "fastslam": bench_configs.pf_bench_config,
+    "fastslam1000": bench_configs.pf1000_bench_config,
+    "fastslam16": bench_configs.pf_per_particle_bench_config,
+}
 
 
 def _busy_us(events) -> float:
@@ -66,9 +75,8 @@ def _busy_us(events) -> float:
     return busy
 
 
-def frontend_steps(dev):
+def frontend_steps(dev, cfg):
     """(steps(lo, hi) running the frontend over scans lo..hi-1, counters)."""
-    cfg = bench_configs.bench_config()
     log = bench_configs.bench_log(cfg.sensor)
     odom = torch.as_tensor(log["odom"], device=dev)
     ranges = torch.as_tensor(log["ranges"], device=dev)
@@ -83,10 +91,9 @@ def frontend_steps(dev):
     return steps, frontend_step, ("host_syncs", "matches", "updates")
 
 
-def fastslam_steps(dev, seeds):
-    """(steps(lo, hi) running FastSLAM-100 over scans lo..hi-1, counters);
+def fastslam_steps(dev, cfg, pf, seeds):
+    """(steps(lo, hi) running FastSLAM over scans lo..hi-1, counters);
     with `seeds`, the whole-log sweep first."""
-    cfg, pf = bench_configs.pf_bench_config()
     log = bench_configs.pf_bench_log(cfg.sensor)
     if seeds:
         seed_sweep(cfg, pf, log, dev, seeds)
@@ -149,9 +156,14 @@ def main():
     warm = warm if args.warm is None else args.warm
     n = n if args.scans is None else args.scans
     if args.pipeline == "frontend":
-        steps, step, counters = frontend_steps(dev)
+        steps, step, counters = frontend_steps(dev, bench_configs.bench_config())
+    elif args.pipeline == "ray":
+        steps, step, counters = frontend_steps(
+            dev, bench_configs.ray_bench_config()
+        )
     else:
-        steps, step, counters = fastslam_steps(dev, args.seeds)
+        cfg, pf = PF_CONFIGS[args.pipeline]()
+        steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds)
 
     steps(0, warm)
     torch.cuda.synchronize()

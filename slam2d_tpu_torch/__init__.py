@@ -1,22 +1,27 @@
-"""slam2d_tpu_torch — the scan-matching frontend of slam2d_tpu in PyTorch,
-with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""slam2d_tpu_torch — the scan-matching frontend and FastSLAM of slam2d_tpu
+in PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
 
 The JAX package `slam2d_tpu` is the reference this package is tested
-against; its layout is mirrored here (core/se2, grid/occupancy,
-grid/window, match/correlative, run/frontend) so each module's
-counterpart is easy to find. The configs are shared with the JAX package
-(`slam2d_tpu.config` imports no JAX). Nothing in this package imports JAX.
+against; its layout is mirrored here (config, core/se2, data/synth,
+grid/occupancy, grid/window, match/correlative, metrics, pf/fastslam,
+pf/shared_refine, pf/shared_update, run/frontend, run/fastslam_run) so
+each module's counterpart is easy to find. This package imports nothing
+of JAX and nothing of `slam2d_tpu`: it keeps its own copies of the
+configs, the log simulator and the trajectory metrics.
 
 Every function takes tensors and works on their device: a CUDA tensor
 goes through the kernels in `slam2d_tpu_torch/csrc/` (built on first use
 by `ops/_build.py`), a CPU tensor through each kernel's plain PyTorch
-version in the same module.
+version in the same module. The entry points (`run_frontend`,
+`frontend_init`, `run_fastslam`, `fastslam_init`) run on the card unless
+the caller passes another device.
 """
 
-from slam2d_tpu.config import (  # noqa: F401
+from slam2d_tpu_torch.config import (  # noqa: F401
     FrontendConfig,
     GridConfig,
     MatcherConfig,
+    PFConfig,
     SensorConfig,
 )
 

@@ -2,9 +2,10 @@
 
 Port of slam2d_tpu/grid/occupancy.py for the frontend and the particle
 filter: rows = y, cols = x, world-anchored at GridConfig.origin. Scan
-integration runs the inverse-sensor-model updates of ops/update.py that
-the JAX package resolves "auto" to on its accelerator: the hybrid update
-for the frontend, the pure ISM update for the particle filter.
+integration runs the updates of ops/update.py: the two that the JAX
+package resolves "auto" to on its accelerator (the hybrid update for the
+frontend, the pure ISM update for the particle filter) and the exact-ray
+update ("pallas_ray").
 """
 
 from __future__ import annotations
@@ -15,9 +16,9 @@ import math
 import numpy as np
 import torch
 
-from slam2d_tpu.config import GridConfig, SensorConfig
+from slam2d_tpu_torch.config import GridConfig, SensorConfig
 from slam2d_tpu_torch.core.numerics import inv_f32
-from slam2d_tpu_torch.ops.update import update_hybrid, update_ism
+from slam2d_tpu_torch.ops.update import update_hybrid, update_ism, update_ray
 
 
 def make_grid(cfg: GridConfig, device):
@@ -80,16 +81,17 @@ def resolve_update_impl(
     """GridConfig.update_impl with "auto" resolved as the JAX package
     resolves it on its accelerator: the pure inverse-sensor-model update
     ("pallas") for the particle filter (`auto_ctx="pf"`), the hybrid
-    update ("pallas_hybrid") for the frontend. Only these two are ported;
-    every other impl, and a field of view wider than pi (which the
-    kernels' unwrapped bearing test cannot cover), raises."""
+    update ("pallas_hybrid") for the frontend. These two and the
+    exact-ray update ("pallas_ray") are ported; every other impl (the
+    sampled-ray and XLA updates), and a field of view wider than pi
+    (which the kernels' unwrapped bearing test cannot cover), raises."""
     impl = cfg.update_impl
     if impl == "auto":
         impl = "pallas" if auto_ctx == "pf" else "pallas_hybrid"
-    if impl not in ("pallas", "pallas_hybrid"):
+    if impl not in ("pallas", "pallas_hybrid", "pallas_ray"):
         raise NotImplementedError(
-            f"update_impl={cfg.update_impl!r}: only the inverse-sensor-model "
-            "updates ('auto', 'pallas', 'pallas_hybrid') are ported"
+            f"update_impl={cfg.update_impl!r}: only the dense updates "
+            "('auto', 'pallas', 'pallas_hybrid', 'pallas_ray') are ported"
         )
     if sensor.fov_rad > math.pi + 1e-6:
         raise NotImplementedError(
@@ -124,7 +126,8 @@ def integrate_scan(
     gives that float origin directly; neither means the grid's own origin.
 
     `resolve_update_impl(cfg, sensor, auto_ctx)` picks the update: the
-    hybrid one (wedge free carve + exact endpoint cells) takes float32
+    hybrid one (wedge free carve + exact endpoint cells) and the exact-ray
+    one (chord-length free evidence + exact endpoint cells) take float32
     maps; the ISM one (wedge free carve + the beams' arcs) float32 or
     bfloat16 maps, accumulating in float32. `plain=True` runs the kernel's
     plain version on a CUDA tensor too (for checks only).
@@ -142,6 +145,14 @@ def integrate_scan(
             origin_xy=origin_xy, enable=enable, plain=plain, **consts,
         )
         return out
+    if impl == "pallas_ray":
+        return update_ray(
+            logodds, pose, ranges, beam_angles(sensor, logodds.device),
+            origin_xy=origin_xy, resolution=cfg.resolution,
+            min_range=sensor.min_range, max_range=sensor.max_range,
+            l_free=cfg.l_free, l_occ=cfg.l_occ, l_clamp=cfg.l_clamp,
+            ray_samples=cfg.ray_samples, enable=enable, plain=plain,
+        )
     return update_hybrid(
         logodds, pose, ranges, beam_angles(sensor, logodds.device),
         origin_xy=origin_xy, enable=enable, plain=plain, **consts,

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import math
 
-from slam2d_tpu.config import GridConfig, MatcherConfig, SensorConfig
+from slam2d_tpu_torch.config import GridConfig, MatcherConfig, SensorConfig
 
 
 def blur_halo_cells(mcfg: MatcherConfig, resolution: float) -> int:

@@ -60,6 +60,16 @@ _SIGNATURES = {
     "slam2d_shift_stack": [_P, _P] + [_I] * 5 + [_P],
     # x, out, ancestors, P, row_bytes, stream
     "slam2d_gather_rows": [_P, _P, _P, _I, _L, _P],
+    # maps, map_bf16, images, img_bf16, anchors, slots, ep_r, ep_c, ep_w,
+    # P, H, W, win, G, B, l_clamp, stream
+    "slam2d_shared_apply": [_P, _I, _P, _I] + [_P] * 5 + [_I] * 6 + [_F, _P],
+    # H -> row chunks of the partial sums
+    "slam2d_corr_chunks": [_I],
+    # E, e_bf16, Sp, partial, out, P, T, H, W, R, C, stream
+    "slam2d_corr_scores": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P],
+    # grid, out, pose, rays, H, W, Bpad, ox, oy, res, l_free, l_occ,
+    # l_clamp, enable, stream
+    "slam2d_update_ray": [_P] * 4 + [_I] * 3 + [_F] * 7 + [_P],
 }
 
 

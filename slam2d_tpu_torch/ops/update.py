@@ -1,8 +1,9 @@
-"""Inverse-sensor-model log-odds updates of a map window.
+"""Log-odds updates of a map window from one scan.
 
-Kernels: csrc/update_hybrid.cu and csrc/update_ism.cu, the ports of
-slam2d_tpu/ops/pallas_update.py:_update_kernel, variants "hybrid" (the
-frontend's update) and "ism" (the particle filter's). The contract is
+Kernels: csrc/update_hybrid.cu, csrc/update_ism.cu and csrc/update_ray.cu,
+the ports of slam2d_tpu/ops/pallas_update.py:_update_kernel, variants
+"hybrid" (the frontend's update), "ism" (the particle filter's) and "ray"
+(the frontend's update_impl="pallas_ray"). The contract is
 `pallas_dense_update(..., variant=...)`:
 
 - a cell is FREE if some beam b has the cell's bearing within half a beam
@@ -14,11 +15,15 @@ frontend's update) and "ism" (the particle filter's). The contract is
 - "ism": it is OCCUPIED if some hitting beam b has the cell's bearing
   within 0.75 * res / d of b's angle and |d - r_b| <= 0.75 * res (the
   beam's arc), and gains l_occ once;
+- "ray": free is the sum over beams of the beam's chord through the cell
+  square, truncated at r_free, weighted by 1 / max(res, r_free /
+  ray_samples) (`ray_tables`); occ counts the hitting beams whose
+  floor-exact endpoint cell it is;
 - out = clip(g + (l_free * free + l_occ * occ) * enable, +-l_clamp),
   in float32, stored in the map's dtype.
 
-`update_hybrid` and `update_ism` send a CUDA tensor to the kernel and a
-CPU tensor to their plain versions; anything else raises.
+`update_hybrid`, `update_ism` and `update_ray` send a CUDA tensor to the
+kernel and a CPU tensor to their plain versions; anything else raises.
 """
 
 from __future__ import annotations
@@ -316,3 +321,123 @@ def update_ism(
 
 
 update_ism.launches = 0
+
+
+_RAY_UNROLL = 8        # the TPU kernel's beam chunk: sums group by 8 beams
+_MAX_RAY_BEAMS = 1360  # 9 f32 tables of this length fit 48 KB of smem
+
+
+def ray_tables(pose, ranges, angles, *, origin_xy, resolution, min_range,
+               max_range, ray_samples):
+    """[9, Bpad] float32 beam tables of the exact-ray update, rows (dirx,
+    diry, w_free, cmax, half, invab, r_free, erow, ecol), padded to a
+    multiple of 8 beams that cannot fire (zero weight, endpoints at
+    -1e9), built with the float32 operations of the TPU kernel's wrapper
+    (pallas_update.py:321-370; a division by a config constant as the
+    multiplication by its float32 reciprocal, as XLA compiles it).
+    `angles` is the float32 cast of the float64 beam-angle table."""
+    res = resolution
+    r = torch.clamp(ranges, 0.0, max_range)
+    valid = (ranges > min_range) & torch.isfinite(ranges)
+    hit = valid & (ranges < max_range)
+    a = angles + pose[2]
+    dirx, diry = torch.cos(a), torch.sin(a)
+    r_free = torch.clamp_min(r - res, 0.0) * valid
+    spacing = r_free * inv_f32(max(ray_samples, 1))
+    w_free = valid / torch.clamp_min(spacing, res)
+    adx, ady = dirx.abs(), diry.abs()
+    amax, amin = torch.maximum(adx, ady), torch.minimum(adx, ady)
+    cmax = torch.full_like(amax, res) / torch.clamp_min(amax, 1e-6)
+    half = (0.5 * res) * (adx + ady)
+    invab = 1.0 / torch.clamp_min(amax * amin, 1e-9)
+    inv_res = inv_f32(res)
+    ecol = torch.floor((pose[0] + dirx * r - origin_xy[0]) * inv_res)
+    erow = torch.floor((pose[1] + diry * r - origin_xy[1]) * inv_res)
+    ecol = torch.where(hit, ecol, -1e9)
+    erow = torch.where(hit, erow, -1e9)
+    rays = torch.stack(
+        [dirx, diry, w_free, cmax, half, invab, r_free, erow, ecol]
+    )
+    pad = (-rays.shape[1]) % _RAY_UNROLL
+    if pad:
+        fill = torch.zeros((9, pad), dtype=torch.float32, device=rays.device)
+        fill[7:] = -1e9
+        rays = torch.cat([rays, fill], dim=1)
+    return rays.contiguous()
+
+
+def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
+                     l_occ, l_clamp, enable=1.0):
+    """Plain PyTorch version of the kernel, the same float32 operations in
+    the same order (chunks of 8 beams, each summed from its first beam,
+    then added to the total)."""
+    H, W = grid.shape
+    dev = grid.device
+    ox, oy = origin_xy
+    col = torch.arange(W, dtype=torch.float32, device=dev)
+    row = torch.arange(H, dtype=torch.float32, device=dev)
+    cx = (ox + (col + 0.5) * resolution - pose[0])[None, :]
+    cy = (oy + (row + 0.5) * resolution - pose[1])[:, None]
+    rowg, colg = row[:, None], col[None, :]
+    free = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    occ = torch.zeros((H, W), dtype=torch.float32, device=dev)
+    for b0 in range(0, rays.shape[1], _RAY_UNROLL):
+        fa = oa = None
+        for b in range(b0, b0 + _RAY_UNROLL):
+            dx, dy, w, cm, hf, ia, rf, er, ec = rays[:, b]
+            t = cx * dx + cy * dy
+            ct = torch.abs(cx * dy - cy * dx)
+            L = torch.clamp_min(torch.minimum(cm, (hf - ct) * ia), 0.0)
+            Lh = 0.5 * L
+            f = w * torch.clamp_min(
+                torch.minimum(t + Lh, rf) - torch.clamp_min(t - Lh, 0.0), 0.0
+            )
+            o = ((rowg == er) & (colg == ec)).to(torch.float32)
+            fa = f if fa is None else fa + f
+            oa = o if oa is None else oa + o
+        free = free + fa
+        occ = occ + oa
+    upd = (l_free * free + l_occ * occ) * enable
+    return torch.clamp(grid + upd, -l_clamp, l_clamp)
+
+
+def update_ray(
+    grid, pose, ranges, angles, *, origin_xy, resolution, min_range,
+    max_range, l_free, l_occ, l_clamp, ray_samples, enable=1.0,
+    plain=False,
+):
+    """Updated copy of `grid` [H, W] f32 after one scan from `pose` [3],
+    by the exact-ray update (module docstring).
+
+    `ranges` [B] and `angles` [B] (the float32 beam-angle table) lie on
+    the grid's device; `origin_xy` is the float world origin of cell
+    (0, 0). The tables are built once (`ray_tables`) and read by both the
+    kernel and its plain version. `plain=True` runs the plain version on a
+    CUDA tensor too: it is meant for checks of the kernel, not for use."""
+    _check(grid, pose, ranges, angles)
+    if ranges.shape[0] > _MAX_RAY_BEAMS:
+        raise ValueError(f"need at most {_MAX_RAY_BEAMS} beams")
+    rays = ray_tables(
+        pose, ranges, angles, origin_xy=origin_xy, resolution=resolution,
+        min_range=min_range, max_range=max_range, ray_samples=ray_samples,
+    )
+    kw = dict(origin_xy=origin_xy, resolution=resolution, l_free=l_free,
+              l_occ=l_occ, l_clamp=l_clamp, enable=enable)
+    if plain or grid.device.type == "cpu":
+        return update_ray_plain(grid, pose, rays, **kw)
+    if grid.device.type != "cuda":
+        raise ValueError(f"no update kernel for device {grid.device}")
+    H, W = grid.shape
+    out = torch.empty_like(grid)
+    lib = _build.load_library()
+    err = lib.slam2d_update_ray(
+        grid.data_ptr(), out.data_ptr(), pose.data_ptr(), rays.data_ptr(),
+        H, W, rays.shape[1], origin_xy[0], origin_xy[1], resolution, l_free,
+        l_occ, l_clamp, enable, _build.stream_handle(grid.device),
+    )
+    _build.check(err, "slam2d_update_ray")
+    update_ray.launches += 1
+    return out
+
+
+update_ray.launches = 0

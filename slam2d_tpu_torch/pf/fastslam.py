@@ -2,11 +2,15 @@
 
 Particle state is a struct of stacked tensors: maps [P, H, W] (float32 or
 bfloat16), poses [P, 3], log-weights [P]. Per scan: the odometry proposal
-with noise, the shared-anchor refine of every particle against its own map
-(pf/shared_refine.py; the match score is the likelihood-field weight), the
-per-particle map update (kernel: ops/update.py, variant "ism"), and
-systematic resampling when N_eff falls below its threshold (kernel:
-ops/gather.py).
+with noise; the refine of every particle against its own map (the match
+score is the likelihood-field weight), which is the shared-anchor refine
+(pf/shared_refine.py) from refine_shared_min_particles particles on and
+the per-particle match below (`per_particle_fields`, then `match_scans`
+with the correlation scorer kernel); the map update, which is
+the shared-anchor update (pf/shared_update.py) from
+update_shared_min_particles particles on and the per-particle ISM update
+(kernel: ops/update.py, variant "ism") below; and systematic resampling
+when N_eff falls below its threshold (kernel: ops/gather.py).
 
 The stage gates (refine, update, bootstrap) are functions of the odometry
 alone. `fastslam_step` takes them from the host, as a row of
@@ -31,19 +35,31 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from slam2d_tpu.config import FrontendConfig, PFConfig
+from slam2d_tpu_torch.config import FrontendConfig, PFConfig
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.core.numerics import inv_f32
-from slam2d_tpu_torch.grid.occupancy import resolve_update_impl, update_constants
-from slam2d_tpu_torch.grid.window import update_window_cells
+from slam2d_tpu_torch.grid.occupancy import (
+    resolve_update_impl,
+    update_constants,
+    world_to_cell,
+)
+from slam2d_tpu_torch.grid.window import (
+    blur_halo_cells,
+    scan_window_cells,
+    update_window_cells,
+)
+from slam2d_tpu_torch.match.correlative import gaussian_kernel_1d, match_scans
+from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.gather import gather_rows
 from slam2d_tpu_torch.ops.update import update_ism
 from slam2d_tpu_torch.pf.shared_refine import shared_refine
+from slam2d_tpu_torch.pf.shared_update import shared_update
 
 
 class PFState(NamedTuple):
@@ -102,7 +118,8 @@ def refine_matcher(cfg: FrontendConfig, pf: PFConfig):
     )
 
 
-def fastslam_init(cfg: FrontendConfig, pf: PFConfig, device, start_pose=None):
+def fastslam_init(cfg: FrontendConfig, pf: PFConfig, device="cuda",
+                  start_pose=None):
     """Fresh state on `device`: P empty maps of pf.map_dtype, every
     particle at `start_pose`, equal weights."""
     f32 = dict(dtype=torch.float32, device=device)
@@ -166,37 +183,87 @@ def host_gate_flags(odom, cfg: FrontendConfig, prev_odom, dist0=0.0,
     return flags
 
 
+def per_particle_fields(logodds, priors, cfg, mcfg, plain=False):
+    """(S [P, h, w] float32, origins [P, 2] world x, y): each particle's
+    search space over the scan window around its prior's cell, clamped
+    into the map (the whole map when the window covers it; JAX's
+    _windowed_match), all built in one launch of the field kernel
+    (ops/field.py)."""
+    g = cfg.grid
+    P, H, W = logodds.shape
+    res = g.resolution
+    win = scan_window_cells(g, cfg.sensor, mcfg)
+    if win >= min(H, W):
+        size = max(H, W)       # cells past the map read 0, then cropped
+        origins = torch.zeros((P, 2), dtype=torch.int32, device=priors.device)
+        origin_xy = torch.tensor(
+            [[g.origin_x, g.origin_y]], dtype=torch.float32,
+            device=priors.device,
+        ).expand(P, 2)
+    else:
+        size = win
+        center = world_to_cell(priors[:, :2], g)
+        r0 = torch.clamp(center[:, 0] - win // 2, 0, H - win)
+        c0 = torch.clamp(center[:, 1] - win // 2, 0, W - win)
+        origins = torch.stack([r0, c0], dim=1).to(torch.int32)
+        origin_xy = torch.stack(
+            [g.origin_x + c0.to(torch.float32) * res,
+             g.origin_y + r0.to(torch.float32) * res],
+            dim=1,
+        )
+    thr = mcfg.free_threshold
+    S = window_field(
+        logodds, origins, size,
+        gaussian_kernel_1d(mcfg.sigma_m / res, blur_halo_cells(mcfg, res)),
+        inv_sat=1.0 / mcfg.occ_evidence_sat,
+        free_logit=math.log(thr / (1.0 - thr)),
+        free_penalty=mcfg.free_penalty, out_dtype=torch.float32, plain=plain,
+    )
+    if size > min(H, W):
+        S = S[:, :H, :W].contiguous()
+    return S, origin_xy
+
+
 def _refine_all(logodds, ranges, priors, cfg, pf, plain=False):
-    """(matched poses [P, 3], scores [P]) of every particle's refine."""
+    """(matched poses [P, 3], scores [P]) of every particle's refine: the
+    shared-anchor refine or the per-particle one, as `refine_mode`
+    resolves."""
     mcfg = refine_matcher(cfg, pf)
     mode = _resolve_refine_mode(pf, mcfg, pf.n_particles)
-    if mode != "shared":
-        raise NotImplementedError(
-            f"refine_mode resolved to {mode!r}: the per-particle refine "
-            "(fewer than refine_shared_min_particles particles, or asked "
-            "for) needs the correlation scorer, kernel 5 "
-            "(slam2d_tpu/ops/pallas_corr.py:_corr_kernel), the next slice "
-            "of the port"
+    if mode == "shared":
+        return shared_refine(
+            logodds, ranges, priors, cfg, mcfg, pf, plain=plain
         )
-    return shared_refine(logodds, ranges, priors, cfg, mcfg, pf, plain=plain)
+    # every particle's own match against its own map, batched (the JAX
+    # package's vmap of _windowed_match), one scorer launch per pass
+    S, origin_xy = per_particle_fields(logodds, priors, cfg, mcfg, plain=plain)
+    return match_scans(
+        S, origin_xy, ranges, priors, cfg.grid, mcfg, cfg.sensor, plain=plain
+    )
 
 
 def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
-    """Integrate the scan into every particle's map at its pose, IN PLACE,
-    over the update window around the pose (pf/fastslam.py's
-    _windowed_update, batched over the particles in one kernel)."""
+    """Integrate the scan into every particle's map at its pose, IN PLACE.
+
+    PFConfig.update_mode picks the batching, "auto" as on the JAX
+    package's accelerator: the shared-anchor update (pf/shared_update.py:
+    G carve images, kernel 8 adds them with the exact endpoint marks) from
+    update_shared_min_particles particles on, else the per-particle ISM
+    update over the update window around each pose (pf/fastslam.py's
+    _windowed_update, batched over the particles in one kernel). The
+    quantized_* modes are diagnostics of the JAX package and raise."""
     mode = pf.update_mode
     if mode == "auto":
         mode = (
             "shared" if pf.n_particles >= pf.update_shared_min_particles
             else "per_particle"
         )
+    if mode == "shared":
+        return shared_update(logodds, poses, ranges, cfg, pf, plain=plain)
     if mode != "per_particle":
         raise NotImplementedError(
-            f"update_mode={mode!r}: only the per-particle update is ported; "
-            "the shared update (P >= update_shared_min_particles) needs "
-            "kernel 8 (slam2d_tpu/ops/pallas_apply.py:_apply_kernel), and "
-            "the quantized_* diagnostics are not ported"
+            f"update_mode={mode!r}: the quantized_* update modes are "
+            "diagnostics of the JAX package and are not ported"
         )
     g, s = cfg.grid, cfg.sensor
     if resolve_update_impl(g, s, auto_ctx="pf") != "pallas":

@@ -30,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from slam2d_tpu.config import FrontendConfig, MatcherConfig, PFConfig
+from slam2d_tpu_torch.config import FrontendConfig, MatcherConfig, PFConfig
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.core.numerics import inv_f32
 from slam2d_tpu_torch.grid.occupancy import (
@@ -39,7 +39,11 @@ from slam2d_tpu_torch.grid.occupancy import (
     world_to_cell,
 )
 from slam2d_tpu_torch.grid.window import blur_halo_cells, scan_window_cells
-from slam2d_tpu_torch.match.correlative import gaussian_kernel_1d
+from slam2d_tpu_torch.match.correlative import (
+    gaussian_kernel_1d,
+    splat_image,
+    splat_inputs,
+)
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.stack import shift_stack
 
@@ -72,41 +76,15 @@ def endpoint_splat(ranges, sensor, thetas, win: int, R: int, C: int,
     _splat_inputs). A beam whose (R+1) x (C+1) patch leaves the window is
     dropped whole. The corner weights are rounded to `cdtype` first, as
     the JAX package's one-hot operands are, and summed in float32."""
-    G = thetas.shape[0]
-    dev = ranges.device
     pts_local, valid = scan_endpoints_local(ranges, sensor)
     pts = se2.rotate_points(thetas, pts_local[None, :, :])      # [G, B, 2]
     inv_res = inv_f32(res)
     pos_col = torch.where(valid[None, :], pts[..., 0] * inv_res + win // 2, 0.0)
     pos_row = torch.where(valid[None, :], pts[..., 1] * inv_res + win // 2, 0.0)
-    r0f, c0f = torch.floor(pos_row), torch.floor(pos_col)
-    fr, fc = pos_row - r0f, pos_col - c0f
-    r0 = r0f.to(torch.int64) - R // 2
-    c0 = c0f.to(torch.int64) - C // 2
-    ok = (
-        (r0 >= 0) & (r0 <= win - (R + 1)) & (c0 >= 0) & (c0 <= win - (C + 1))
-        & valid[None, :]
+    r0, c0, fr, fc, ok = splat_inputs(
+        (win, win), pos_row, pos_col, valid, R, C, bilinear=True
     )
-    r0 = torch.clamp(r0, 0, win - (R + 1))
-    c0 = torch.clamp(c0, 0, win - (C + 1))
-    okf = ok.to(torch.float32)
-
-    def rnd(w):
-        return w.to(cdtype).to(torch.float32)
-
-    wr = (rnd((1.0 - fr) * okf), rnd(fr * okf))
-    wc = (rnd(1.0 - fc), rnd(fc))
-    base = torch.arange(G, device=dev)[:, None] * (win * win)
-    # [G, B, 4]: for each beam its four corners, so that the sum at a cell
-    # runs over the beams in order (a beam reaches a cell by one corner)
-    idx = torch.stack(
-        [base + (r0 + i) * win + (c0 + j) for i in (0, 1) for j in (0, 1)],
-        dim=-1,
-    )
-    val = torch.stack([wr[i] * wc[j] for i in (0, 1) for j in (0, 1)], dim=-1)
-    E = torch.zeros(G * win * win, dtype=torch.float32, device=dev)
-    E.index_put_((idx.reshape(-1),), val.reshape(-1), accumulate=True)
-    return E.reshape(G, win, win).to(cdtype)
+    return splat_image(r0, c0, fr, fc, ok, (win, win), cdtype)
 
 
 def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,

@@ -1,23 +1,25 @@
 """The configurations and synthetic logs of the JAX package's bench.py
-(the frontend) and bench_pf.py (FastSLAM-100, its defaults), for the
-scripts that drive the port on a GPU (chip_smoke.py, scripts/profile_torch.py),
-and the card's name and power limit as nvidia-smi reports them.
+(the frontend) and bench_pf.py (FastSLAM at its defaults, with 100, 1000
+or 16 particles), for the scripts that drive the port on a GPU
+(chip_smoke.py, scripts/profile_torch.py), and the card's name and power
+limit as nvidia-smi reports them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import subprocess
 
 import numpy as np
 
-from slam2d_tpu.config import (
+from slam2d_tpu_torch.config import (
     FrontendConfig,
     GridConfig,
     MatcherConfig,
     PFConfig,
     SensorConfig,
 )
-from slam2d_tpu.data.synth import SynthWorld, simulate_log
+from slam2d_tpu_torch.data.synth import SynthWorld, simulate_log
 
 LOG_SEED = 0
 _ROUTE = [[3.0, 3.0], [3.0, 8.0], [8.0, 8.0], [12.0, 3.5], [16.0, 3.5],
@@ -63,6 +65,31 @@ def pf_bench_config():
         noise_theta=0.005,
     )
     return cfg, pf
+
+
+def pf1000_bench_config():
+    """`bench_pf.py --particles 1000`, every other flag at its default:
+    FastSLAM-1000, where update_mode "auto" resolves to the shared update
+    (kernel 8) and refine_mode "auto" to the shared refine."""
+    cfg, pf = pf_bench_config()
+    return cfg, dataclasses.replace(pf, n_particles=1000)
+
+
+def pf_per_particle_bench_config():
+    """`bench_pf.py --particles 16`: below refine_shared_min_particles, so
+    refine_mode "auto" resolves to the per-particle refine (kernel 5; one
+    fine bilinear pass, as round(0.25 / 0.1) <= coarse_factor)."""
+    cfg, pf = pf_bench_config()
+    return cfg, dataclasses.replace(pf, n_particles=16)
+
+
+def ray_bench_config():
+    """bench.py's frontend config with update_impl="pallas_ray" (the
+    exact-ray update, kernel 1 variant "ray", on its 520^2 window)."""
+    cfg = bench_config()
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, update_impl="pallas_ray")
+    )
 
 
 def pf_bench_log(sensor):

@@ -13,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from slam2d_tpu.config import FrontendConfig, PFConfig
+from slam2d_tpu_torch.config import FrontendConfig, PFConfig
 from slam2d_tpu_torch.pf.fastslam import (
     PFState,
     fastslam_init,
@@ -23,7 +23,7 @@ from slam2d_tpu_torch.pf.fastslam import (
 
 
 def run_fastslam(
-    log: dict, cfg: FrontendConfig, pf: PFConfig, device, seed: int = 0,
+    log: dict, cfg: FrontendConfig, pf: PFConfig, device="cuda", seed: int = 0,
     state: PFState | None = None, draws=None,
 ):
     """Run the particle filter over a host-side log dict {odom, ranges}.

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from slam2d_tpu.config import FrontendConfig
+from slam2d_tpu_torch.config import FrontendConfig
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.grid.occupancy import (
     integrate_scan,
@@ -50,7 +50,7 @@ class FrontendState(NamedTuple):
 
 
 def frontend_init(
-    cfg: FrontendConfig, device, start_pose=None, start_odom=None,
+    cfg: FrontendConfig, device="cuda", start_pose=None, start_odom=None,
     plain: bool = False,
 ):
     """Fresh state on `device`: an empty map and its search space."""
@@ -205,7 +205,8 @@ def _chunk_iter(odom: np.ndarray, ranges: np.ndarray, K: int):
 
 
 def run_frontend(
-    log: dict, cfg: FrontendConfig, device, state: FrontendState | None = None,
+    log: dict, cfg: FrontendConfig, device="cuda",
+    state: FrontendState | None = None,
     plain: bool = False,
 ):
     """Run the frontend over a host-side log dict {odom, ranges} on `device`.

@@ -22,7 +22,6 @@ synthetic log.
 """
 
 import dataclasses
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -30,34 +29,21 @@ import numpy as np
 import pytest
 import torch
 
-from slam2d_tpu.config import (
-    FrontendConfig,
-    GridConfig,
-    MatcherConfig,
-    PFConfig,
-    SensorConfig,
-)
-from slam2d_tpu.data.synth import SynthWorld, simulate_log
+from slam2d_tpu.config import PFConfig
 from slam2d_tpu.metrics import ate_rmse
 from slam2d_tpu.pf import fastslam as jfs
 from slam2d_tpu.run.fastslam_run import run_fastslam as jax_run_fastslam
 from slam2d_tpu_torch.pf import fastslam as tfs
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
+from torch_parity import PF_CFG as CFG
+from torch_parity import PF_P as P
+from torch_parity import PF_SENSOR as SENSOR
+from torch_parity import PF_T as T
+from torch_parity import pf_draws, pf_log, to_port
 
 torch.set_num_threads(1)
 
-SENSOR = SensorConfig(n_beams=120, max_range=8.0)
-CFG = FrontendConfig(
-    sensor=SENSOR,
-    matcher=MatcherConfig(search_xy=0.25, search_theta=0.12, n_theta=9),
-    grid=GridConfig(
-        height=224, width=224, resolution=0.1, center_x=8.0, center_y=8.0,
-        update_impl="pallas",
-    ),
-    chunk=8, bootstrap_dist=1.0,
-)
-P = 8
-T = 48           # a multiple of CFG.chunk: JAX's driver pads no tail
+TCFG = to_port(CFG)
 STEP_SCANS = 24  # step parity: bootstrap, 8 refines, resamples
 PF = PFConfig(
     n_particles=P, refine_mode="shared", noise_xy=0.02, noise_theta=0.01,
@@ -65,28 +51,6 @@ PF = PFConfig(
 POSE_TOL, SCORE_TOL = 2e-4, 5e-5
 LOGW_TOL = 2 * PF.weight_sharpness * SCORE_TOL
 CPU = torch.device("cpu")
-
-
-@functools.cache
-def _log():
-    world = SynthWorld.box_rooms(16.0)
-    wp = np.array([[3.0, 3.0], [3.0, 9.0], [9.0, 9.0], [11.0, 4.0]])
-    log = simulate_log(
-        world, wp, SENSOR, step=0.12, odom_noise_xy=0.03,
-        odom_noise_theta=0.012, seed=11,
-    )
-    return {k: np.asarray(v)[:T] for k, v in log.items()}
-
-
-def _draws(rng, n):
-    """JAX's draws for n scans from key `rng`, as fastslam_step splits it:
-    standard normal noise [n, P, 3] and uniforms [n]."""
-    noise, us = [], []
-    for _ in range(n):
-        rng, k_noise, k_resample = jax.random.split(rng, 3)
-        noise.append(np.asarray(jax.random.normal(k_noise, (P, 3))))
-        us.append(np.asarray(jax.random.uniform(k_resample)))
-    return np.stack(noise), np.stack(us).astype(np.float32)
 
 
 def _reset_counts():
@@ -106,25 +70,25 @@ def _assert_maps_close(out, ref):
 
 def test_fastslam_step_matches_jax_from_its_states():
     pf = dataclasses.replace(PF, resample_threshold=0.9)
-    log = _log()
+    log = pf_log()
     odom = log["odom"].astype(np.float32)
     ranges = log["ranges"].astype(np.float32)
-    flags = tfs.host_gate_flags(odom, CFG, odom[0], 0.0, np.inf, 0.0)
+    flags = tfs.host_gate_flags(odom, TCFG, odom[0], 0.0, np.inf, 0.0)
     state = jfs.fastslam_init(
         CFG, pf, jax.random.PRNGKey(0), start_pose=odom[0]
     )._replace(prev_odom=jnp.asarray(odom[0]))
     jstep = jax.jit(jfs.fastslam_step, static_argnums=(3, 4))
     _reset_counts()
     for t in range(STEP_SCANS):
-        noise, u = _draws(state.rng, 1)
+        noise, u = pf_draws(state.rng, 1)
         ts = tfs.pf_state_from_numpy(state, CPU)
         state, (ref_bp, ref_ne, ref_sc) = jstep(
             state, jnp.asarray(odom[t]), jnp.asarray(ranges[t]), CFG, pf
         )
         syncs = tfs.fastslam_step.host_syncs
         out, (bp, ne, sc) = tfs.fastslam_step(
-            ts, torch.from_numpy(odom[t]), torch.from_numpy(ranges[t]), CFG,
-            pf, gates=flags[t], noise=torch.from_numpy(noise[0]),
+            ts, torch.from_numpy(odom[t]), torch.from_numpy(ranges[t]), TCFG,
+            to_port(pf), gates=flags[t], noise=torch.from_numpy(noise[0]),
             u=torch.tensor(u[0]),
         )
         # no read for the host's gates; the resample trigger on a refine
@@ -153,12 +117,14 @@ def test_fastslam_step_matches_jax_from_its_states():
 
 
 def test_run_fastslam_matches_jax():
-    log = _log()
+    log = pf_log()
     _, ref_traj, ref_neff, ref_scores = jax_run_fastslam(log, CFG, PF, seed=0)
-    draws = _draws(jax.random.PRNGKey(0), T)
+    draws = pf_draws(jax.random.PRNGKey(0), T)
     _reset_counts()
-    state, traj, n_eff, scores = run_fastslam(log, CFG, PF, CPU, draws=draws)
-    flags = tfs.host_gate_flags(log["odom"], CFG, log["odom"][0], 0.0, np.inf)
+    state, traj, n_eff, scores = run_fastslam(
+        log, TCFG, to_port(PF), CPU, draws=draws
+    )
+    flags = tfs.host_gate_flags(log["odom"], TCFG, log["odom"][0], 0.0, np.inf)
 
     # the same gates: a scan refines exactly where the JAX run did
     np.testing.assert_array_equal(scores != -1.0, flags[:, 0])
@@ -189,16 +155,18 @@ def test_run_fastslam_resumes_a_split_run():
     second part resumed from the first part's final state, give the same
     trajectory and N_eff with the same draws; the resume reads the state's
     gate accumulators back once."""
-    log = {k: v[:STEP_SCANS] for k, v in _log().items()}
-    noise, u = _draws(jax.random.PRNGKey(0), STEP_SCANS)
-    _, traj, n_eff, _ = run_fastslam(log, CFG, PF, CPU, draws=(noise, u))
+    log = {k: v[:STEP_SCANS] for k, v in pf_log().items()}
+    noise, u = pf_draws(jax.random.PRNGKey(0), STEP_SCANS)
+    _, traj, n_eff, _ = run_fastslam(log, TCFG, to_port(PF), CPU,
+                                     draws=(noise, u))
     cut = STEP_SCANS // 2 + 2
     parts = [slice(0, cut), slice(cut, STEP_SCANS)]
     state, trajs, n_effs = None, [], []
     for part in parts:
         _reset_counts()
         state, tr, ne, _ = run_fastslam(
-            {k: v[part] for k, v in log.items()}, CFG, PF, CPU, state=state,
+            {k: v[part] for k, v in log.items()}, TCFG, to_port(PF), CPU,
+            state=state,
             draws=(noise[part], u[part]),
         )
         trajs.append(tr)
@@ -210,14 +178,14 @@ def test_run_fastslam_resumes_a_split_run():
 
 
 def test_host_gate_flags_match_jax():
-    log = _log()
+    log = pf_log()
     odom = log["odom"].astype(np.float32)
     for args in ((odom[0], 0.0, np.inf, 0.0), (odom[0], 2.5, 0.1, 0.07)):
         np.testing.assert_array_equal(
-            tfs.host_gate_flags(odom, CFG, *args),
+            tfs.host_gate_flags(odom, TCFG, *args),
             jfs.host_gate_flags(odom, CFG, *args),
         )
-    flags = tfs.host_gate_flags(odom, CFG, odom[0], 0.0, np.inf, 0.0)
+    flags = tfs.host_gate_flags(odom, TCFG, odom[0], 0.0, np.inf, 0.0)
     assert flags[:, 0].any() and flags[:, 1].any() and flags[:, 2].any()
 
 
@@ -245,7 +213,9 @@ def test_init_and_state_round_trip(map_dtype):
     pf = dataclasses.replace(PF, map_dtype=map_dtype)
     start = np.array([1.0, 2.0, 0.5], np.float32)
     ref = jfs.fastslam_init(CFG, pf, jax.random.PRNGKey(0), start_pose=start)
-    out = tfs.pf_state_to_numpy(tfs.fastslam_init(CFG, pf, CPU, start))
+    out = tfs.pf_state_to_numpy(
+        tfs.fastslam_init(TCFG, to_port(pf), CPU, start)
+    )
     for f in tfs.PFState._fields:
         a, b = getattr(out, f), np.asarray(getattr(ref, f))
         assert a.dtype == b.dtype and a.shape == b.shape, f
@@ -262,22 +232,25 @@ def test_init_and_state_round_trip(map_dtype):
 @pytest.mark.parametrize(
     "pf,why",
     [
-        (PFConfig(n_particles=P), "auto refine below 32 particles"),
-        (PFConfig(n_particles=P, refine_mode="per_particle"), "per-particle"),
-        (PFConfig(n_particles=P, refine_mode="shared", update_mode="shared"),
-         "shared update"),
         (PFConfig(n_particles=P, refine_mode="shared",
                   update_mode="quantized_per_particle"), "diagnostic"),
-        (PFConfig(n_particles=256, refine_mode="shared"),
-         "auto update from 256 particles"),
+        (PFConfig(n_particles=P, refine_mode="shared",
+                  update_mode="quantized_xy_only"), "diagnostic, one axis"),
+        (PFConfig(n_particles=P, refine_mode="shared", update_mode="shared",
+                  update_subcell=2), "shared update: sub-cell images"),
+        (PFConfig(n_particles=P, refine_mode="shared", update_mode="shared",
+                  update_exact_endpoints=False), "shared update: no marks"),
+        (PFConfig(n_particles=P, refine_mode="per_particle",
+                  refine_score_impl="mxu"), "a TPU scorer workaround"),
     ],
 )
 def test_unported_pf_paths_raise(pf, why):
     cfg = dataclasses.replace(
         CFG, grid=dataclasses.replace(CFG.grid, height=32, width=32)
     )
+    cfg, pf = to_port(cfg), to_port(pf)
     state = tfs.fastslam_init(cfg, pf, CPU)
-    refine = pf.refine_mode != "shared"
+    refine = pf.refine_score_impl is not None
     with pytest.raises(NotImplementedError):
         tfs.fastslam_step(
             state, torch.zeros(3), torch.ones(SENSOR.n_beams), cfg, pf,

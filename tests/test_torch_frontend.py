@@ -19,7 +19,7 @@ import torch
 from slam2d_tpu.metrics import ate_rmse
 from slam2d_tpu.run import frontend as jfe
 from slam2d_tpu_torch.run import frontend as tfe
-from torch_parity import e2e_log, frontend_cfg, pose_error
+from torch_parity import e2e_log, frontend_cfg, pose_error, to_port
 
 torch.set_num_threads(1)
 
@@ -42,7 +42,7 @@ def test_slice_matches_jax(size):
     cfg = frontend_cfg(size)
     log = e2e_log()
     js, jt, jsc = jfe.run_frontend(log, cfg)
-    ts, tt, tsc = tfe.run_frontend(log, cfg, CPU)
+    ts, tt, tsc = tfe.run_frontend(log, to_port(cfg), CPU)
     assert tt.shape == jt.shape and np.isfinite(tt).all()
     dxy, dth = pose_error(tt, jt)
     print(f"{size}^2: max |dxy| {dxy:.3g} m, max |dtheta| {dth:.3g} rad")
@@ -70,7 +70,7 @@ def test_state_carried_across_from_jax():
     for a, b in zip(tfe.state_to_numpy(ts), arrays):
         np.testing.assert_array_equal(a, b)
     js2, jt, _ = jfe.run_frontend(tail, cfg, state=js)
-    ts2, tt, _ = tfe.run_frontend(tail, cfg, CPU, state=ts)
+    ts2, tt, _ = tfe.run_frontend(tail, to_port(cfg), CPU, state=ts)
     dxy, dth = pose_error(tt, jt)
     print(f"carried state: max |dxy| {dxy:.3g} m, max |dtheta| {dth:.3g} rad")
     assert dxy <= POSE_TOL and dth <= POSE_TOL
@@ -94,7 +94,7 @@ def test_port_runs_without_jax():
             state, torch.tensor([0.1, 0.0, 0.0]), torch.full((32,), 2.0), cfg
         )
         assert bool(torch.isfinite(pose).all()) and state.logodds.any()
-        print("jax" in sys.modules)
+        print("jax" in sys.modules, "slam2d_tpu" in sys.modules)
         """
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -103,11 +103,12 @@ def test_port_runs_without_jax():
         timeout=300, cwd=root,
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().splitlines()[-1] == "False"
+    # neither JAX nor the JAX package was imported
+    assert out.stdout.strip().splitlines()[-1] == "False False"
 
 
 def test_localization_mode_is_not_ported():
-    cfg = dataclasses.replace(frontend_cfg(256), localize_only=True)
+    cfg = to_port(dataclasses.replace(frontend_cfg(256), localize_only=True))
     state = tfe.frontend_init(cfg, CPU)
     with pytest.raises(NotImplementedError):
         tfe.frontend_step(state, torch.zeros(3), torch.full((180,), 2.0), cfg)

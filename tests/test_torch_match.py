@@ -22,7 +22,7 @@ from slam2d_tpu_torch.grid import occupancy as tocc
 from slam2d_tpu_torch.match import correlative as tcor
 from slam2d_tpu_torch.ops import score as tscore
 from slam2d_tpu_torch.ops import search_space as tfield
-from torch_parity import SENSOR, synth_ranges
+from torch_parity import SENSOR, synth_ranges, to_port
 
 torch.set_num_threads(1)
 
@@ -55,7 +55,7 @@ def test_gaussian_taps_and_theta_offsets_match_jax():
         )
     for m in (MCFG, dataclasses.replace(MCFG, n_theta=1)):
         np.testing.assert_array_equal(
-            tcor._theta_offsets(m), jcor._theta_offsets(m)
+            tcor._theta_offsets(to_port(m)), jcor._theta_offsets(m)
         )
 
 
@@ -65,7 +65,9 @@ def test_build_search_space_matches_jax(resolution):
     lo[20:30, 10:60] = 3.0
     fn = jax.jit(jcor.build_search_space, static_argnums=(1, 2))
     ref = np.asarray(fn(jnp.asarray(lo), MCFG, resolution))
-    out = tcor.build_search_space(torch.from_numpy(lo), MCFG, resolution).numpy()
+    out = tcor.build_search_space(
+        torch.from_numpy(lo), to_port(MCFG), resolution
+    ).numpy()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
 
 
@@ -104,7 +106,9 @@ def test_score_offsets_matches_gather(bilinear, case):
         )
 
     ref = np.asarray(ref_fn(*map(jnp.asarray, (S, prior, ranges, dth))))
-    pts, valid = tocc.scan_endpoints_local(torch.from_numpy(ranges), SENSOR)
+    pts, valid = tocc.scan_endpoints_local(
+        torch.from_numpy(ranges), to_port(SENSOR)
+    )
     out = tcor.score_offsets(
         torch.from_numpy(S), torch.from_numpy(prior), pts, valid,
         torch.from_numpy(dth), radius, cell, origin, bilinear=bilinear,
@@ -126,7 +130,7 @@ def test_match_scan_matches_jax(windowed):
         )
         r0, c0 = 40, 52
         Sw = np.ascontiguousarray(S[r0 : r0 + 128, c0 : c0 + 128])
-        origin = tocc.window_origin_xy(GCFG, (r0, c0))
+        origin = tocc.window_origin_xy(to_port(GCFG), (r0, c0))
         kw_j = dict(search_space=jnp.asarray(Sw), origin_xy=origin)
         kw_t = dict(search_space=torch.from_numpy(Sw), origin_xy=origin)
     else:
@@ -138,7 +142,7 @@ def test_match_scan_matches_jax(windowed):
     jp, js = fn(jnp.asarray(lo), jnp.asarray(ranges), jnp.asarray(prior), **kw_j)
     tp, ts = tcor.match_scan(
         torch.from_numpy(lo), torch.from_numpy(ranges), torch.from_numpy(prior),
-        GCFG, MCFG, SENSOR, **kw_t,
+        to_port(GCFG), to_port(MCFG), to_port(SENSOR), **kw_t,
     )
     jp, tp = np.asarray(jp), tp.numpy()
     print("pose diff", np.abs(jp - tp), "score diff", abs(float(js) - float(ts)))

@@ -35,7 +35,7 @@ from slam2d_tpu_torch.ops import gather as tgather
 from slam2d_tpu_torch.ops import stack as tstack
 from slam2d_tpu_torch.ops import update as tupd
 from slam2d_tpu_torch.pf import fastslam as tfs
-from torch_parity import SENSOR, synth_ranges
+from torch_parity import SENSOR, synth_ranges, to_port
 
 torch.set_num_threads(1)
 
@@ -74,8 +74,8 @@ def test_ism_update_matches_jax_windowed_update(dtype):
     ref = np.asarray(fn(jm, jnp.asarray(POSES)).astype(jnp.float32))
     before = tm.float().numpy().copy()
     out = tfs._update_all(
-        tm, torch.from_numpy(POSES), torch.from_numpy(ranges), CFG,
-        PFConfig(n_particles=3),
+        tm, torch.from_numpy(POSES), torch.from_numpy(ranges), to_port(CFG),
+        to_port(PFConfig(n_particles=3)),
     )
     assert out is tm and tm.dtype == DTYPES[dtype][1]   # in place
     out = tm.float().numpy()
@@ -112,11 +112,12 @@ def test_integrate_scan_ism_matches_jax(impl, dtype):
         win_j, jnp.asarray(POSES[2]), jnp.asarray(ranges), GCFG, SENSOR,
         origin_rc=(jnp.int32(r0), jnp.int32(c0)),
     ).astype(jnp.float32))
-    gcfg = dataclasses.replace(GCFG, update_impl=impl)
-    assert tocc.resolve_update_impl(gcfg, SENSOR, auto_ctx="pf") == "pallas"
+    gcfg = to_port(dataclasses.replace(GCFG, update_impl=impl))
+    sensor = to_port(SENSOR)
+    assert tocc.resolve_update_impl(gcfg, sensor, auto_ctx="pf") == "pallas"
     out = tocc.integrate_scan(
         win_t, torch.from_numpy(POSES[2]), torch.from_numpy(ranges), gcfg,
-        SENSOR, origin_rc=(r0, c0), auto_ctx="pf",
+        sensor, origin_rc=(r0, c0), auto_ctx="pf",
     )
     assert out.dtype == tdtype and out.data_ptr() != win_t.data_ptr()
     out = out.float().numpy()
@@ -136,7 +137,7 @@ def test_cell_center_world_matches_jax():
     from slam2d_tpu_torch.grid import occupancy as tocc
 
     rc = np.random.default_rng(6).integers(-40, 360, (64, 2)).astype(np.int32)
-    out = tocc.cell_center_world(torch.from_numpy(rc), GCFG).numpy()
+    out = tocc.cell_center_world(torch.from_numpy(rc), to_port(GCFG)).numpy()
     np.testing.assert_array_equal(
         out, np.asarray(cell_center_world(jnp.asarray(rc), GCFG))
     )
@@ -234,7 +235,9 @@ def test_aligned_origins_match_jax_aligned_window():
         [[1.0, 0.5, 0.3], [0.2, 0.1, 0.3], [12.0, 6.0, 0.3], [-3.0, 2.0, 0.3]],
         np.float32,
     )
-    origins, anchors = aligned_origins(torch.from_numpy(priors), gcfg, 32)
+    origins, anchors = aligned_origins(
+        torch.from_numpy(priors), to_port(gcfg), 32
+    )
     assert origins.dtype == torch.int32 and origins.shape == (4, 2)
     windows = tfield.unclamped_windows(
         torch.from_numpy(g)[None].expand(4, -1, -1), origins, 32

@@ -1,0 +1,195 @@
+"""PyTorch port: the exact-ray map update (ops/update.py:update_ray,
+kernel 1 variant "ray") against the JAX package's
+pallas_dense_update(variant="ray") in interpret mode (CPU), and the
+frontend with update_impl="pallas_ray" against the JAX frontend.
+
+Tolerances:
+- With the same beam tables (built here with JAX's operations, as the TPU
+  kernel's wrapper builds them), the occupied channel (l_free = 0) is
+  bit-exact, and the free channel (l_occ = 0) within 2e-4 of log-odds
+  (measured 9.4e-5): XLA on the CPU contracts the cell center
+  ox + (col + 0.5) * res and t = cx*dx + cy*dy (and ct) into fused
+  multiply-adds, and the chord's cross-track ramp, of slope
+  1 / (|dx| |dy|), amplifies an ulp of ct for a beam near an axis. With
+  those contractions emulated in float64 the gap falls to 2e-6 in 4
+  cells.
+- With the port's own tables, XLA's cos/sin (not correctly rounded; they
+  differ from torch's in the last bit for ~5% of angles) and its fused
+  pose + dir * r move an endpoint on a cell edge into the neighbouring
+  cell: at most 0.02% of cells may then differ by one l_occ, and the free
+  channel stays within 2e-3.
+- The frontend run: per-scan poses within 5e-3 m / rad and ATE within
+  5 mm of the JAX frontend's.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from slam2d_tpu.config import GridConfig
+from slam2d_tpu.metrics import ate_rmse
+from slam2d_tpu.ops.pallas_update import pallas_dense_update
+from slam2d_tpu.run import frontend as jfe
+from slam2d_tpu_torch.grid import occupancy as tocc
+from slam2d_tpu_torch.ops import update as tupd
+from slam2d_tpu_torch.run import frontend as tfe
+from torch_parity import (
+    SENSOR,
+    e2e_log,
+    frontend_cfg,
+    pose_error,
+    synth_ranges,
+    to_port,
+)
+
+torch.set_num_threads(1)
+
+# tests/test_pallas_ray.py's grid and pose
+GCFG = GridConfig(
+    height=256, width=256, resolution=0.1, center_x=10.0, center_y=10.0,
+    ray_samples=128, update_impl="pallas_ray",
+)
+POSE = np.array([6.3, 5.8, 0.4], np.float32)
+FREE_ATOL = 2e-4
+
+
+@jax.jit
+def _jax_tables(pose, ranges, ox, oy):
+    """The TPU kernel's wrapper's beam tables (pallas_update.py:321-370),
+    padded to 8 beams as there."""
+    res, ms = GCFG.resolution, SENSOR.max_range
+    r = jnp.clip(ranges, 0.0, ms)
+    valid = (ranges > SENSOR.min_range) & jnp.isfinite(ranges)
+    hit = valid & (ranges < ms)
+    angles = jnp.asarray(np.asarray(SENSOR.beam_angles()), jnp.float32) + pose[2]
+    dirx, diry = jnp.cos(angles), jnp.sin(angles)
+    r_free = jnp.maximum(r - res, 0.0) * valid
+    w_free = valid / jnp.maximum(r_free / GCFG.ray_samples, res)
+    adx, ady = jnp.abs(dirx), jnp.abs(diry)
+    amax, amin = jnp.maximum(adx, ady), jnp.minimum(adx, ady)
+    ecol = jnp.floor((pose[0] + dirx * r - ox) / res)
+    erow = jnp.floor((pose[1] + diry * r - oy) / res)
+    rays = jnp.stack([
+        dirx, diry, w_free, res / jnp.maximum(amax, 1e-6),
+        0.5 * res * (adx + ady), 1.0 / jnp.maximum(amax * amin, 1e-9),
+        r_free, jnp.where(hit, erow, -1e9), jnp.where(hit, ecol, -1e9),
+    ])
+    pad = (-rays.shape[1]) % 8
+    fill = jnp.zeros((9, pad), jnp.float32).at[7:].set(-1e9)
+    return jnp.concatenate([rays, fill], axis=1)
+
+
+def _case(origin_rc, l_free, l_occ, seed=1):
+    gcfg = dataclasses.replace(GCFG, l_free=l_free, l_occ=l_occ)
+    size = 256 if origin_rc is None else 160
+    grid = np.random.default_rng(seed).uniform(-5, 5, (size, size)).astype(
+        np.float32
+    )
+    ranges = synth_ranges(POSE)
+    ranges[5::17] = np.inf                      # invalid beams
+    ranges[9::23] = np.float32(SENSOR.max_range)  # no hit
+    kw = {}
+    ox, oy = gcfg.origin_x, gcfg.origin_y
+    if origin_rc is not None:
+        ox, oy = tocc.window_origin_xy(to_port(gcfg), origin_rc)
+        kw = dict(origin_xy=(ox, oy))
+    ref = np.asarray(pallas_dense_update(
+        jnp.asarray(grid), jnp.asarray(POSE), jnp.asarray(ranges), gcfg,
+        SENSOR, interpret=True, variant="ray", **kw,
+    ))
+    return gcfg, grid, ranges, (ox, oy), ref
+
+
+@pytest.mark.parametrize("origin_rc", [None, (40, 72)])
+@pytest.mark.parametrize("channel", ["occupied", "free", "both"])
+def test_ray_plain_matches_pallas_with_its_tables(origin_rc, channel):
+    l_free, l_occ = {"occupied": (0.0, 0.85), "free": (-0.4, 0.0),
+                     "both": (-0.4, 0.85)}[channel]
+    gcfg, grid, ranges, (ox, oy), ref = _case(origin_rc, l_free, l_occ)
+    rays = np.array(_jax_tables(
+        jnp.asarray(POSE), jnp.asarray(ranges), jnp.float32(ox),
+        jnp.float32(oy),
+    ))
+    out = tupd.update_ray_plain(
+        torch.from_numpy(grid), torch.from_numpy(POSE), torch.from_numpy(rays),
+        origin_xy=(ox, oy), resolution=gcfg.resolution, l_free=l_free,
+        l_occ=l_occ, l_clamp=gcfg.l_clamp,
+    ).numpy()
+    assert (out != grid).sum() > 100
+    if channel == "occupied":
+        np.testing.assert_array_equal(out, ref)   # exact
+    else:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=FREE_ATOL)
+
+
+@pytest.mark.parametrize("origin_rc", [None, (40, 72)])
+def test_ray_update_matches_pallas(origin_rc):
+    """integrate_scan with update_impl="pallas_ray", tables and all."""
+    for l_free, l_occ in ((0.0, 0.85), (-0.4, 0.0)):
+        gcfg, grid, ranges, _, ref = _case(origin_rc, l_free, l_occ)
+        out = tocc.integrate_scan(
+            torch.from_numpy(grid), torch.from_numpy(POSE),
+            torch.from_numpy(ranges), to_port(gcfg), to_port(SENSOR),
+            origin_rc=origin_rc,
+        ).numpy()
+        diff = np.abs(out - ref)
+        if l_free == 0.0:
+            off = diff[diff != 0]
+            assert off.size <= 0.0002 * diff.size
+            np.testing.assert_allclose(off, gcfg.l_occ, rtol=0, atol=1e-5)
+        else:
+            assert diff.max() <= 2e-3
+        assert (out != grid).sum() > 100
+
+
+def test_ray_tables_pad_to_the_chunk():
+    rays = tupd.ray_tables(
+        torch.from_numpy(POSE), torch.ones(13),
+        torch.linspace(-1.5, 1.5, 13), origin_xy=(0.0, 0.0), resolution=0.1,
+        min_range=0.1, max_range=12.0, ray_samples=128,
+    )
+    assert rays.shape == (9, 16) and rays.dtype == torch.float32
+    assert (rays[:7, 13:] == 0).all() and (rays[7:, 13:] == -1e9).all()
+
+
+@pytest.mark.parametrize("bad", ["grid_dtype", "beams", "device"])
+def test_ray_wrapper_rejects_bad_input(bad):
+    grid, ranges = torch.zeros(32, 32), torch.ones(180)
+    angles = torch.linspace(-1.5, 1.5, 180)
+    pose = torch.from_numpy(POSE)
+    if bad == "grid_dtype":
+        grid = grid.double()
+    elif bad == "beams":
+        ranges, angles = torch.ones(1400), torch.zeros(1400)
+    else:
+        grid, ranges, angles, pose = (
+            t.to("meta") for t in (grid, ranges, angles, pose)
+        )
+    with pytest.raises(ValueError):
+        tupd.update_ray(
+            grid, pose, ranges, angles, origin_xy=(0.0, 0.0), resolution=0.1,
+            min_range=0.1, max_range=12.0, l_free=-0.4, l_occ=0.85,
+            l_clamp=10.0, ray_samples=128,
+        )
+
+
+def test_frontend_with_ray_update_matches_jax():
+    cfg = frontend_cfg(512, update_impl="pallas_ray")
+    log = {k: v[:80] for k, v in e2e_log().items()}   # 5 chunks of 16
+    _, jt, jsc = jfe.run_frontend(log, cfg)
+    _, tt, tsc = tfe.run_frontend(log, to_port(cfg), torch.device("cpu"))
+    dxy, dth = pose_error(tt, jt)
+    gt = log["gt_poses"]
+    ate_t = ate_rmse(tt, gt, align=False)
+    ate_j = ate_rmse(jt, gt, align=False)
+    ate_odom = ate_rmse(log["odom"], gt, align=False)
+    print(f"max |dxy| {dxy:.3g} m, |dtheta| {dth:.3g} rad; ATE port "
+          f"{ate_t:.4f} JAX {ate_j:.4f} odometry {ate_odom:.4f}")
+    assert np.isfinite(tt).all()
+    assert dxy <= 5e-3 and dth <= 5e-3
+    np.testing.assert_array_equal(tsc == -1.0, jsc == -1.0)
+    assert abs(ate_t - ate_j) <= 0.005

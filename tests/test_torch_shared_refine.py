@@ -40,6 +40,7 @@ from slam2d_tpu.pf import fastslam as jfs
 from slam2d_tpu.pf import shared_refine as jsr
 from slam2d_tpu_torch.pf import fastslam as tfs
 from slam2d_tpu_torch.pf import shared_refine as tsr
+from torch_parity import to_port
 
 torch.set_num_threads(1)
 
@@ -116,7 +117,8 @@ def test_shared_refine_matches_jax(size, jdtype, fused):
     )
     poses, scores = tsr.shared_refine(
         _to_torch(grids), torch.from_numpy(ranges), torch.from_numpy(priors),
-        cfg, tfs.refine_matcher(cfg, pf), pf,
+        to_port(cfg), tfs.refine_matcher(to_port(cfg), to_port(pf)),
+        to_port(pf),
     )
     np.testing.assert_allclose(
         scores.numpy(), np.asarray(ref_scores), rtol=0, atol=SCORE_TOL
@@ -142,7 +144,8 @@ def test_endpoint_shift_stack_matches_jax():
     )
     ref = np.asarray(ref.astype(jnp.float32))
     out = tsr.endpoint_shift_stack(
-        torch.from_numpy(ranges), SENSOR, torch.from_numpy(thetas), 192, 5,
+        torch.from_numpy(ranges), to_port(SENSOR), torch.from_numpy(thetas),
+        192, 5,
         5, 0.1, torch.bfloat16,
     )
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
@@ -157,29 +160,32 @@ def test_endpoint_shift_stack_matches_jax():
 def test_theta_grid_and_refine_matcher_match_jax():
     for m in (MCFG, dataclasses.replace(MCFG, n_theta=1)):
         for pad in (0, 3):
-            assert tsr._global_theta_grid(m, pad) == jsr._global_theta_grid(
-                m, pad
-            )
+            assert tsr._global_theta_grid(
+                to_port(m), pad
+            ) == jsr._global_theta_grid(m, pad)
     cfg = _cfg(224)
     for pf in (PFConfig(), PFConfig(refine_prior_weight=16.0, refine_xy=0.2,
                                     refine_n_theta=7)):
-        assert tfs.refine_matcher(cfg, pf) == jfs.refine_matcher(cfg, pf)
+        assert tfs.refine_matcher(to_port(cfg), to_port(pf)) == to_port(
+            jfs.refine_matcher(cfg, pf)
+        )
 
 
 def test_refine_mode_resolves_as_on_the_accelerator():
     # "auto" takes the shared refine from refine_shared_min_particles on
     # (the JAX package does so on its accelerator only)
-    auto = PFConfig(refine_mode="auto")
-    assert tfs._resolve_refine_mode(auto, MCFG, 32) == "shared"
-    assert tfs._resolve_refine_mode(auto, MCFG, 31) == "per_particle"
-    theta_less = dataclasses.replace(MCFG, n_theta=1)
+    auto = to_port(PFConfig(refine_mode="auto"))
+    mcfg = to_port(MCFG)
+    assert tfs._resolve_refine_mode(auto, mcfg, 32) == "shared"
+    assert tfs._resolve_refine_mode(auto, mcfg, 31) == "per_particle"
+    theta_less = dataclasses.replace(mcfg, n_theta=1)
     assert tfs._resolve_refine_mode(auto, theta_less, 64) == "per_particle"
     for mode in ("shared", "per_particle"):
         pf = PFConfig(refine_mode=mode)
-        assert tfs._resolve_refine_mode(pf, MCFG, 8) == (
+        assert tfs._resolve_refine_mode(to_port(pf), mcfg, 8) == (
             jfs._resolve_refine_mode(pf, MCFG, 8)
         )
     with pytest.raises(ValueError):
         tfs._resolve_refine_mode(
-            PFConfig(refine_mode="shared"), theta_less, 8
+            to_port(PFConfig(refine_mode="shared")), theta_less, 8
         )

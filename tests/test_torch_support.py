@@ -1,0 +1,101 @@
+"""PyTorch port: its own copies of the JAX package's JAX-free modules
+(slam2d_tpu_torch/config.py, data/synth.py, metrics.py) against the
+originals, and a scan of its sources for imports of the JAX package.
+Everything here is exact."""
+
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+
+import slam2d_tpu.config as jcfg
+import slam2d_tpu_torch.config as tcfg
+from slam2d_tpu.data import synth as jsynth
+from slam2d_tpu.metrics import ate_rmse as jax_ate
+from slam2d_tpu_torch.data import synth as tsynth
+from slam2d_tpu_torch.metrics import ate_rmse
+from torch_parity import frontend_cfg, to_port
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+CONFIGS = ["SensorConfig", "GridConfig", "MatcherConfig", "PFConfig",
+           "FrontendConfig"]
+
+
+@pytest.mark.parametrize("name", CONFIGS)
+def test_config_copies_have_the_same_fields_and_defaults(name):
+    j, t = getattr(jcfg, name), getattr(tcfg, name)
+    jf, tf = dataclasses.fields(j), dataclasses.fields(t)
+    assert [f.name for f in tf] == [f.name for f in jf]
+    assert [f.type for f in tf] == [f.type for f in jf]
+    assert t() == to_port(j())                   # every default
+    assert t.__dataclass_params__.frozen
+    for attr in ("origin_x", "origin_y", "beam_angles", "n_xy"):
+        assert hasattr(j, attr) == hasattr(t, attr)
+
+
+def test_config_methods_and_properties_agree():
+    cfg = frontend_cfg(512)
+    port = to_port(cfg)
+    assert port.grid.origin_x == cfg.grid.origin_x
+    assert port.grid.origin_y == cfg.grid.origin_y
+    assert port.matcher.n_xy(0.05) == cfg.matcher.n_xy(0.05)
+    a, b = port.sensor.beam_angles(), cfg.sensor.beam_angles()
+    assert a.dtype == b.dtype == np.float64
+    np.testing.assert_array_equal(a, b)
+    assert hash(port) == hash(to_port(cfg))      # usable as a cache key
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+def test_simulate_log_matches_jax(seed):
+    wp = np.array([[3.0, 3.0], [3.0, 8.0], [8.0, 8.0], [12.0, 3.5]])
+    sensor = jcfg.SensorConfig(n_beams=90, max_range=10.0)
+    ref = jsynth.simulate_log(jsynth.SynthWorld.box_rooms(20.0), wp, sensor,
+                              step=0.2, seed=seed)
+    out = tsynth.simulate_log(tsynth.SynthWorld.box_rooms(20.0), wp,
+                              to_port(sensor), step=0.2, seed=seed)
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype == np.float32
+        np.testing.assert_array_equal(out[k], ref[k])
+    np.testing.assert_array_equal(
+        tsynth.SynthWorld.box_rooms(16.0).segments,
+        jsynth.SynthWorld.box_rooms(16.0).segments,
+    )
+
+
+def test_ate_matches_jax():
+    rng = np.random.default_rng(3)
+    gt = rng.uniform(0, 10, (50, 3)).astype(np.float32)
+    est = gt + rng.normal(0, 0.1, gt.shape).astype(np.float32)
+    c, s = np.cos(0.3), np.sin(0.3)
+    est[:, :2] = est[:, :2] @ np.array([[c, s], [-s, c]]) + 1.5
+    for align in (True, False):
+        assert ate_rmse(est, gt, align=align) == jax_ate(est, gt, align=align)
+
+
+def _port_sources():
+    files = sorted((ROOT / "slam2d_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch.py"]
+
+
+def test_port_imports_nothing_of_the_jax_package():
+    """No file of slam2d_tpu_torch/, nor chip_smoke.py nor
+    scripts/profile_torch.py, imports slam2d_tpu or jax."""
+    bad = []
+    files = _port_sources()
+    assert len(files) > 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for n in names:
+                top = n.split(".")[0]
+                if top in ("slam2d_tpu", "jax", "jaxlib"):
+                    bad.append(f"{path.relative_to(ROOT)}:{node.lineno} {n}")
+    assert not bad, bad

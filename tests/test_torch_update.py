@@ -23,7 +23,7 @@ from slam2d_tpu.grid import occupancy as jocc
 from slam2d_tpu.ops.pallas_update import pallas_dense_update
 from slam2d_tpu_torch.grid import occupancy as tocc
 from slam2d_tpu_torch.ops import update as tupd
-from torch_parity import SENSOR, synth_ranges
+from torch_parity import SENSOR, synth_ranges, to_port
 
 torch.set_num_threads(1)
 
@@ -78,7 +78,8 @@ def test_update_matches_pallas_hybrid(case, enable):
     )
     out = tocc.integrate_scan(
         torch.from_numpy(grid), torch.from_numpy(POSE),
-        torch.from_numpy(ranges), GCFG, SENSOR, enable=enable,
+        torch.from_numpy(ranges), to_port(GCFG), to_port(SENSOR),
+        enable=enable,
     ).numpy()
     _assert_update_parity(ref, out, GCFG)
     if case == "all_invalid" or enable == 0.0:
@@ -103,7 +104,8 @@ def test_update_window_with_integer_origin():
     )
     out = tocc.integrate_scan(
         torch.from_numpy(np.ascontiguousarray(win)), torch.from_numpy(POSE),
-        torch.from_numpy(ranges), gcfg, SENSOR, origin_rc=(r0, c0),
+        torch.from_numpy(ranges), to_port(gcfg), to_port(SENSOR),
+        origin_rc=(r0, c0),
     ).numpy()
     _assert_update_parity(ref, out, gcfg)
     assert (out != win).sum() > 1000
@@ -116,15 +118,17 @@ def test_occupancy_helpers_match_jax():
         # the cell size into a multiplication by its reciprocal
         fn = jax.jit(getattr(jocc, name), static_argnums=1)
         ref = np.asarray(fn(jnp.asarray(xy), GCFG))
-        out = getattr(tocc, name)(torch.from_numpy(xy), GCFG).numpy()
+        out = getattr(tocc, name)(torch.from_numpy(xy), to_port(GCFG)).numpy()
         np.testing.assert_array_equal(out, ref)
     ranges = _ranges("nan")
     pts_j, valid_j = jocc.scan_endpoints_local(jnp.asarray(ranges), SENSOR)
-    pts_t, valid_t = tocc.scan_endpoints_local(torch.from_numpy(ranges), SENSOR)
+    pts_t, valid_t = tocc.scan_endpoints_local(
+        torch.from_numpy(ranges), to_port(SENSOR)
+    )
     np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
     np.testing.assert_allclose(pts_t.numpy(), np.asarray(pts_j), atol=1e-5)
     np.testing.assert_array_equal(
-        tocc.beam_angles(SENSOR, torch.device("cpu")).numpy(),
+        tocc.beam_angles(to_port(SENSOR), torch.device("cpu")).numpy(),
         np.asarray(jocc.beam_angles(SENSOR)),
     )
     lo = np.linspace(-12, 12, 97, dtype=np.float32)
@@ -132,7 +136,7 @@ def test_occupancy_helpers_match_jax():
         tocc.occupancy_prob(torch.from_numpy(lo)).numpy(),
         np.asarray(jocc.occupancy_prob(jnp.asarray(lo))), atol=1e-7,
     )
-    g = tocc.make_grid(GCFG, torch.device("cpu"))
+    g = tocc.make_grid(to_port(GCFG), torch.device("cpu"))
     assert g.shape == (256, 256) and g.dtype == torch.float32
     assert not g.any()
 
@@ -148,7 +152,7 @@ def test_unported_update_paths_raise(gcfg, sensor):
     with pytest.raises(NotImplementedError):
         tocc.integrate_scan(
             torch.zeros(64, 64), torch.from_numpy(POSE),
-            torch.ones(sensor.n_beams), gcfg, sensor,
+            torch.ones(sensor.n_beams), to_port(gcfg), to_port(sensor),
         )
 
 
@@ -160,7 +164,7 @@ def test_update_wrapper_rejects_bad_input(bad):
     grid = torch.zeros(32, 32)
     pose = torch.from_numpy(POSE)
     ranges = torch.ones(180)
-    angles = tocc.beam_angles(SENSOR, torch.device("cpu"))
+    angles = tocc.beam_angles(to_port(SENSOR), torch.device("cpu"))
     if bad == "grid_dtype":
         grid = grid.double()
     elif bad == "pose_shape":

@@ -8,6 +8,7 @@ import torch
 from slam2d_tpu.config import GridConfig, MatcherConfig, SensorConfig
 from slam2d_tpu.grid import window as jwin
 from slam2d_tpu_torch.grid import window as twin
+from torch_parity import to_port
 
 torch.set_num_threads(1)
 
@@ -25,14 +26,15 @@ CONFIGS = [
 @pytest.mark.parametrize("i", range(len(CONFIGS)))
 def test_window_sizes_match_jax(i):
     g, s, m = CONFIGS[i]
-    assert twin.blur_halo_cells(m, g.resolution) == jwin.blur_halo_cells(
+    tg, ts, tm = to_port(g), to_port(s), to_port(m)
+    assert twin.blur_halo_cells(tm, g.resolution) == jwin.blur_halo_cells(
         m, g.resolution
     )
-    assert twin.scan_window_cells(g, s, m) == jwin.scan_window_cells(g, s, m)
-    for mm in (None, m):
-        assert twin.update_window_cells(g, s, mm) == jwin.update_window_cells(
-            g, s, mm
-        )
+    assert twin.scan_window_cells(tg, ts, tm) == jwin.scan_window_cells(g, s, m)
+    for mm, tmm in ((None, None), (m, tm)):
+        assert twin.update_window_cells(
+            tg, ts, tmm
+        ) == jwin.update_window_cells(g, s, mm)
 
 
 # centers inside, near and beyond every border of a 96 x 80 array
