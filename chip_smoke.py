@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (slam2d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--kernels-only]
 
-from the repository root. It needs a CUDA card, PyTorch built for CUDA and
-nvcc; it imports nothing of JAX. Phases, each of which raises on failure:
+from the repository root (--kernels-only: phases 1-3 alone). It needs a
+CUDA card, PyTorch built for CUDA and nvcc; it imports nothing of JAX.
+Phases, each of which raises on failure:
 
 1. the card: its name and power limit (nvidia-smi);
 2. the build of every kernel in slam2d_tpu_torch/csrc/ (nvcc, sm_90a, one
@@ -12,10 +13,16 @@ nvcc; it imports nothing of JAX. Phases, each of which raises on failure:
 3. each of the ten kernels against its plain PyTorch version on the card,
    at its main path's shapes (the frontend's, FastSLAM-100's,
    FastSLAM-1000's, FastSLAM-16's and the exact-ray frontend's), with
-   inputs made from a seed; both timed with CUDA events (median of 30
-   launches after warmup), beside the least time the card could take
-   (bytes at 3.35 TB/s or operations at the float32 peak) and, where one
-   PyTorch call computes the same function, that call's time;
+   inputs made from a seed, and every variant of the row gather and of the
+   window field at small shapes whose alignment selects it. Timed three
+   ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
+   events (median of 30; the host's enqueue time sits inside);
+   `device_ms`, `library_device_ms`, 50 calls back to back between two
+   events, or the device activities of 50 calls in a torch.profiler trace
+   where the host enqueues more slowly than the device runs (`device_by`);
+   beside them the least time the card could take (bytes at 3.35 TB/s or
+   operations at the float32 peak), `device_ms`'s share of it, and, where
+   one PyTorch call computes the same function, that call's times;
 4. the frontend at bench.py's config and log (1024^2 grid at 0.05 m, 180
    beams, 1078 scans, chunk 64): finite trajectory, ATE below odometry,
    every kernel launched (updates, search-space builds and scorer passes
@@ -71,6 +78,8 @@ from slam2d_tpu_torch.grid.window import (
 from slam2d_tpu_torch.match import correlative
 from slam2d_tpu_torch.metrics import ate_rmse
 from slam2d_tpu_torch.ops import _build
+from slam2d_tpu_torch.ops import field as field_ops
+from slam2d_tpu_torch.ops import gather as gather_ops
 from slam2d_tpu_torch.ops.apply import shared_apply
 from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.field import window_field
@@ -113,10 +122,15 @@ CORR_RTOL = 1e-5          # kernel 5: |err| <= this x sum|E| x max|Sp|
 # float32 rate (no kernel here runs on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+L2_BYTES = 50e6
+DEVICE_TIMING_CALLS = 50  # back-to-back calls between two events
+HOST_BOUND_SHARE = 0.8    # enqueue time above this share of the quotient:
+                          # the host sets the pace, take the profiler's time
 
 
 def _cuda_ms(fn, runs: int = KERNEL_TIMING_RUNS, warmup: int = 3) -> float:
-    """Median milliseconds of one call of `fn`, timed with CUDA events."""
+    """Median milliseconds of one call of `fn`, timed alone with CUDA events
+    (the host's enqueue time sits inside the events)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -132,6 +146,50 @@ def _cuda_ms(fn, runs: int = KERNEL_TIMING_RUNS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def _cuda_device_ms(fn, n: int = DEVICE_TIMING_CALLS, runs: int = 5,
+                    profiler: bool = False):
+    """(milliseconds of device time of one call of `fn`, how it was taken).
+
+    "events": one CUDA event, `n` calls back to back, one event, the
+    elapsed time over `n`; median of `runs` such runs. Where the host
+    enqueues the calls more slowly than the device runs them that quotient
+    is the host's time, so there the device time is the sum of the
+    durations of the device activities of `n` calls in a torch.profiler
+    trace, over `n`: "profiler" (`profiler=True`: taken so in any case, to
+    stand beside another number taken so)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    quotients, enqueue = [], []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        enqueue.append((time.perf_counter() - t0) * 1e3 / n)
+        end.synchronize()
+        quotients.append(start.elapsed_time(end) / n)
+    quotient = statistics.median(quotients)
+    if not profiler and statistics.median(enqueue) < HOST_BOUND_SHARE * quotient:
+        return quotient, "events"
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    device_us = sum(
+        e.time_range.end - e.time_range.start for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    if device_us <= 0:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return device_us / n / 1e3, "profiler"
+
+
 def _bound(n_bytes: float, n_ops: float) -> dict:
     """bound_ms, bound_by: the larger of the bytes at the HBM rate and the
     operations at the float32 rate."""
@@ -142,6 +200,27 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
         bound_by="bytes" if t_bytes >= t_ops else "operations",
         bytes=n_bytes, operations=n_ops,
     )
+
+
+def _times(kernel, plain, bound: dict, library=None) -> dict:
+    """The timing fields of one kernel's entry: `ms`, `plain_ms` and
+    `library_ms` of lone calls (_cuda_ms), `device_ms` of back-to-back calls
+    (_cuda_device_ms) with how it was taken, its share of the bound, and
+    whether the operands fit the L2 cache (then the back-to-back calls
+    found them there: the number is no cold-cache time)."""
+    device_ms, by = _cuda_device_ms(kernel)
+    out = dict(
+        ms=_cuda_ms(kernel), plain_ms=_cuda_ms(plain),
+        library_ms=None if library is None else _cuda_ms(library),
+        device_ms=device_ms, device_by=by,
+        bound_share=bound["bound_ms"] / device_ms,
+        operands_fit_l2=bound["bytes"] <= L2_BYTES, **bound,
+    )
+    if library is not None:
+        out["library_device_ms"], out["library_device_by"] = _cuda_device_ms(
+            library, profiler=by == "profiler"
+        )
+    return out
 
 
 def _corr_check(E, Sp, R, name):
@@ -209,11 +288,10 @@ def kernel_checks(cfg, log, device):
     results["update_hybrid"] = dict(
         max_abs_err=float(diff.max()), cells_differing=n_diff,
         tolerance="<=0.05% of cells, each by one l_free or l_occ",
-        ms=_cuda_ms(lambda: update(False)),
-        plain_ms=_cuda_ms(lambda: update(True)),
-        library_ms=None, shape=[uwin, uwin],
+        shape=[uwin, uwin],
         # the window read and written once, the scan; ~30 operations a cell
-        **_bound(2 * gw.numel() * 4 + 8 * ranges.numel() + 12, 30 * gw.numel()),
+        **_times(lambda: update(False), lambda: update(True), _bound(
+            2 * gw.numel() * 4 + 8 * ranges.numel() + 12, 30 * gw.numel())),
     )
 
     # kernel 3: search-space build of the update window and of the full map
@@ -230,14 +308,13 @@ def kernel_checks(cfg, log, device):
     n_taps = 2 * blur_halo_cells(m, g.resolution) + 1
     results["search_space"] = dict(
         max_abs_err=max(errs.values()), tolerance="atol 1e-6",
-        ms=_cuda_ms(lambda: field(gw, False)),
-        plain_ms=_cuda_ms(lambda: field(gw, True)), shape=[uwin, uwin],
+        shape=[uwin, uwin],
         full_map_ms=_cuda_ms(lambda: field(full, False)),
         full_map_plain_ms=_cuda_ms(lambda: field(full, True)),
-        library_ms=None,
         # read and write the window once; two blur passes and ~8 more
         # operations a cell
-        **_bound(2 * gw.numel() * 4, gw.numel() * (4 * n_taps + 8)),
+        **_times(lambda: field(gw, False), lambda: field(gw, True), _bound(
+            2 * gw.numel() * 4, gw.numel() * (4 * n_taps + 8))),
     )
 
     # kernel 2: coarse [13, 5, 5] on the 136^2 pooled window, fine
@@ -263,11 +340,10 @@ def kernel_checks(cfg, log, device):
         "fine": lambda plain: score_window(
             Sw, *pos_f, valid, m.coarse_factor, True, plain=plain),
     }
-    errs, times = {}, {}
+    errs = {}
     for name, fn in passes.items():
         out = fn(False)
         errs[name] = float((out - fn(True)).abs().max())
-        times[name] = (_cuda_ms(lambda: fn(False)), _cuda_ms(lambda: fn(True)))
         print(f"score_offsets {name} {list(out.shape)}: max |err| "
               f"{errs[name]:.3g} (tolerance 1e-5)")
     if max(errs.values()) > 1e-5:
@@ -276,13 +352,14 @@ def kernel_checks(cfg, log, device):
     n_f = 2 * m.coarse_factor + 1
     results["score_offsets"] = dict(
         max_abs_err=max(errs.values()), tolerance="atol 1e-5",
-        ms=times["fine"][0], plain_ms=times["fine"][1], shape=[5, 9, 9],
-        coarse_ms=times["coarse"][0], coarse_plain_ms=times["coarse"][1],
-        library_ms=None,
+        shape=[5, 9, 9],
+        coarse_ms=_cuda_ms(lambda: passes["coarse"](False)),
+        coarse_plain_ms=_cuda_ms(lambda: passes["coarse"](True)),
         # the fine pass: S and the positions read once; 4 taps x 2
         # operations per beam and candidate
-        **_bound(Sw.numel() * 4 + 2 * T_f * B * 4 + B + T_f * n_f * n_f * 4,
-                 T_f * n_f * n_f * B * 8),
+        **_times(lambda: passes["fine"](False), lambda: passes["fine"](True),
+                 _bound(Sw.numel() * 4 + 2 * T_f * B * 4 + B
+                        + T_f * n_f * n_f * 4, T_f * n_f * n_f * B * 8)),
     )
 
     # kernel 5 on the two passes of bench.py's matcher, as a config that
@@ -397,7 +474,171 @@ def _map_cells_ok(a, b, gcfg, name):
     return off.numel(), float(diff.max())
 
 
-def pf_kernel_checks(cfg, pf, log, device):
+def _gather_entry(flat, anc, dtype_name):
+    """Kernel 4 on rows `flat` [P, N] with ancestors `anc`: bit-exact
+    against its plain version, timed beside index_select. The bound counts
+    each distinct ancestor row read once and every row written once."""
+    P = flat.shape[0]
+    distinct = len(set(anc.tolist()))
+    if distinct == P:
+        raise AssertionError("the gather check needs repeated ancestors")
+    same = torch.equal(gather_rows(flat, anc), gather_rows(flat, anc, plain=True))
+    variant = gather_ops.last_variant()
+    print(f"gather_rows {list(flat.shape)} {dtype_name}, {distinct} distinct "
+          f"ancestors: {variant} bit-exact {same}")
+    if not same:
+        raise AssertionError("gather_rows disagrees with its plain version")
+    anc64 = anc.to(torch.int64)
+    row_bytes = flat.shape[1] * flat.element_size()
+    return dict(
+        max_abs_err=0.0, tolerance="bit-exact", shape=list(flat.shape),
+        distinct_ancestors=distinct, library_call="index_select",
+        variant=variant,
+        **_times(lambda: gather_rows(flat, anc),
+                 lambda: gather_rows(flat, anc, plain=True),
+                 _bound((distinct + P) * row_bytes + 4 * P, 0),
+                 library=lambda: flat.index_select(0, anc64)),
+    )
+
+
+def _field_args(mcfg, res):
+    """(taps, keyword arguments) of window_field for a matcher config."""
+    taps = correlative.gaussian_kernel_1d(
+        mcfg.sigma_m / res, blur_halo_cells(mcfg, res)
+    )
+    thr = mcfg.free_threshold
+    return taps, dict(
+        inv_sat=1.0 / mcfg.occ_evidence_sat,
+        free_logit=float(np.log(thr / (1.0 - thr))),
+        free_penalty=mcfg.free_penalty,
+    )
+
+
+def _field_origins(rng, P, g, win, device):
+    """Unclamped window origins [P, 2] all over the map and off every edge."""
+    org = rng.integers(-win // 2 - 60, g.height - win // 2 + 60, (P, 2))
+    org[:6] = [[-100, 10], [10, -100], [g.height - 100, 10],
+               [10, g.width - 100], [-win - 5, 40], [g.height + 3, -3]]
+    return torch.as_tensor(org.astype(np.int32), device=device)
+
+
+def _field_check(maps, origins, win, taps, out_dtype, fkw):
+    """Kernel 6 against its plain version: at most 0.01% of the cells may
+    differ, each by one ulp of the out dtype (the float32 sums agree; nvcc
+    and PyTorch may round a last bit apart in the bf16 cast's input).
+    Returns (cells differing, max |err|, the kernel variant that ran)."""
+    a = window_field(maps, origins, win, taps, out_dtype=out_dtype, **fkw).float()
+    variant = field_ops.last_variant()
+    b = window_field(maps, origins, win, taps, out_dtype=out_dtype, plain=True,
+                     **fkw).float()
+    diff = (a - b).abs()
+    n_diff = int((diff != 0).sum())
+    ulp = 2.0 ** -7 if out_dtype == torch.bfloat16 else 2.0 ** -22
+    one_ulp = bool(((diff == 0) | (diff <= ulp * b.abs())).all())
+    print(f"window_field {list(maps.shape)} {maps.dtype} -> [{maps.shape[0]}, "
+          f"{win}x{win}] {out_dtype}, {len(taps)} taps, {variant}: {n_diff} cells differ, "
+          f"max |err| {float(diff.max()):.3g} (tolerance: <= 0.01% of cells, "
+          "each by one ulp)")
+    if n_diff > 1e-4 * diff.numel() or not one_ulp:
+        raise AssertionError("window_field disagrees with its plain version")
+    return n_diff, float(diff.max()), variant
+
+
+def _field_entry(maps, origins, win, taps, out_dtype, fkw):
+    """Kernel 6 checked and timed at one of its paths' shapes."""
+    P, H, W = maps.shape
+    n_diff, err, variant = _field_check(maps, origins, win, taps, out_dtype, fkw)
+    on_map = sum(
+        max(0, min(H, r + win) - max(0, r)) * max(0, min(W, c + win) - max(0, c))
+        for r, c in origins.cpu().tolist()
+    )
+
+    def field(plain):
+        return window_field(maps, origins, win, taps, out_dtype=out_dtype,
+                            plain=plain, **fkw)
+
+    return dict(
+        max_abs_err=err, cells_differing=n_diff,
+        tolerance="<=0.01% of cells, each by one ulp of the out dtype",
+        shape=[P, win, win], out_dtype=str(out_dtype), variant=variant,
+        # the window cells on the map read once, the field written once;
+        # two blur passes and ~8 more operations a cell
+        **_times(lambda: field(False), lambda: field(True), _bound(
+            on_map * maps.element_size()
+            + P * win * win * torch.finfo(out_dtype).bits // 8,
+            P * win * win * (4 * len(taps) + 8))),
+    )
+
+
+def _misaligned(t):
+    """A contiguous copy of `t` whose base sits one element past a 16-byte
+    aligned address (a slice of a larger buffer)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def variant_checks(cfg, pf, device):
+    """Phase 3: every variant of kernels 4 and 6 against the plain version,
+    at small shapes whose alignment selects it. Returns the variants seen."""
+    rng = np.random.default_rng(SEED + 7)
+    _, fkw = _field_args(fastslam.refine_matcher(cfg, pf), cfg.grid.resolution)
+    P, Hm = 5, 160
+    pairs = ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+             (torch.bfloat16, torch.bfloat16))
+    seen = set()
+    # (map width, window): row pitch a multiple of 16 bytes or not, field
+    # rows 16-byte aligned or not
+    for Wm, win in ((256, 96), (203, 100), (128, 44)):
+        maps = torch.as_tensor(
+            rng.uniform(-4.0, 4.0, (P, Hm, Wm)).astype(np.float32), device=device
+        )
+        # inside, off the top left, off the bottom right, half off the
+        # bottom, wholly off the map
+        origins = torch.as_tensor(np.array(
+            [[10, 20], [-20, -30], [Hm - 40, Wm - 40], [Hm - win // 2, 5],
+             [-win - 4, Wm - 8]], np.int32), device=device)
+        for n_taps in (9, 13):
+            taps = correlative.gaussian_kernel_1d(1.5, n_taps // 2)
+            for in_dtype, out_dtype in pairs:
+                m = maps.to(in_dtype)
+                for mm in (m, _misaligned(m)) if Wm == 256 else (m,):
+                    seen.add(_field_check(mm, origins, win, taps, out_dtype,
+                                          fkw)[2])
+    if seen != set(field_ops.VARIANTS):
+        raise AssertionError(f"window_field variants run: {sorted(seen)}")
+
+    # kernel 4: rows of 16 k, 4 k and odd bytes, a misaligned base; sorted,
+    # identical, collapsed and unsorted ancestors
+    P = 37
+    ancestors = {
+        "sorted": np.sort(rng.integers(0, P, P)), "identity": np.arange(P),
+        "collapsed": np.full(P, 7), "unsorted": rng.integers(0, P, P),
+    }
+    gathers = set()
+    for n_bytes in (3 * 16384 + 16, 4004, 1001):
+        x = torch.as_tensor(
+            rng.integers(0, 256, (P, n_bytes)).astype(np.uint8), device=device
+        )
+        for xx in (x, _misaligned(x)) if n_bytes % 16 == 0 else (x,):
+            for name, a in ancestors.items():
+                anc = torch.as_tensor(a.astype(np.int32), device=device)
+                ok = torch.equal(gather_rows(xx, anc),
+                                 gather_rows(xx, anc, plain=True))
+                variant = gather_ops.last_variant()
+                gathers.add(variant)
+                if not ok:
+                    raise AssertionError(
+                        f"gather_rows {variant} [{P}, {n_bytes}] bytes, {name} "
+                        "ancestors: disagrees with its plain version")
+    print(f"gather_rows variants, each bit-exact: {sorted(gathers)}")
+    if gathers != set(gather_ops.VARIANTS):
+        raise AssertionError(f"gather_rows variants run: {sorted(gathers)}")
+    return dict(window_field=sorted(seen), gather_rows=sorted(gathers))
+
+
+def pf_kernel_checks(cfg, pf, log, device, big_particles):
     """Phase 3 for the particle filter's kernels, at FastSLAM-100 shapes."""
     rng = np.random.default_rng(SEED + 1)
     g, s = cfg.grid, cfg.sensor
@@ -437,84 +678,58 @@ def pf_kernel_checks(cfg, pf, log, device):
     results["update_ism"] = dict(
         max_abs_err=err, cells_differing=n_diff,
         tolerance="<=0.05% of window cells, each by one l_free or l_occ",
-        ms=_cuda_ms(lambda: ism(scratch, False)),
-        plain_ms=_cuda_ms(lambda: ism(scratch, True)),
-        library_ms=None, shape=[P, uwin, uwin],
+        shape=[P, uwin, uwin],
         # every window read and written once in the map dtype, the scan and
         # the poses; ~30 operations a cell
-        **_bound(2 * P * uwin * uwin * maps.element_size()
-                 + 4 * ranges.numel() + 12 * P, 30 * P * uwin * uwin),
+        **_times(lambda: ism(scratch, False), lambda: ism(scratch, True),
+                 _bound(2 * P * uwin * uwin * maps.element_size()
+                        + 4 * ranges.numel() + 12 * P, 30 * P * uwin * uwin)),
     )
 
-    # kernel 4: the resample's row gather, with repeated ancestors
+    # kernel 4: the resample's row gather, with sorted, repeated ancestors
+    # (systematic resampling's), at FastSLAM-100's and FastSLAM-1000's shapes
     flat = maps.reshape(P, -1)
     anc = torch.as_tensor(
         np.sort(rng.integers(0, P, P)).astype(np.int32), device=device
     )
-    if len(set(anc.tolist())) == P:
-        raise AssertionError("the gather check needs repeated ancestors")
-    same = torch.equal(gather_rows(flat, anc), gather_rows(flat, anc, plain=True))
-    print(f"gather_rows {list(flat.shape)} {pf.map_dtype}: bit-exact {same}")
-    if not same:
-        raise AssertionError("gather_rows disagrees with its plain version")
-    anc64 = anc.to(torch.int64)
-    results["gather_rows"] = dict(
-        max_abs_err=0.0, tolerance="bit-exact",
-        ms=_cuda_ms(lambda: gather_rows(flat, anc)),
-        plain_ms=_cuda_ms(lambda: gather_rows(flat, anc, plain=True)),
-        library_ms=_cuda_ms(lambda: flat.index_select(0, anc64)),
-        library_call="index_select", shape=list(flat.shape),
-        **_bound(2 * flat.numel() * flat.element_size() + 4 * P, 0),
-    )
+    results["gather_rows"] = _gather_entry(flat, anc, pf.map_dtype)
 
     # kernel 6: every particle's field over its unclamped 288^2 window,
     # origins off every edge of the map
     mcfg = fastslam.refine_matcher(cfg, pf)
     win = scan_window_cells(g, s, mcfg)
     cdtype = torch.bfloat16 if mcfg.score_bf16 else torch.float32
-    org = rng.integers(-win // 2 - 60, g.height - win // 2 + 60, (P, 2))
-    org[:6] = [[-100, 10], [10, -100], [g.height - 100, 10],
-               [10, g.width - 100], [-win - 5, 40], [g.height + 3, -3]]
-    origins = torch.as_tensor(org.astype(np.int32), device=device)
-    taps = correlative.gaussian_kernel_1d(
-        mcfg.sigma_m / res, blur_halo_cells(mcfg, res)
-    )
-    thr = mcfg.free_threshold
-    fkw = dict(
-        inv_sat=1.0 / mcfg.occ_evidence_sat,
-        free_logit=float(np.log(thr / (1.0 - thr))),
-        free_penalty=mcfg.free_penalty, out_dtype=cdtype,
-    )
+    taps, fkw = _field_args(mcfg, res)
+    origins = _field_origins(rng, P, g, win, device)
+    results["window_field"] = _field_entry(maps, origins, win, taps, cdtype, fkw)
 
-    def field(plain):
-        return window_field(maps, origins, win, taps, plain=plain, **fkw)
-
-    a, b = field(False).float(), field(True).float()
-    diff = (a - b).abs()
-    n_diff = int((diff != 0).sum())
-    one_ulp = bool(((diff == 0) | (diff <= 2.0 ** -7 * b.abs())).all())
-    print(f"window_field [{P}, {win}x{win}] {cdtype}: {n_diff} cells differ, "
-          f"max |err| {float(diff.max()):.3g} (tolerance: <= 0.01% of cells, "
-          "each by one bf16 ulp)")
-    if n_diff > 1e-4 * diff.numel() or not one_ulp:
-        raise AssertionError("window_field disagrees with its plain version")
-    on_map = sum(
-        max(0, min(g.height, r + win) - max(0, r))
-        * max(0, min(g.width, c + win) - max(0, c))
-        for r, c in org.tolist()
+    # both again at FastSLAM-1000's particle count (524 MB of maps)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 6)
+    big = (torch.rand((big_particles, g.height, g.width), generator=gen,
+                      device=device) * 12 - 6).to(mdt)
+    anc = torch.as_tensor(
+        np.sort(rng.integers(0, big_particles, big_particles)).astype(np.int32),
+        device=device,
     )
-    results["window_field"] = dict(
-        max_abs_err=float(diff.max()), cells_differing=n_diff,
-        tolerance="<=0.01% of cells, each by one ulp of the out dtype",
-        ms=_cuda_ms(lambda: field(False)),
-        plain_ms=_cuda_ms(lambda: field(True)), library_ms=None,
-        shape=[P, win, win],
-        # the window cells on the map read once, the field written once;
-        # two blur passes and ~8 more operations a cell
-        **_bound(on_map * maps.element_size()
-                 + P * win * win * torch.finfo(cdtype).bits // 8,
-                 P * win * win * (4 * len(taps) + 8)),
+    results["gather_rows"]["at_fastslam1000"] = _gather_entry(
+        big.reshape(big_particles, -1), anc, pf.map_dtype
     )
+    origins = _field_origins(rng, big_particles, g, win, device)
+    results["window_field"]["at_fastslam1000"] = _field_entry(
+        big, origins, win, taps, cdtype, fkw
+    )
+    # the same maps at a misaligned base: the tiles loaded by the threads
+    shifted = _misaligned(big)
+    del big
+    coop_ms, _ = _cuda_device_ms(
+        lambda: window_field(shifted, origins, win, taps, out_dtype=cdtype, **fkw)
+    )
+    results["window_field"]["at_fastslam1000"].update(
+        coop_device_ms=coop_ms, coop_variant=field_ops.last_variant()
+    )
+    del shifted
+    torch.cuda.empty_cache()
 
     # kernel 7: the shift stack of the scan's endpoint splats
     G = mcfg.n_theta + 2 * pf.refine_theta_pad
@@ -528,10 +743,10 @@ def pf_kernel_checks(cfg, pf, log, device):
         raise AssertionError("shift_stack disagrees with its plain version")
     results["shift_stack"] = dict(
         max_abs_err=0.0, tolerance="bit-exact",
-        ms=_cuda_ms(lambda: shift_stack(E, R, R)),
-        plain_ms=_cuda_ms(lambda: shift_stack(E, R, R, plain=True)),
-        library_ms=None, shape=[G, R * R, win, win],
-        **_bound((1 + R * R) * E.numel() * E.element_size(), 0),
+        shape=[G, R * R, win, win],
+        **_times(lambda: shift_stack(E, R, R),
+                 lambda: shift_stack(E, R, R, plain=True),
+                 _bound((1 + R * R) * E.numel() * E.element_size(), 0)),
     )
     return results
 
@@ -582,14 +797,13 @@ def apply_check(cfg, pf, log, device):
     scratch = maps.clone()
     return dict(
         max_abs_err=0.0, tolerance="bit-exact",
-        ms=_cuda_ms(lambda: apply(scratch, False)),
-        plain_ms=_cuda_ms(lambda: apply(scratch, True)), library_ms=None,
         shape=[P, H, W, win],
         # each window's cells on the map read and written once, the images
         # and the endpoint operands read once; an add and a clip a cell
-        **_bound(2 * on_map * maps.element_size()
-                 + images.numel() * images.element_size() + 12 * ep[0].numel()
-                 + 12 * P, 3 * on_map),
+        **_times(lambda: apply(scratch, False), lambda: apply(scratch, True),
+                 _bound(2 * on_map * maps.element_size()
+                        + images.numel() * images.element_size()
+                        + 12 * ep[0].numel() + 12 * P, 3 * on_map)),
     )
 
 
@@ -613,6 +827,12 @@ def corr_check(cfg, pf, log, device, frontend):
         torch.randn((P, 3), generator=gen, device=device)
     )
     S, origin_xy = fastslam.per_particle_fields(maps, priors, cfg, mcfg)
+    # kernel 6 at this path's shape: float32 fields at clamped origins
+    size, origins, _ = fastslam.per_particle_windows(
+        priors, cfg, mcfg, g.height, g.width
+    )
+    taps, fkw = _field_args(mcfg, res)
+    field_entry = _field_entry(maps, origins, size, taps, torch.float32, fkw)
     pts, valid = occupancy.scan_endpoints_local(ranges, s)
     dth = torch.as_tensor(correlative._theta_offsets(mcfg), device=device)
     pos = correlative.endpoint_positions_batched(
@@ -628,24 +848,25 @@ def corr_check(cfg, pf, log, device, frontend):
     torch.backends.cudnn.allow_tf32 = False
     try:
         lib_err = float((_conv_corr(Ef, Sp, R) - out).abs().max())
-        library_ms = _cuda_ms(lambda: _conv_corr(Ef, Sp, R))
+        print(f"conv2d (TF32 off) on the same inputs: max |diff| {lib_err:.3g}")
+        nnz = int((E != 0).sum())
+        # E and Sp read once, the scores written once; a multiply-add per
+        # nonzero E cell and lag (what these splats need)
+        times = _times(
+            lambda: corr_scores(E, Sp, R, R),
+            lambda: corr_scores(E, Sp, R, R, plain=True),
+            _bound(E.numel() * E.element_size() + Sp.numel() * 4
+                   + out.numel() * 4, 2 * nnz * R * R),
+            library=lambda: _conv_corr(Ef, Sp, R),
+        )
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    print(f"conv2d (TF32 off) on the same inputs: max |diff| {lib_err:.3g}")
-    nnz = int((E != 0).sum())
     return dict(
         max_abs_err=err, tolerance=f"{CORR_RTOL} x sum|E| x max|Sp| per (p, t)",
-        ms=_cuda_ms(lambda: corr_scores(E, Sp, R, R)),
-        plain_ms=_cuda_ms(lambda: corr_scores(E, Sp, R, R, plain=True)),
-        library_ms=library_ms,
         library_call="torch.nn.functional.conv2d, groups=P, "
                      "cudnn.allow_tf32=False, E widened to float32 beforehand",
         library_max_abs_diff=lib_err, shape=list(E.shape) + [R, R],
-        frontend_passes=frontend,
-        # E and Sp read once, the scores written once; a multiply-add per
-        # nonzero E cell and lag (what these splats need)
-        **_bound(E.numel() * E.element_size() + Sp.numel() * 4
-                 + out.numel() * 4, 2 * nnz * R * R),
+        frontend_passes=frontend, field=field_entry, **times,
     )
 
 
@@ -686,13 +907,12 @@ def ray_check(cfg, log, device):
     pairs = float((r_free / g.resolution * 1.5 + 2).sum())
     return dict(
         max_abs_err=0.0, tolerance="bit-exact",
-        ms=_cuda_ms(lambda: update(False)),
-        plain_ms=_cuda_ms(lambda: update(True)), library_ms=None,
         shape=[uwin, uwin],
         # the window read and written once, the scan and the tables; the
         # chord (16 operations) of every touched pair, ~10 a cell
-        **_bound(2 * gw.numel() * 4 + 4 * B + 9 * 4 * Bpad + 12,
-                 16 * pairs + 10 * gw.numel()),
+        **_times(lambda: update(False), lambda: update(True),
+                 _bound(2 * gw.numel() * 4 + 4 * B + 9 * 4 * Bpad + 12,
+                        16 * pairs + 10 * gw.numel())),
     )
 
 
@@ -884,7 +1104,10 @@ def run_ray(cfg, log, device, hybrid_ate):
     return {"update_ray": launches["update_ray"]}
 
 
-def main():
+def main(kernels_only: bool = False):
+    """Every phase; with `kernels_only` (--kernels-only) phases 1-3 alone,
+    for work on a kernel: the last line is then the checks' JSON, not the
+    {"ok": ...} line of a whole run."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on a GPU")
     device = torch.device("cuda", 0)
@@ -906,13 +1129,24 @@ def main():
     ray_cfg = ray_bench_config()
 
     # phase 3: every kernel against its plain version
+    t0 = time.perf_counter()
     checks = kernel_checks(cfg, log, device)
-    checks.update(pf_kernel_checks(pf_cfg, pf, pf_log, device))
+    variants = variant_checks(pf_cfg, pf, device)
+    checks.update(pf_kernel_checks(pf_cfg, pf, pf_log, device,
+                                   pf1k.n_particles))
+    checks["window_field"]["variants_checked"] = variants["window_field"]
+    checks["gather_rows"]["variants_checked"] = variants["gather_rows"]
     checks["shared_apply"] = apply_check(cfg1k, pf1k, pf_log, device)
     checks["corr_scores"] = corr_check(
         cfg16, pf16, pf_log, device, checks.pop("corr_frontend")
     )
+    checks["window_field"]["at_fastslam16"] = checks["corr_scores"].pop("field")
     checks["update_ray"] = ray_check(ray_cfg, log, device)
+    torch.cuda.synchronize()
+    print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
+    if kernels_only:
+        print(json.dumps({"kernel_checks": checks}))
+        return
 
     # the paths, each with its counts set to 0 just before it
     by_path = {}
@@ -974,4 +1208,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(kernels_only="--kernels-only" in sys.argv[1:])

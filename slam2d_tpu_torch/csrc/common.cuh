@@ -10,6 +10,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define F_ADD __fadd_rn
 #define F_SUB __fsub_rn
@@ -80,4 +81,48 @@ __device__ __forceinline__ float field_value(float blur_raw, bool is_free,
   const float blur = clampf(blur_raw, 0.0f, 1.0f);
   return F_SUB(blur, F_MUL(F_MUL(free_penalty, is_free ? 1.0f : 0.0f),
                            F_SUB(1.0f, blur)));
+}
+
+// ---- Hopper's asynchronous copies (gather_rows.cu, window_field.cu) -------
+//
+// A bulk or tensor copy into shared memory reports the bytes it has landed
+// to an mbarrier there; one thread arms the barrier with the byte count
+// (expect_tx) and issues the copy, the readers wait on the barrier's phase.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(arrivals)
+               : "memory");
+}
+
+// after the inits, before any copy may signal the barriers
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier has completed the phase of this parity (0 for its
+// first use, 1 for the second, ...)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
 }

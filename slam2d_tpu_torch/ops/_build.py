@@ -56,10 +56,14 @@ _SIGNATURES = {
     # array), n_taps, 1/occ_sat, free_logit, free_penalty, stream
     "slam2d_window_field": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I]
     + [_F] * 3 + [_P],
+    # -> the variant its last launch ran
+    "slam2d_window_field_last_variant": [],
     # E, out, elem_bytes, G, R, C, win, stream
     "slam2d_shift_stack": [_P, _P] + [_I] * 5 + [_P],
     # x, out, ancestors, P, row_bytes, stream
     "slam2d_gather_rows": [_P, _P, _P, _I, _L, _P],
+    # -> the variant its last launch ran
+    "slam2d_gather_rows_last_variant": [],
     # maps, map_bf16, images, img_bf16, anchors, slots, ep_r, ep_c, ep_w,
     # P, H, W, win, G, B, l_clamp, stream
     "slam2d_shared_apply": [_P, _I, _P, _I] + [_P] * 5 + [_I] * 6 + [_F, _P],

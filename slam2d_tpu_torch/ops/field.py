@@ -14,6 +14,13 @@ test compares the log-odds with logit(free_threshold), as the TPU kernel
 does (build_search_space compares the sigmoid with the threshold; the two
 differ only on a value within an ulp of the threshold).
 
+The kernel has five variants, chosen from the operands alone
+(csrc/window_field.cu). With 9 symmetric non-negative taps, the configs'
+blur: the tiles of the maps arrive by TMA ("tma") when the maps' base and
+row pitch are 16-byte aligned, else the threads load them ("coop"); the
+field leaves in 16-byte stores ("packed") when its rows are 16-byte
+aligned, else cell by cell ("scalar"). Any other taps take "generic".
+
 `window_field` sends a CUDA tensor to the kernel and a CPU tensor to
 `window_field_plain`; anything else raises.
 """
@@ -28,6 +35,8 @@ from slam2d_tpu_torch.ops.search_space import separable_blur
 
 _MAX_TAPS = 63  # csrc/window_field.cu passes the taps by value
 _DTYPES = (torch.float32, torch.bfloat16)
+VARIANTS = ("tma+packed", "tma+scalar", "coop+packed", "coop+scalar",
+            "generic")  # the C layer's codes
 
 
 def unclamped_windows(maps, origins, win: int):
@@ -110,6 +119,11 @@ def window_field(
     _build.check(err, "slam2d_window_field")
     window_field.launches += 1
     return out
+
+
+def last_variant() -> str:
+    """The kernel variant that the last launch of `window_field` ran."""
+    return VARIANTS[_build.load_library().slam2d_window_field_last_variant()]
 
 
 window_field.launches = 0

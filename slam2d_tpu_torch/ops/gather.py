@@ -6,6 +6,10 @@ out[p] = x[ancestors[p]] over the leading axis of a [P, ...] tensor, out
 of place (a row can be both a source and a destination), bit-exact for
 every dtype.
 
+The kernel copies in the widest words that the row length and both
+pointers are aligned to: its variants "vector16", "vector4" and "vector1"
+(csrc/gather_rows.cu), chosen from the operands' alignment alone.
+
 `gather_rows` sends a CUDA tensor to the kernel and a CPU tensor to
 `gather_rows_plain`; anything else raises.
 """
@@ -15,6 +19,8 @@ from __future__ import annotations
 import torch
 
 from slam2d_tpu_torch.ops import _build
+
+VARIANTS = ("vector16", "vector4", "vector1")  # the C layer's codes
 
 
 def gather_rows_plain(x, ancestors):
@@ -47,11 +53,16 @@ def gather_rows(x, ancestors, plain: bool = False):
     lib = _build.load_library()
     err = lib.slam2d_gather_rows(
         x.data_ptr(), out.data_ptr(), ancestors.data_ptr(), P,
-        x[0].numel() * x.element_size(), _build.stream_handle(x.device),
+        x.numel() // P * x.element_size(), _build.stream_handle(x.device),
     )
     _build.check(err, "slam2d_gather_rows")
     gather_rows.launches += 1
     return out
+
+
+def last_variant() -> str:
+    """The kernel variant that the last launch of `gather_rows` ran."""
+    return VARIANTS[_build.load_library().slam2d_gather_rows_last_variant()]
 
 
 gather_rows.launches = 0

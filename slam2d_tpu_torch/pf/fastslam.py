@@ -183,34 +183,42 @@ def host_gate_flags(odom, cfg: FrontendConfig, prev_odom, dist0=0.0,
     return flags
 
 
-def per_particle_fields(logodds, priors, cfg, mcfg, plain=False):
-    """(S [P, h, w] float32, origins [P, 2] world x, y): each particle's
-    search space over the scan window around its prior's cell, clamped
-    into the map (the whole map when the window covers it; JAX's
-    _windowed_match), all built in one launch of the field kernel
-    (ops/field.py)."""
+def per_particle_windows(priors, cfg, mcfg, H, W):
+    """(size, origins [P, 2] int32 row/col, origins [P, 2] world x, y) of
+    each particle's scan window around its prior's cell, clamped into an
+    H x W map (the whole map when the window covers it; JAX's
+    _windowed_match)."""
     g = cfg.grid
-    P, H, W = logodds.shape
+    P = priors.shape[0]
     res = g.resolution
     win = scan_window_cells(g, cfg.sensor, mcfg)
     if win >= min(H, W):
-        size = max(H, W)       # cells past the map read 0, then cropped
+        # cells past the map read 0, then cropped
         origins = torch.zeros((P, 2), dtype=torch.int32, device=priors.device)
         origin_xy = torch.tensor(
             [[g.origin_x, g.origin_y]], dtype=torch.float32,
             device=priors.device,
         ).expand(P, 2)
-    else:
-        size = win
-        center = world_to_cell(priors[:, :2], g)
-        r0 = torch.clamp(center[:, 0] - win // 2, 0, H - win)
-        c0 = torch.clamp(center[:, 1] - win // 2, 0, W - win)
-        origins = torch.stack([r0, c0], dim=1).to(torch.int32)
-        origin_xy = torch.stack(
-            [g.origin_x + c0.to(torch.float32) * res,
-             g.origin_y + r0.to(torch.float32) * res],
-            dim=1,
-        )
+        return max(H, W), origins, origin_xy
+    center = world_to_cell(priors[:, :2], g)
+    r0 = torch.clamp(center[:, 0] - win // 2, 0, H - win)
+    c0 = torch.clamp(center[:, 1] - win // 2, 0, W - win)
+    origins = torch.stack([r0, c0], dim=1).to(torch.int32)
+    origin_xy = torch.stack(
+        [g.origin_x + c0.to(torch.float32) * res,
+         g.origin_y + r0.to(torch.float32) * res],
+        dim=1,
+    )
+    return win, origins, origin_xy
+
+
+def per_particle_fields(logodds, priors, cfg, mcfg, plain=False):
+    """(S [P, h, w] float32, origins [P, 2] world x, y): each particle's
+    search space over its scan window (per_particle_windows), all built in
+    one launch of the field kernel (ops/field.py)."""
+    res = cfg.grid.resolution
+    P, H, W = logodds.shape
+    size, origins, origin_xy = per_particle_windows(priors, cfg, mcfg, H, W)
     thr = mcfg.free_threshold
     S = window_field(
         logodds, origins, size,

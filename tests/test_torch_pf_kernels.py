@@ -12,6 +12,10 @@ TPU kernels, run on the CPU in interpret mode (the port's plain versions).
   float32 one rounded once, so it may differ by one bf16 ulp where the
   float32 sums differ in their last bit.
 - shift stack (ops/stack.py) and row gather (ops/gather.py): bit-exact.
+- the shapes that select each variant of the field and gather kernels
+  (16-byte aligned row pitch and field rows or not; 9 taps or 13; rows of
+  16 k, 4 k and odd bytes; a misaligned base): the plain versions, which
+  the kernels are held against on the GPU, against the JAX package there.
 """
 
 import dataclasses
@@ -221,6 +225,80 @@ def test_window_field_matches_fused_window_field(map_dtype, out_dtype):
     assert np.abs(out[0]).max() > 0.5
 
 
+def _jax_field(jm, origins, win, mcfg, jout):
+    """The JAX package's field of windows at unclamped `origins`, as its
+    shared refine builds it: the fused TPU kernel (interpret mode) where
+    fused_field_supported allows, else aligned_window +
+    build_search_space per particle (on the window widened to float32,
+    the arithmetic of the fused kernel and of the port)."""
+    from slam2d_tpu.match.correlative import build_search_space
+    from slam2d_tpu.pf.shared_refine import aligned_window
+
+    P, Hm, Wm = jm.shape
+    res = 0.1
+    hw = blur_halo_cells(mcfg, res)
+    taps, kw = _field_args(mcfg, res)
+    if fused_field_supported(Hm, Wm, win, max(8, (hw + 7) // 8 * 8)):
+        return "fused", fused_window_field(
+            jm, jnp.asarray(origins), win, tuple(float(t) for t in taps),
+            kw["inv_sat"], kw["free_logit"], kw["free_penalty"],
+            out_dtype=jout, interpret=True,
+        )
+    gcfg = GridConfig(height=Hm, width=Wm, resolution=res)
+    # a prior at the center of the window's center cell
+    center = origins[:, ::-1].astype(np.float64) + win // 2 + 0.5
+    priors = np.concatenate(
+        [center * res + (gcfg.origin_x, gcfg.origin_y), np.zeros((P, 1))],
+        axis=1,
+    ).astype(np.float32)
+
+    def one(g, prior):
+        gw, _ = aligned_window(g, prior, gcfg, win)
+        return build_search_space(gw.astype(jnp.float32), mcfg, res).astype(jout)
+
+    return "xla", jax.jit(jax.vmap(one))(jm, jnp.asarray(priors))
+
+
+@pytest.mark.parametrize(
+    "map_dtype,out_dtype",
+    [("float32", "float32"), ("bfloat16", "float32"),
+     ("bfloat16", "bfloat16")],
+)
+@pytest.mark.parametrize("sigma_m", [0.1, 0.2])       # 9 and 13 taps
+@pytest.mark.parametrize("Wm,win", [(256, 96), (203, 100), (128, 44)])
+def test_window_field_at_variant_shapes(Wm, win, sigma_m, map_dtype, out_dtype):
+    """The shapes that select each variant of the field kernel (the maps'
+    row pitch and the field's rows a multiple of 16 bytes or not, 9 taps
+    or another count), origins off every edge and wholly off the map:
+    the tolerance of test_window_field_matches_fused_window_field."""
+    P, Hm = 7, 160
+    mcfg = MatcherConfig(sigma_m=sigma_m)
+    jm, tm = _maps(P, Hm, Wm, 5, DTYPES[map_dtype][0], -4.0, 4.0)
+    origins = np.array(
+        [[10, 20], [-20, -30], [Hm - 40, Wm - 40], [Hm - win // 2, 5],
+         [3, Wm - 10], [5, 3 - win], [-win - 4, Wm - 8]], np.int32,
+    )
+    taps, kw = _field_args(mcfg, 0.1)
+    assert len(taps) == (9 if sigma_m == 0.1 else 13)
+    path, ref = _jax_field(jm, origins, win, mcfg, DTYPES[out_dtype][0])
+    assert path == ("fused" if (Wm, win) == (256, 96) else "xla")
+    ref = np.asarray(ref.astype(jnp.float32))
+    out = tfield.window_field(
+        tm, torch.from_numpy(origins), win, taps,
+        out_dtype=DTYPES[out_dtype][1], **kw,
+    )
+    assert out.dtype == DTYPES[out_dtype][1] and out.shape == (P, win, win)
+    out = out.float().numpy()
+    if out_dtype == "float32":
+        np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+    else:
+        diff = np.abs(out - ref)
+        assert (diff != 0).mean() <= 1e-3
+        assert (diff <= 2.0 ** -8 * np.maximum(np.abs(ref), 2.0 ** -8)).all()
+    assert (out[6] == 0).all()                  # wholly off the map
+    assert np.abs(out[0]).max() > 0.5
+
+
 def test_aligned_origins_match_jax_aligned_window():
     """The port's window origins and anchors against the JAX package's
     aligned_window: the window read at the origin (cells off the map 0)
@@ -278,6 +356,39 @@ def test_gather_rows_matches_pallas_bit_exact(dtype):
     out = tgather.gather_rows(tx, torch.from_numpy(anc))
     assert out.dtype == tx.dtype and out.data_ptr() != tx.data_ptr()
     np.testing.assert_array_equal(out.float().numpy(), ref)
+
+
+GATHER_ANCESTORS = {
+    "sorted": lambda P, rng: np.sort(rng.integers(0, P, P)),
+    "unsorted": lambda P, rng: rng.integers(0, P, P),
+    "identity": lambda P, rng: np.arange(P),
+    "collapsed": lambda P, rng: np.full(P, 7),
+}
+
+
+@pytest.mark.parametrize("ancestors", sorted(GATHER_ANCESTORS))
+@pytest.mark.parametrize("misaligned", [False, True])
+@pytest.mark.parametrize("row_bytes", [2 * 16384 + 16, 4004, 1001])
+def test_gather_rows_at_variant_shapes(row_bytes, misaligned, ancestors):
+    """Rows of 16 k, 4 k and odd bytes (the alignments that select the
+    gather kernel's variants), at an aligned base or one byte into a
+    larger buffer: bit-exact to gather_rows_pallas and to numpy's take."""
+    P = 19
+    rng = np.random.default_rng(row_bytes)
+    x = rng.integers(0, 256, (P, row_bytes)).astype(np.uint8)
+    anc = GATHER_ANCESTORS[ancestors](P, rng).astype(np.int32)
+    tx = torch.from_numpy(x)
+    if misaligned:
+        buf = torch.zeros(x.size + 16, dtype=torch.uint8)
+        tx = buf[1:1 + x.size].view(P, row_bytes).copy_(tx)
+        assert tx.is_contiguous() and tx.data_ptr() % 2 == 1
+    out = tgather.gather_rows(tx, torch.from_numpy(anc))
+    assert out.dtype == torch.uint8 and out.data_ptr() != tx.data_ptr()
+    ref = np.asarray(
+        gather_rows_pallas(jnp.asarray(x), jnp.asarray(anc), interpret=True)
+    )
+    np.testing.assert_array_equal(out.numpy(), ref)
+    np.testing.assert_array_equal(out.numpy(), np.take(x, anc, axis=0))
 
 
 def _field(maps, origins=None):
