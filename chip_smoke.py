@@ -13,8 +13,12 @@ Phases, each of which raises on failure:
 3. each of the ten kernels against its plain PyTorch version on the card,
    at its main path's shapes (the frontend's, FastSLAM-100's,
    FastSLAM-1000's, FastSLAM-16's and the exact-ray frontend's), with
-   inputs made from a seed, and every variant of the row gather and of the
-   window field at small shapes whose alignment selects it. Timed three
+   inputs made from a seed, every variant of the row gather and of the
+   window field at small shapes whose alignment selects it, and the apply
+   (kernel 8) at a small shape with anchors at every edge and off the map
+   for maps and images in float32 and bfloat16 each (apply_edge_operands);
+   the exact-ray update must be one device activity a call (counted in a
+   torch.profiler trace). Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
    events (median of 30; the host's enqueue time sits inside);
    `device_ms`, `library_device_ms`, 50 calls back to back between two
@@ -751,6 +755,81 @@ def pf_kernel_checks(cfg, pf, log, device, big_particles):
     return results
 
 
+def apply_edge_operands(seed: int = 0) -> dict:
+    """Numpy operands of the apply (kernel 8) at a small shape that holds
+    the cases of its band split: maps [8, 128, 256] near the clamp, 4
+    images of 48^2 (a window that is not a multiple of the kernel's 32-row
+    band), anchors within win/2 of every edge and off the map (one image
+    wholly off it), 180 beams whose live marks lie in each particle's
+    window clamped into the map (pf/shared_update.py:endpoint_operands),
+    among them marks on rows of that window the image does not cover, a
+    cell hit by beams 5, 100 and 170, zero-weight beams on cells of live
+    ones (one before its cell's first live beam), and a cell marked on
+    either side of the band edge. Used here and by the CPU tests
+    (tests/test_torch_shared_update.py)."""
+    rng = np.random.default_rng(seed)
+    P, H, W, win, G, B = 8, 128, 256, 48, 4, 180
+    maps = rng.uniform(-9.7, 9.7, (P, H, W)).astype(np.float32)
+    images = rng.uniform(-2.0, 2.0, (G, win, win)).astype(np.float32)
+    anchors = np.array(
+        [[10, 128], [120, 128], [64, 5], [64, 250], [-5, -7], [140, 300],
+         [-60, 100], [64, 128]], np.int32,
+    )
+    slots = np.array([0, 1, 2, 3, 1, 0, 2, 3], np.int32)
+    r0 = np.clip(anchors[:, 0] - win // 2, 0, H - win)
+    c0 = np.clip(anchors[:, 1] - win // 2, 0, W - win)
+    ep_r = r0[:, None] + rng.integers(0, win, (P, B))
+    ep_c = c0[:, None] + rng.integers(0, win, (P, B))
+    # rows of the clamped window that the image leaves uncovered
+    ar = anchors[:, 0] - win // 2
+    lo = np.clip(ar, r0, r0 + win)          # first covered row
+    hi = np.clip(ar + win, r0, r0 + win)    # one past the last
+    for p in range(P):
+        free_rows = [r for r in range(r0[p], r0[p] + win)
+                     if not lo[p] <= r < hi[p]]
+        if free_rows:
+            ep_r[p, 60:80] = rng.choice(free_rows, 20)
+    ep_r[:, [100, 170]] = ep_r[:, [5, 5]]   # one cell, non-adjacent beams
+    ep_c[:, [100, 170]] = ep_c[:, [5, 5]]
+    ep_r[:, 2], ep_c[:, 2] = ep_r[:, 120], ep_c[:, 120]   # w = 0 first
+    ep_r[:, 50], ep_c[:, 50] = ep_r[:, 5], ep_c[:, 5]     # w = 0 between
+    ep_r[:, 30], ep_r[:, 31] = r0 + 31, r0 + 32             # band edge
+    ep_c[:, 30] = ep_c[:, 31] = ep_c[:, 29]
+    ep_w = np.full((P, B), 0.85, np.float32)
+    ep_w[:, 3::11] = 0.3
+    ep_w[:, [2, 50]] = 0.0
+    ep_w[:, 17::29] = 0.0
+    return dict(maps=maps, images=images, anchors=anchors, slots=slots,
+                ep=(ep_r.astype(np.int32), ep_c.astype(np.int32), ep_w),
+                win=win)
+
+
+def apply_edge_check(device):
+    """Phase 3, kernel 8 at apply_edge_operands' small shape, for maps and
+    images in float32 and bfloat16 each: the kernel against its plain
+    version, bit-exact. Returns the dtype pairs checked."""
+    a = apply_edge_operands(SEED)
+    to = lambda x: torch.as_tensor(x, device=device)  # noqa: E731
+    anchors, slots = to(a["anchors"]), to(a["slots"])
+    ep = [to(t) for t in a["ep"]]
+    pairs = []
+    for map_dt in (torch.float32, torch.bfloat16):
+        for img_dt in (torch.float32, torch.bfloat16):
+            maps = to(a["maps"]).to(map_dt)
+            images = to(a["images"]).to(img_dt)
+            out = [shared_apply(maps.clone(), anchors, slots, images, 10.0,
+                                *ep, plain=plain) for plain in (False, True)]
+            if not torch.equal(*out):
+                raise AssertionError(
+                    f"shared_apply disagrees with its plain version on the "
+                    f"edge operands, maps {map_dt}, images {img_dt}"
+                )
+            pairs.append(f"{str(map_dt)[6:]} maps, {str(img_dt)[6:]} images")
+    print(f"shared_apply edge operands {list(a['maps'].shape)}, win "
+          f"{a['win']}: bit-exact for {', '.join(pairs)}")
+    return pairs
+
+
 def apply_check(cfg, pf, log, device):
     """Phase 3, kernel 8: the shared update's apply at FastSLAM-1000's
     shapes (1000 bf16 512^2 maps, 16 float32 256^2 images, 180 beams),
@@ -782,6 +861,7 @@ def apply_check(cfg, pf, log, device):
         return shared_apply(m, anchors, slot, images, float(g.l_clamp), *ep,
                             plain=plain)
 
+    edge_pairs = apply_edge_check(device)
     a, b = apply(maps.clone(), False), apply(maps.clone(), True)
     same = torch.equal(a, b)
     print(f"shared_apply [{P}, {H}x{W}] {pf.map_dtype} maps, images "
@@ -797,7 +877,7 @@ def apply_check(cfg, pf, log, device):
     scratch = maps.clone()
     return dict(
         max_abs_err=0.0, tolerance="bit-exact",
-        shape=[P, H, W, win],
+        shape=[P, H, W, win], edge_operands_checked=edge_pairs,
         # each window's cells on the map read and written once, the images
         # and the endpoint operands read once; an add and a clip a cell
         **_times(lambda: apply(scratch, False), lambda: apply(scratch, True),
@@ -870,10 +950,33 @@ def corr_check(cfg, pf, log, device, frontend):
     )
 
 
+def _device_activities(fn, n: int = 20) -> dict:
+    """{device activity name: count a call} of `fn`, from a torch.profiler
+    trace of `n` calls (kernels, copies and fills alike)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.name] = counts.get(e.name, 0) + 1
+    if not counts:
+        raise AssertionError("torch.profiler recorded no device activity")
+    return {k: v / n for k, v in counts.items()}
+
+
 def ray_check(cfg, log, device):
     """Phase 3, kernel 1 "ray": the exact-ray update of bench.py's 520^2
-    update window; the kernel and its plain version share the beam tables
-    and must agree bit for bit."""
+    update window. The kernel builds its beam tables and clips each tile's
+    beams itself; it must agree bit for bit with the plain version, which
+    reads the tables of ray_tables and sums every chunk. One device
+    activity a call."""
     g, m, s = cfg.grid, cfg.matcher, cfg.sensor
     rng = np.random.default_rng(SEED + 5)
     uwin = update_window_cells(g, s, m)
@@ -898,20 +1001,28 @@ def ray_check(cfg, log, device):
     print(f"update_ray [{uwin}x{uwin}]: bit-exact {same} "
           f"({int((a != gw).sum())} cells updated)")
     if not same:
+        d = (a - b).abs()
+        print(f"update_ray: {int((d != 0).sum())} cells differ, max "
+              f"{float(d.max()):.3g}")
         raise AssertionError("update_ray disagrees with its plain version")
+    per_call = _device_activities(lambda: update(False))
+    print(f"update_ray device activities a call: {per_call}")
+    if sum(per_call.values()) != 1:
+        raise AssertionError(f"update_ray: {per_call} device activities a "
+                             "call, expected one kernel")
     B = ranges.numel()
-    Bpad = -(-B // 8) * 8
     # the touched (cell, beam) pairs: a chord crosses at most
     # (|dx| + |dy|) * r_free / res + 2 cells
     r_free = torch.clamp(ranges.clamp(max=s.max_range) - g.resolution, min=0)
     pairs = float((r_free / g.resolution * 1.5 + 2).sum())
     return dict(
         max_abs_err=0.0, tolerance="bit-exact",
-        shape=[uwin, uwin],
-        # the window read and written once, the scan and the tables; the
-        # chord (16 operations) of every touched pair, ~10 a cell
+        shape=[uwin, uwin], device_kernels_per_call=sum(per_call.values()),
+        # the window read and written once, the scan and its angles read
+        # once, the pose; the chord (16 operations) of every touched pair,
+        # ~10 a cell
         **_times(lambda: update(False), lambda: update(True),
-                 _bound(2 * gw.numel() * 4 + 4 * B + 9 * 4 * Bpad + 12,
+                 _bound(2 * gw.numel() * 4 + 8 * B + 12,
                         16 * pairs + 10 * gw.numel())),
     )
 

@@ -12,7 +12,8 @@ log with 100, 1000 or 16 particles (fastslam, fastslam1000, fastslam16;
 bf16 512^2 maps): a warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. Prints the
 kernels by device time, then one JSON line: the device busy share of the
-traced wall time, per-scan host time and the step's counters. Writes the
+traced wall time, per-scan host time, the step's counters, the largest
+device costs and every kernel of the port's own. Writes the
 gzipped Chrome trace to `--out`. For fastslam, `--seeds N` first runs the
 whole log for proposal seeds 0..N-1 and prints each run's ATE and scans/s
 (CUDA events), their median and range. Needs a CUDA device.
@@ -194,6 +195,10 @@ def main():
         **{name: getattr(step, name) for name in counters},
         top_kernels=[dict(name=k[:90], launches=v[0], us=v[1])
                      for k, v in top[:14]],
+        # the port's own kernels (csrc/: anonymous namespaces outside at::)
+        port_kernels=[dict(name=k[:90], launches=v[0], us=v[1])
+                      for k, v in top
+                      if "(anonymous namespace)::" in k and "at::" not in k],
     )))
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(

@@ -1,8 +1,9 @@
 // Stand-alone timing of the port's window-field kernel (kernel 6), without
 // PyTorch: for work on csrc/window_field.cu. Built and driven by
-// scripts/tune_window_field.sh, which passes the kernel source to time (the
-// repository's, a copy edited by a sed expression, or any other file with the
-// same C entry point) as VARIANT_FILE.
+// scripts/tune_kernel.sh (KERNEL = window_field), which passes the
+// kernel source to time (the repository's, a copy edited by a sed
+// expression, or any other file with the same C entry point) as
+// VARIANT_FILE.
 //
 // For 1000, 100 and 16 particles (bf16 512^2 maps, 288^2 windows at origins
 // off every edge, 9 taps, bf16 out: FastSLAM's shapes) it prints the least

@@ -13,66 +13,182 @@
 //          (erow_b, ecol_b) is this cell;
 //   out  = clip(g + (l_free*free + l_occ*occ) * enable, +-l_clamp).
 // The per-beam tables (direction, w, cmax, half, invab, r_free, endpoint
-// cell; 9 rows of Bpad floats, Bpad a multiple of 8, the pad beams all
-// zero weight with endpoints at -1e9) are built by the wrapper in PyTorch,
-// as the TPU kernel's wrapper builds them (pallas_update.py:321-370), and
-// shared with the plain version.
+// cell; 9 rows of Bpad floats, Bpad a multiple of 8, the pad beams all zero
+// weight with endpoints at -1e9) are those of the TPU kernel's wrapper
+// (pallas_update.py:321-370). Every block builds them into shared memory
+// from the pose, the ranges and the beam angles, with the float32
+// operations of the plain version's ray_tables (ops/update.py) in the same
+// order, so that one call is one device kernel.
 //
 // The sums follow the TPU kernel's grouping: chunks of 8 beams, each chunk
 // summed from its first beam upward, each chunk's sum then added to the
-// running total. The TPU kernel skips the chunks outside a tile's bearing
-// window, whose terms are exactly 0; this kernel adds every chunk, which
-// adds those zeros. Every float operation is written with the _rn
-// intrinsics, so the kernel and its plain version agree bit for bit.
+// running total. As the TPU kernel does (pallas_update.py:141-174), a block
+// adds only the chunks that can touch its tile: the tile's bearing interval
+// seen from the sensor, widened by max(half a beam step, 0.75 res / d_min)
+// + a quarter step, in chunks [c_lo, c_hi) (ray_chunk_bounds in
+// ops/update.py is the same computation); none for a tile farther than the
+// scan's largest valid range + 0.75 res; all for a tile within 2 res of the
+// sensor (the TPU kernel's fallback is a tile holding the sensor; 2 res
+// keeps the widening above the chord's reach, asin(res / (sqrt(2) d))).
+// Every term of a skipped chunk is exactly zero, and adding zeros leaves a
+// float sum as it was, so the clip changes no bit. Every float operation is
+// written with the _rn intrinsics, so the kernel and its plain version agree
+// bit for bit.
 //
 // What bounds it on the H100: at the frontend's 520^2 window the map is
-// read and written once (2.2 MB, ~0.6 us at 3.35 TB/s) while every cell
-// evaluates ~16 float operations for each of the 184 table beams: it is
-// bound by instructions. Design: one thread per cell; the block stages the
-// tables in shared memory, where every thread of a warp reads the same
-// entry (a broadcast).
+// read and written once (2.2 MB, ~0.6 us at 3.35 TB/s) while each cell of a
+// tile evaluates ~16 float operations for each beam of its chunks: it is
+// bound by instructions, and below ~5 us by the launch itself. Design: one
+// thread per cell, a block per TX x TY tile; the block stages the tables in
+// shared memory, where every thread of a warp reads the same entry (a
+// broadcast), and one thread finds the tile's chunks.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int BX = 32;
-constexpr int BY = 8;
+constexpr int TX = 16;
+constexpr int TY = 8;
+constexpr int THREADS = TX * TY;
 constexpr int UNROLL = 8;  // the TPU kernel's beam chunk (_UNROLL)
 
 struct Params {
-  float ox, oy, res, l_free, l_occ, l_clamp, enable;
+  float ox, oy, res, min_range, max_range, inv_samples, half_res, inv_res;
+  float angle_min, step, l_free, l_occ, l_clamp, enable;
 };
 
-__global__ void update_ray_kernel(const float* __restrict__ grid,
-                                  float* __restrict__ out,
-                                  const float* __restrict__ pose,
-                                  const float* __restrict__ rays, int H,
-                                  int W, int Bpad, Params p) {
-  extern __shared__ float tab[];  // [9, Bpad]
-  for (int i = threadIdx.y * BX + threadIdx.x; i < 9 * Bpad; i += BX * BY)
-    tab[i] = rays[i];
-  __syncthreads();
-  const float* dxs = tab;
-  const float* dys = tab + Bpad;
-  const float* ws = tab + 2 * Bpad;
-  const float* cms = tab + 3 * Bpad;
-  const float* hfs = tab + 4 * Bpad;
-  const float* ias = tab + 5 * Bpad;
-  const float* rfs = tab + 6 * Bpad;
-  const float* ers = tab + 7 * Bpad;
-  const float* ecs = tab + 8 * Bpad;
+// a cell center's offset from the sensor along one axis
+__device__ __forceinline__ float center(float o, float i, float res,
+                                        float s) {
+  return F_SUB(F_ADD(o, F_MUL(F_ADD(i, 0.5f), res)), s);
+}
 
-  const int col = blockIdx.x * BX + threadIdx.x;
-  const int row = blockIdx.y * BY + threadIdx.y;
+// [c_lo, c_hi) of the chunks that can touch the cell centers [x0, x1] x
+// [y0, y1] (offsets from the sensor), as ray_chunk_bounds computes them
+__device__ void chunk_bounds(float x0, float x1, float y0, float y1,
+                             float theta, float rmax, int n_chunks,
+                             int n_beams, const Params& p, int* lo, int* hi) {
+  const float ex = x0 > 0.0f ? x0 : (x1 < 0.0f ? -x1 : 0.0f);
+  const float ey = y0 > 0.0f ? y0 : (y1 < 0.0f ? -y1 : 0.0f);
+  const float d_min = sqrtf(ex * ex + ey * ey);
+  if (d_min > rmax + 0.75f * p.res) {  // beyond every beam: no chunk
+    *lo = *hi = 0;
+    return;
+  }
+  *lo = 0, *hi = n_chunks;
+  if (d_min < 2.0f * p.res) return;  // at the sensor: every chunk
+  // the tile subtends less than pi: its bearings relative to its center's
+  const float mid = atan2f(0.5f * (y0 + y1), 0.5f * (x0 + x1));
+  const float xs[2] = {x0, x1}, ys[2] = {y0, y1};
+  float dlo = 0.0f, dhi = 0.0f;
+  for (int i = 0; i < 4; ++i) {
+    float d = atan2f(ys[i >> 1], xs[i & 1]) - mid;
+    d = d > PI_F ? d - TWO_PI_F : (d < -PI_F ? d + TWO_PI_F : d);
+    dlo = fminf(dlo, d), dhi = fmaxf(dhi, d);
+  }
+  if (dhi - dlo > PI_F) return;
+  const float thr = fmaxf(0.5f * p.step, 0.75f * p.res / d_min) + 0.25f * p.step;
+  // the interval relative to the first beam, its center in [0, 2 pi)
+  float u = mid - theta - p.angle_min;
+  u -= TWO_PI_F * floorf(u / TWO_PI_F);
+  const float span = UNROLL * p.step;
+  const float last = (n_beams - 1) * p.step;
+  int found = 0;
+  for (int k = -1; k <= 1; ++k) {  // the interval and its 2 pi turns
+    const float a = u + dlo - thr + k * TWO_PI_F;
+    const float b = u + dhi + thr + k * TWO_PI_F;
+    if (b < 0.0f || a > last) continue;
+    const int c_lo = max((int)floorf(a / span), 0);
+    const int c_hi = min((int)floorf(b / span) + 1, n_chunks);
+    if (c_hi <= c_lo) continue;
+    *lo = c_lo, *hi = c_hi;
+    ++found;
+  }
+  if (found == 0) *lo = *hi = 0;       // no beam looks this way
+  else if (found > 1) *lo = 0, *hi = n_chunks;
+}
+
+__global__ void __launch_bounds__(THREADS)
+update_ray_kernel(const float* __restrict__ grid, float* __restrict__ out,
+                  const float* __restrict__ pose,
+                  const float* __restrict__ ranges,
+                  const float* __restrict__ angles, int H, int W, int B,
+                  int Bpad, Params p) {
+  extern __shared__ float tab[];  // [9, Bpad]
+  __shared__ float warp_rmax[THREADS / 32];
+  __shared__ int chunks[2];
+  float* dxs = tab;
+  float* dys = tab + Bpad;
+  float* ws = tab + 2 * Bpad;
+  float* cms = tab + 3 * Bpad;
+  float* hfs = tab + 4 * Bpad;
+  float* ias = tab + 5 * Bpad;
+  float* rfs = tab + 6 * Bpad;
+  float* ers = tab + 7 * Bpad;
+  float* ecs = tab + 8 * Bpad;
+  const int tid = threadIdx.y * TX + threadIdx.x;
+  const float px = pose[0], py = pose[1], theta = pose[2];
+  const float res = p.res;
+
+  // the beam tables (ray_tables), and the largest valid range
+  float rmax = -1.0f;
+  for (int b = tid; b < Bpad; b += THREADS) {
+    if (b >= B) {
+      dxs[b] = dys[b] = ws[b] = cms[b] = hfs[b] = ias[b] = rfs[b] = 0.0f;
+      ers[b] = ecs[b] = (float)-1e9;
+      continue;
+    }
+    const float rg = ranges[b];
+    const float r = clampf(rg, 0.0f, p.max_range);
+    const bool valid = rg > p.min_range && isfinite(rg);
+    const bool hit = valid && rg < p.max_range;
+    const float a = F_ADD(angles[b], theta);
+    const float dx = cosf(a), dy = sinf(a);
+    const float rf = F_MUL(fmaxf(F_SUB(r, res), 0.0f), valid ? 1.0f : 0.0f);
+    const float spacing = F_MUL(rf, p.inv_samples);
+    const float adx = fabsf(dx), ady = fabsf(dy);
+    const float amax = fmaxf(adx, ady), amin = fminf(adx, ady);
+    const float ec = floorf(F_MUL(F_SUB(F_ADD(px, F_MUL(dx, r)), p.ox), p.inv_res));
+    const float er = floorf(F_MUL(F_SUB(F_ADD(py, F_MUL(dy, r)), p.oy), p.inv_res));
+    dxs[b] = dx;
+    dys[b] = dy;
+    ws[b] = F_DIV(valid ? 1.0f : 0.0f, fmaxf(spacing, res));
+    cms[b] = F_DIV(res, fmaxf(amax, (float)1e-6));
+    hfs[b] = F_MUL(p.half_res, F_ADD(adx, ady));
+    ias[b] = F_DIV(1.0f, fmaxf(F_MUL(amax, amin), (float)1e-9));
+    rfs[b] = rf;
+    ers[b] = hit ? er : (float)-1e9;
+    ecs[b] = hit ? ec : (float)-1e9;
+    if (valid) rmax = fmaxf(rmax, r);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
+  if ((tid & 31) == 0) warp_rmax[tid >> 5] = rmax;
+  __syncthreads();  // the tables and the warps' largest ranges
+
+  const int x0 = blockIdx.x * TX, y0 = blockIdx.y * TY;
+  if (tid == 0) {
+    for (int k = 0; k < THREADS / 32; ++k) rmax = fmaxf(rmax, warp_rmax[k]);
+    const int x1 = min(x0 + TX, W) - 1, y1 = min(y0 + TY, H) - 1;
+    chunk_bounds(center(p.ox, (float)x0, res, px),
+                 center(p.ox, (float)x1, res, px),
+                 center(p.oy, (float)y0, res, py),
+                 center(p.oy, (float)y1, res, py), theta, rmax, Bpad / UNROLL,
+                 B, p, &chunks[0], &chunks[1]);
+  }
+  __syncthreads();
+  const int c_lo = chunks[0], c_hi = chunks[1];
+
+  const int col = x0 + threadIdx.x;
+  const int row = y0 + threadIdx.y;
   if (row >= H || col >= W) return;
   const float fr = (float)row;
   const float fc = (float)col;
-  const float cx = F_SUB(F_ADD(p.ox, F_MUL(F_ADD(fc, 0.5f), p.res)), pose[0]);
-  const float cy = F_SUB(F_ADD(p.oy, F_MUL(F_ADD(fr, 0.5f), p.res)), pose[1]);
+  const float cx = center(p.ox, fc, res, px);
+  const float cy = center(p.oy, fr, res, py);
 
   float free_sum = 0.0f, occ_sum = 0.0f;
-  for (int b0 = 0; b0 < Bpad; b0 += UNROLL) {
+  for (int b0 = c_lo * UNROLL; b0 < c_hi * UNROLL; b0 += UNROLL) {
     float fa = 0.0f, oa = 0.0f;
 #pragma unroll
     for (int k = 0; k < UNROLL; ++k) {
@@ -103,17 +219,23 @@ __global__ void update_ray_kernel(const float* __restrict__ grid,
 }  // namespace
 
 extern "C" int slam2d_update_ray(const float* grid, float* out,
-                                 const float* pose, const float* rays, int H,
-                                 int W, int Bpad, float ox, float oy,
-                                 float res, float l_free, float l_occ,
-                                 float l_clamp, float enable, void* stream) {
-  if (H < 1 || W < 1 || Bpad < UNROLL || Bpad % UNROLL != 0)
-    return (int)cudaErrorInvalidValue;
-  const Params p{ox, oy, res, l_free, l_occ, l_clamp, enable};
-  const dim3 block(BX, BY);
-  const dim3 blocks((W + BX - 1) / BX, (H + BY - 1) / BY);
+                                 const float* pose, const float* ranges,
+                                 const float* angles, int H, int W, int B,
+                                 float ox, float oy, float res,
+                                 float min_range, float max_range,
+                                 float inv_samples, float half_res,
+                                 float inv_res, float angle_min, float step,
+                                 float l_free, float l_occ, float l_clamp,
+                                 float enable, void* stream) {
+  if (H < 1 || W < 1 || B < 1 || B > 1360) return (int)cudaErrorInvalidValue;
+  const Params p{ox,      oy,        res,  min_range, max_range,
+                 inv_samples, half_res, inv_res, angle_min, step,
+                 l_free,  l_occ,     l_clamp, enable};
+  const int Bpad = (B + UNROLL - 1) / UNROLL * UNROLL;
+  const dim3 block(TX, TY);
+  const dim3 blocks((W + TX - 1) / TX, (H + TY - 1) / TY);
   const size_t smem = 9 * (size_t)Bpad * sizeof(float);
   update_ray_kernel<<<blocks, block, smem, (cudaStream_t)stream>>>(
-      grid, out, pose, rays, H, W, Bpad, p);
+      grid, out, pose, ranges, angles, H, W, B, Bpad, p);
   return (int)cudaGetLastError();
 }

@@ -150,6 +150,7 @@ def integrate_scan(
             logodds, pose, ranges, beam_angles(sensor, logodds.device),
             origin_xy=origin_xy, resolution=cfg.resolution,
             min_range=sensor.min_range, max_range=sensor.max_range,
+            angle_min=sensor.angle_min, step=consts["step"],
             l_free=cfg.l_free, l_occ=cfg.l_occ, l_clamp=cfg.l_clamp,
             ray_samples=cfg.ray_samples, enable=enable, plain=plain,
         )

@@ -71,9 +71,10 @@ _SIGNATURES = {
     "slam2d_corr_chunks": [_I],
     # E, e_bf16, Sp, partial, out, P, T, H, W, R, C, stream
     "slam2d_corr_scores": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P],
-    # grid, out, pose, rays, H, W, Bpad, ox, oy, res, l_free, l_occ,
-    # l_clamp, enable, stream
-    "slam2d_update_ray": [_P] * 4 + [_I] * 3 + [_F] * 7 + [_P],
+    # grid, out, pose, ranges, angles, H, W, B, ox, oy, res, min_range,
+    # max_range, 1/ray_samples, res/2, 1/res, angle_min, step, l_free,
+    # l_occ, l_clamp, enable, stream
+    "slam2d_update_ray": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P],
 }
 
 

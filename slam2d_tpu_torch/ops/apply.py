@@ -30,7 +30,7 @@ import torch
 
 from slam2d_tpu_torch.ops import _build
 
-_MAX_BEAMS = 4096  # 3 x 4-byte tables of this length fit 48 KB of smem
+_MAX_BEAMS = 4096  # 3 x 4-byte lists of this length: the kernel's smem
 _DTYPES = (torch.float32, torch.bfloat16)
 
 

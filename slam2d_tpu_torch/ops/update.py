@@ -324,6 +324,7 @@ update_ism.launches = 0
 
 
 _RAY_UNROLL = 8        # the TPU kernel's beam chunk: sums group by 8 beams
+_RAY_TILE = (8, 16)    # the kernel's cell tile (rows, columns): a block
 _MAX_RAY_BEAMS = 1360  # 9 f32 tables of this length fit 48 KB of smem
 
 
@@ -335,7 +336,9 @@ def ray_tables(pose, ranges, angles, *, origin_xy, resolution, min_range,
     -1e9), built with the float32 operations of the TPU kernel's wrapper
     (pallas_update.py:321-370; a division by a config constant as the
     multiplication by its float32 reciprocal, as XLA compiles it).
-    `angles` is the float32 cast of the float64 beam-angle table."""
+    `angles` is the float32 cast of the float64 beam-angle table. The
+    kernel builds the same tables with the same operations in its
+    prologue; this is their plain version."""
     res = resolution
     r = torch.clamp(ranges, 0.0, max_range)
     valid = (ranges > min_range) & torch.isfinite(ranges)
@@ -366,11 +369,101 @@ def ray_tables(pose, ranges, angles, *, origin_xy, resolution, min_range,
     return rays.contiguous()
 
 
+def ray_chunk_bounds(pose, ranges, shape, *, origin_xy, resolution,
+                     min_range, max_range, angle_min, step):
+    """[ceil(H / TY), ceil(W / TX), 2] int64: for each of the kernel's
+    (TY, TX) = _RAY_TILE tiles of the map window `shape` = (H, W), the
+    chunks [c_lo, c_hi) of 8 beams that can touch it, as the kernel
+    computes them (the TPU kernel's angular beam-range clip and range
+    early-out, pallas_update.py:141-174).
+
+    A tile's cell centers span a rectangle seen from the sensor. Beam b
+    (at b * step from angle_min + pose[2]) adds a nonzero chord only to a
+    cell within res / sqrt(2) of its line in front of the sensor, and
+    marks only the cell holding its endpoint, so only beams within
+    asin(res / (sqrt(2) d)) of a cell's bearing at distance d touch it.
+    The rectangle's bearing interval (from its corners) widened by
+    max(step / 2, 0.75 res / d_min) + step / 4 holds every such beam once
+    d_min >= 2 res; nearer tiles take every chunk. A tile farther than the
+    scan's largest valid range + 0.75 res takes none; so does one that no
+    beam looks at. An interval that meets the beam range both as it is
+    and a turn away (a sensor of ~360 degrees) takes every chunk."""
+    H, W = shape
+    ty, tx = _RAY_TILE
+    B = ranges.shape[0]
+    n_chunks = -(-B // _RAY_UNROLL)
+    dev = ranges.device
+    res = resolution
+    ox, oy = origin_xy
+
+    def centers(n, t, o, s):
+        lo = torch.arange(0, n, t, dtype=torch.float32, device=dev)
+        hi = torch.clamp_max(lo + t, n) - 1
+        return o + (lo + 0.5) * res - s, o + (hi + 0.5) * res - s
+
+    x0, x1 = (c[None, :] for c in centers(W, tx, ox, pose[0]))
+    y0, y1 = (c[:, None] for c in centers(H, ty, oy, pose[1]))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    ex = torch.where(x0 > 0, x0, torch.where(x1 < 0, -x1, zero))
+    ey = torch.where(y0 > 0, y0, torch.where(y1 < 0, -y1, zero))
+    d_min = torch.sqrt(ex * ex + ey * ey)
+    valid = (ranges > min_range) & torch.isfinite(ranges)
+    r = torch.clamp(ranges, 0.0, max_range)
+    rmax = torch.where(valid, r, -1.0).max()
+    untouched = d_min > rmax + 0.75 * res
+    near = d_min < 2.0 * res
+
+    mid = torch.atan2(0.5 * (y0 + y1), 0.5 * (x0 + x1))
+    deltas = []
+    for y in (y0, y1):
+        for x in (x0, x1):
+            d = torch.atan2(y, x) - mid
+            deltas.append(torch.where(
+                d > math.pi, d - 2 * math.pi,
+                torch.where(d < -math.pi, d + 2 * math.pi, d),
+            ))
+    deltas = torch.stack(torch.broadcast_tensors(*deltas))
+    dlo = torch.clamp_max(deltas.amin(0), 0.0)
+    dhi = torch.clamp_min(deltas.amax(0), 0.0)
+    wide = (dhi - dlo) > math.pi
+    thr = torch.clamp_min(0.75 * res / d_min, 0.5 * step) + 0.25 * step
+    u = mid - pose[2] - angle_min
+    u = u - 2 * math.pi * torch.floor(u / (2 * math.pi))
+    span = _RAY_UNROLL * step
+    last = (B - 1) * step
+    found = torch.zeros_like(u, dtype=torch.int64)
+    lo = torch.zeros_like(found)
+    hi = torch.zeros_like(found)
+    for k in (-1, 0, 1):
+        a = u + dlo - thr + 2 * math.pi * k
+        b = u + dhi + thr + 2 * math.pi * k
+        c_lo = torch.clamp_min(torch.floor(a / span), 0).to(torch.int64)
+        c_hi = torch.clamp_max(torch.floor(b / span) + 1, n_chunks).to(
+            torch.int64
+        )
+        ok = (b >= 0) & (a <= last) & (c_hi > c_lo)
+        found += ok
+        lo = torch.where(ok, c_lo, lo)
+        hi = torch.where(ok, c_hi, hi)
+    all_ = torch.full_like(found, n_chunks)
+    lo = torch.where(found == 1, lo, 0)
+    hi = torch.where(found == 1, hi, torch.where(found > 1, all_, 0))
+    lo = torch.where(near | wide, 0, lo)
+    hi = torch.where(near | wide, all_, hi)
+    lo = torch.where(untouched, 0, lo)
+    hi = torch.where(untouched, 0, hi)
+    return torch.stack([lo, hi], dim=-1)
+
+
 def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
-                     l_occ, l_clamp, enable=1.0):
+                     l_occ, l_clamp, enable=1.0, bounds=None):
     """Plain PyTorch version of the kernel, the same float32 operations in
     the same order (chunks of 8 beams, each summed from its first beam,
-    then added to the total)."""
+    then added to the total).
+
+    `bounds` (`ray_chunk_bounds` of the same window) sums, in each tile,
+    only its chunks [c_lo, c_hi), as the kernel does; None sums every
+    chunk. The skipped terms are zeros, so both give the same bits."""
     H, W = grid.shape
     dev = grid.device
     ox, oy = origin_xy
@@ -379,6 +472,12 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
     cx = (ox + (col + 0.5) * resolution - pose[0])[None, :]
     cy = (oy + (row + 0.5) * resolution - pose[1])[:, None]
     rowg, colg = row[:, None], col[None, :]
+    if bounds is not None:
+        lo, hi = (
+            bounds[..., i].repeat_interleave(_RAY_TILE[0], 0)[:H]
+            .repeat_interleave(_RAY_TILE[1], 1)[:, :W]
+            for i in (0, 1)
+        )
     free = torch.zeros((H, W), dtype=torch.float32, device=dev)
     occ = torch.zeros((H, W), dtype=torch.float32, device=dev)
     for b0 in range(0, rays.shape[1], _RAY_UNROLL):
@@ -395,44 +494,55 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
             o = ((rowg == er) & (colg == ec)).to(torch.float32)
             fa = f if fa is None else fa + f
             oa = o if oa is None else oa + o
-        free = free + fa
-        occ = occ + oa
+        if bounds is None:
+            free = free + fa
+            occ = occ + oa
+        else:
+            c = b0 // _RAY_UNROLL
+            take = (lo <= c) & (c < hi)
+            free = torch.where(take, free + fa, free)
+            occ = torch.where(take, occ + oa, occ)
     upd = (l_free * free + l_occ * occ) * enable
     return torch.clamp(grid + upd, -l_clamp, l_clamp)
 
 
 def update_ray(
     grid, pose, ranges, angles, *, origin_xy, resolution, min_range,
-    max_range, l_free, l_occ, l_clamp, ray_samples, enable=1.0,
-    plain=False,
+    max_range, angle_min, step, l_free, l_occ, l_clamp, ray_samples,
+    enable=1.0, plain=False,
 ):
     """Updated copy of `grid` [H, W] f32 after one scan from `pose` [3],
     by the exact-ray update (module docstring).
 
-    `ranges` [B] and `angles` [B] (the float32 beam-angle table) lie on
-    the grid's device; `origin_xy` is the float world origin of cell
-    (0, 0). The tables are built once (`ray_tables`) and read by both the
-    kernel and its plain version. `plain=True` runs the plain version on a
-    CUDA tensor too: it is meant for checks of the kernel, not for use."""
+    `ranges` [B] and `angles` [B] (the float32 beam-angle table, beam b at
+    angle_min + b * step) lie on the grid's device; `origin_xy` is the
+    float world origin of cell (0, 0). On a CUDA tensor this is one
+    kernel: it builds the beam tables and finds each tile's chunks
+    itself. The plain version reads the tables from `ray_tables` and sums
+    every chunk. `plain=True` runs the plain version on a CUDA tensor too:
+    it is meant for checks of the kernel, not for use."""
     _check(grid, pose, ranges, angles)
     if ranges.shape[0] > _MAX_RAY_BEAMS:
         raise ValueError(f"need at most {_MAX_RAY_BEAMS} beams")
-    rays = ray_tables(
-        pose, ranges, angles, origin_xy=origin_xy, resolution=resolution,
-        min_range=min_range, max_range=max_range, ray_samples=ray_samples,
-    )
-    kw = dict(origin_xy=origin_xy, resolution=resolution, l_free=l_free,
-              l_occ=l_occ, l_clamp=l_clamp, enable=enable)
     if plain or grid.device.type == "cpu":
-        return update_ray_plain(grid, pose, rays, **kw)
+        rays = ray_tables(
+            pose, ranges, angles, origin_xy=origin_xy, resolution=resolution,
+            min_range=min_range, max_range=max_range, ray_samples=ray_samples,
+        )
+        return update_ray_plain(
+            grid, pose, rays, origin_xy=origin_xy, resolution=resolution,
+            l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
+        )
     if grid.device.type != "cuda":
         raise ValueError(f"no update kernel for device {grid.device}")
     H, W = grid.shape
     out = torch.empty_like(grid)
     lib = _build.load_library()
     err = lib.slam2d_update_ray(
-        grid.data_ptr(), out.data_ptr(), pose.data_ptr(), rays.data_ptr(),
-        H, W, rays.shape[1], origin_xy[0], origin_xy[1], resolution, l_free,
+        grid.data_ptr(), out.data_ptr(), pose.data_ptr(), ranges.data_ptr(),
+        angles.data_ptr(), H, W, ranges.shape[0], origin_xy[0], origin_xy[1],
+        resolution, min_range, max_range, inv_f32(max(ray_samples, 1)),
+        0.5 * resolution, inv_f32(resolution), angle_min, step, l_free,
         l_occ, l_clamp, enable, _build.stream_handle(grid.device),
     )
     _build.check(err, "slam2d_update_ray")

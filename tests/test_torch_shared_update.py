@@ -33,6 +33,8 @@ from slam2d_tpu_torch.pf import fastslam as tfs
 from slam2d_tpu_torch.pf import shared_update as tsu
 from torch_parity import pf_log, pf_run_pair, to_port
 
+import chip_smoke
+
 torch.set_num_threads(1)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -107,6 +109,56 @@ def test_apply_matches_pallas_bit_exact(dtype, fused):
     # cells outside every image keep their value; every image cell moves
     assert (out[:, 100:, 150:200] == before[:, 100:, 150:200]).all()
     assert (out != before).sum() > 0.5 * 6 * 24 * 24
+
+
+@pytest.mark.parametrize("img_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("map_dtype", ["float32", "bfloat16"])
+def test_apply_band_split_matches_pallas(map_dtype, img_dtype):
+    """The apply kernel splits each window into bands of rows, each band
+    owning the marks on its rows; its plain version on chip_smoke.py's
+    edge operands (anchors near every edge and off the map, marks on
+    window rows the image leaves uncovered, one cell hit by non-adjacent
+    beams, zero-weight beams on live beams' cells, a 48-row window) is
+    bit-exact to the TPU kernel in interpret mode, for maps and images in
+    float32 and bfloat16."""
+    a = chip_smoke.apply_edge_operands(0)
+    jm, tm_dt = DTYPES[map_dtype]
+    ji, ti_dt = DTYPES[img_dtype]
+    P, H, W = a["maps"].shape
+    win = a["win"]
+    assert shared_apply_supported(H, W, win, n_images=4,
+                                  map_bytes=jnp.dtype(jm).itemsize,
+                                  bilinear=False, ep_beams=256)
+    maps = jnp.asarray(a["maps"]).astype(jm)
+    images = jnp.asarray(a["images"]).astype(ji)
+    ep_r, ep_c, ep_w = a["ep"]
+    pad = ((0, 0), (0, 256 - ep_r.shape[1]))
+    ref = np.asarray(shared_apply_update(
+        maps, jnp.asarray(a["anchors"]), jnp.asarray(a["slots"]), images,
+        win, L_CLAMP, interpret=True, ep_rows=jnp.asarray(np.pad(ep_r, pad)),
+        ep_cols=jnp.asarray(np.pad(ep_c, pad)),
+        ep_w=jnp.asarray(np.pad(ep_w, pad)),
+    ).astype(jnp.float32))
+    tm = torch.from_numpy(a["maps"]).to(tm_dt)
+    before = tm.float().numpy().copy()
+    out = tapply.shared_apply(
+        tm, torch.from_numpy(a["anchors"]), torch.from_numpy(a["slots"]),
+        torch.from_numpy(a["images"]).to(ti_dt), L_CLAMP,
+        torch.from_numpy(ep_r), torch.from_numpy(ep_c),
+        torch.from_numpy(ep_w),
+    ).float().numpy()
+    np.testing.assert_array_equal(out, ref)
+    # the marks on uncovered rows landed: particle 0's image covers rows
+    # 0-33 of its window's 0-47
+    r, c, w = ep_r[0, 60:80], ep_c[0, 60:80], ep_w[0, 60:80]
+    live = (w != 0) & (r >= 34)
+    assert live.any()
+    assert (out[0, r[live], c[live]] != before[0, r[live], c[live]]).all()
+    # beams 5, 100 and 170 mark one cell, live; beam 2 (w = 0) marks
+    # live beam 120's cell before it
+    for b in (100, 170):
+        assert (ep_r[:, b] == ep_r[:, 5]).all() and (ep_c[:, b] == ep_c[:, 5]).all()
+    assert (ep_w[:, [5, 100, 170, 120]] != 0).all() and (ep_w[:, 2] == 0).all()
 
 
 def _cfg(size=256, max_range=4.0):
