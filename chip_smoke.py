@@ -18,7 +18,10 @@ Phases, each of which raises on failure:
    (kernel 8) at a small shape with anchors at every edge and off the map
    for maps and images in float32 and bfloat16 each (apply_edge_operands);
    the exact-ray update must be one device activity a call (counted in a
-   torch.profiler trace). Timed three
+   torch.profiler trace), the scorer must give the same bits twice, and
+   the ISM update runs at FastSLAM-1000's carve-image shape too and, held
+   to every cell, on small operands that reach the corners of its
+   candidate boxes (ism_edge_operands). Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
    events (median of 30; the host's enqueue time sits inside);
    `device_ms`, `library_device_ms`, 50 calls back to back between two
@@ -26,7 +29,10 @@ Phases, each of which raises on failure:
    where the host enqueues more slowly than the device runs (`device_by`);
    beside them the least time the card could take (bytes at 3.35 TB/s or
    operations at the float32 peak), `device_ms`'s share of it, and, where
-   one PyTorch call computes the same function, that call's times;
+   one PyTorch call computes the same function, that call's times; the
+   scorer's coarse and fine passes each so; beside the bounds that lie
+   under it, `launch_floor_ms`, an empty kernel of the library timed as
+   `device_ms` is;
 4. the frontend at bench.py's config and log (1024^2 grid at 0.05 m, 180
    beams, 1078 scans, chunk 64): finite trajectory, ATE below odometry,
    every kernel launched (updates, search-space builds and scorer passes
@@ -72,6 +78,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from slam2d_tpu_torch.config import GridConfig, SensorConfig
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.window import (
     blur_halo_cells,
@@ -91,10 +98,15 @@ from slam2d_tpu_torch.ops.gather import gather_rows
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space
 from slam2d_tpu_torch.ops.stack import shift_stack
-from slam2d_tpu_torch.ops.update import update_hybrid, update_ism, update_ray
+from slam2d_tpu_torch.ops.update import (
+    ism_occ_tol,
+    update_hybrid,
+    update_ism,
+    update_ray,
+)
 from slam2d_tpu_torch.pf import fastslam
 from slam2d_tpu_torch.pf.shared_refine import endpoint_splat
-from slam2d_tpu_torch.pf.shared_update import apply_operands
+from slam2d_tpu_torch.pf.shared_update import apply_operands, carve_operands
 from slam2d_tpu_torch.run.bench_configs import (
     bench_config,
     bench_log,
@@ -179,19 +191,31 @@ def _cuda_device_ms(fn, n: int = DEVICE_TIMING_CALLS, runs: int = 5,
     quotient = statistics.median(quotients)
     if not profiler and statistics.median(enqueue) < HOST_BOUND_SHARE * quotient:
         return quotient, "events"
+    device_us = sum(
+        e.time_range.end - e.time_range.start for e in _device_events(fn, n)
+    )
+    return device_us / n / 1e3, "profiler"
+
+
+def _device_events(fn, n: int) -> list:
+    """The device activities of `n` calls of `fn` in a torch.profiler trace,
+    without the profiler's own "ProfilerStep*" records. A trace on the card
+    can come back without device records now and then (seen once in some
+    ten runs of this script): such a trace is taken again, at most three
+    times."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(
-        e.time_range.end - e.time_range.start for e in prof.events()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
-    if device_us <= 0:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return device_us / n / 1e3, "profiler"
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.name.startswith("ProfilerStep")]
+        if events:
+            return events
+    raise AssertionError("torch.profiler recorded no device activity")
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -225,6 +249,19 @@ def _times(kernel, plain, bound: dict, library=None) -> dict:
             library, profiler=by == "profiler"
         )
     return out
+
+
+def launch_floor(device):
+    """(ms, how taken): an empty kernel of the port's library timed as the
+    kernels are (_cuda_device_ms), the floor under any launch; the bounds
+    of the frontend's kernels lie under it."""
+    lib = _build.load_library()
+    stream = _build.stream_handle(device)
+
+    def empty():
+        _build.check(lib.slam2d_empty_launch(stream), "slam2d_empty_launch")
+
+    return _cuda_device_ms(empty)
 
 
 def _corr_check(E, Sp, R, name):
@@ -344,31 +381,38 @@ def kernel_checks(cfg, log, device):
         "fine": lambda plain: score_window(
             Sw, *pos_f, valid, m.coarse_factor, True, plain=plain),
     }
-    errs = {}
+    errs, same = {}, {}
     for name, fn in passes.items():
         out = fn(False)
         errs[name] = float((out - fn(True)).abs().max())
+        # the slices' partial sums are added in a fixed order: same bits
+        same[name] = torch.equal(out, fn(False))
         print(f"score_offsets {name} {list(out.shape)}: max |err| "
-              f"{errs[name]:.3g} (tolerance 1e-5)")
+              f"{errs[name]:.3g} (tolerance 1e-5), same bits twice "
+              f"{same[name]}")
     if max(errs.values()) > 1e-5:
         raise AssertionError("score_offsets disagrees with its plain version")
-    T_f, B = pos_f[0].shape
-    n_f = 2 * m.coarse_factor + 1
+    if not all(same.values()):
+        raise AssertionError(f"score_offsets is not deterministic: {same}")
+
+    n_f, n_c = 2 * m.coarse_factor + 1, 2 * r_coarse + 1
     results["score_offsets"] = dict(
         max_abs_err=max(errs.values()), tolerance="atol 1e-5",
-        shape=[5, 9, 9],
-        coarse_ms=_cuda_ms(lambda: passes["coarse"](False)),
-        coarse_plain_ms=_cuda_ms(lambda: passes["coarse"](True)),
-        # the fine pass: S and the positions read once; 4 taps x 2
-        # operations per beam and candidate
+        same_bits_twice=all(same.values()), shape=[5, 9, 9],
+        # the coarse pass, [13, 5, 5] rounded taps on the pooled window
+        coarse=dict(
+            max_abs_err=errs["coarse"], shape=[pos_c[0].shape[0], n_c, n_c],
+            **_times(lambda: passes["coarse"](False),
+                     lambda: passes["coarse"](True),
+                     score_bound(Sc, pos_c, valid, n_c, False)),
+        ),
+        # the fine pass, [5, 9, 9] bilinear taps on the scan window
         **_times(lambda: passes["fine"](False), lambda: passes["fine"](True),
-                 _bound(Sw.numel() * 4 + 2 * T_f * B * 4 + B
-                        + T_f * n_f * n_f * 4, T_f * n_f * n_f * B * 8)),
+                 score_bound(Sw, pos_f, valid, n_f, True)),
     )
 
     # kernel 5 on the two passes of bench.py's matcher, as a config that
     # pins score_impl="cmx" would run them
-    n_c = 2 * r_coarse + 1
     corr = {}
     for name, S_, pos, R, bil in (("coarse", Sc, pos_c, n_c, False),
                                   ("fine", Sw, pos_f, n_f, True)):
@@ -383,6 +427,28 @@ def kernel_checks(cfg, log, device):
         )
     results["corr_frontend"] = corr
     return results
+
+
+def score_bound(S, pos, valid, n: int, bilinear: bool) -> dict:
+    """The distinct cells of S under the valid beams' taps read once
+    (a beam's (n + 1)^2 patch from floor(pos) when bilinear, else its
+    n^2 patch around round(pos), cells inside S only), the positions
+    and `valid` read once, the scores written once; 2 operations a
+    tap, valid beam and candidate."""
+    T, B = pos[0].shape
+    H, W = S.shape
+    span = n + 1 if bilinear else n
+    offs = torch.arange(span, device=S.device) - n // 2
+    base = [(torch.floor(p) if bilinear else torch.round(p))[:, valid]
+            .long() for p in pos]
+    rows = base[0][..., None, None] + offs[:, None]       # [T, Bv, s, 1]
+    cols = base[1][..., None, None] + offs[None, :]       # [T, Bv, 1, s]
+    rows, cols = torch.broadcast_tensors(rows, cols)
+    inside = (rows >= 0) & (rows < H) & (cols >= 0) & (cols < W)
+    cells = torch.unique(rows[inside] * W + cols[inside]).numel()
+    nv = int(valid.sum())
+    return _bound(cells * 4 + 2 * T * B * 4 + B + T * n * n * 4,
+                  T * n * n * nv * 2 * (4 if bilinear else 1))
 
 
 def _counters():
@@ -690,6 +756,43 @@ def pf_kernel_checks(cfg, pf, log, device, big_particles):
                         + 4 * ranges.numel() + 12 * P, 30 * P * uwin * uwin)),
     )
 
+    # kernel 1, variant ism, on FastSLAM-1000's carve images, with the
+    # operands of pf/shared_update.py:carve_operands: 16 float32 256^2
+    # windows as large as their image, the sensor at the center cell with
+    # one heading a slot, l_occ = 0 (the occupied channel skipped); the
+    # images drawn from [-6, 6] so that the clamp is exercised
+    G = pf.update_theta_slots
+    slot_poses, carve_origin, carve_consts = carve_operands(
+        torch.linspace(-0.3, 0.3, G, device=device), cfg, uwin
+    )
+    images = torch.as_tensor(
+        np.random.default_rng(SEED + 7).uniform(-6.0, 6.0, (G, uwin, uwin))
+        .astype(np.float32),
+        device=device,
+    )
+
+    def carve(m, plain):
+        return update_ism(
+            m, slot_poses, ranges, region=(uwin, uwin),
+            origin_xy=carve_origin, plain=plain, **carve_consts,
+        )
+
+    n_diff, err = _map_cells_ok(
+        carve(images.clone(), False), carve(images.clone(), True), g,
+        "update_ism carve images",
+    )
+    print(f"update_ism carve images [{G}, {uwin}x{uwin}] float32, l_occ 0: "
+          f"{n_diff} cells differ (tolerance: <= {MAP_CELL_SHARE:.2%} of "
+          f"{G * uwin * uwin}, each by one l_free)")
+    results["update_ism"]["carve_images"] = dict(
+        max_abs_err=err, cells_differing=n_diff, shape=[G, uwin, uwin],
+        **_times(lambda: carve(images, False), lambda: carve(images, True),
+                 _bound(2 * images.numel() * 4 + 4 * ranges.numel() + 12 * G,
+                        30 * images.numel())),
+    )
+    del images
+    results["update_ism"]["edge_operands_checked"] = ism_edge_check(device)
+
     # kernel 4: the resample's row gather, with sorted, repeated ancestors
     # (systematic resampling's), at FastSLAM-100's and FastSLAM-1000's shapes
     flat = maps.reshape(P, -1)
@@ -753,6 +856,92 @@ def pf_kernel_checks(cfg, pf, log, device, big_particles):
                  _bound((1 + R * R) * E.numel() * E.element_size(), 0)),
     )
     return results
+
+
+# the ISM kernel's edge operands (ism_edge_operands)
+ISM_EDGE_SENSORS = {
+    # bench_pf.py's 180 degrees; ranges at and just above min_range
+    "fov180": SensorConfig(n_beams=180, max_range=5.0),
+    # 270 degrees from -135: beams with b * step > pi; ranges under occ_tol
+    "fov270": SensorConfig(n_beams=271, fov_rad=1.5 * np.pi, max_range=5.0,
+                           angle_min=-0.75 * np.pi, min_range=0.02),
+}
+# (map side, window side, pose cells): windows clamped at the low edges,
+# inside, clamped at the high edges; a window as large as the map
+ISM_EDGE_WINDOWS = {
+    "clamped": (96, 48, [(3, 5), (44, 50), (92, 90), (2, 93)]),
+    "whole_map": (64, 64, [(10, 50), (32, 31)]),
+}
+ISM_EDGE_RES = 0.1
+ISM_EDGE_ORIGIN = (-2.0, 1.5)
+
+
+def ism_edge_operands(sensor_name: str, window: str) -> dict:
+    """Numpy operands of the ISM update (kernel 1 ism) that reach the
+    corners of its occupied channel's candidate boxes: one pose in each
+    cell of ISM_EDGE_WINDOWS[window] (headings from -pi to 1.3 pi), whose
+    windows clamp at each edge of the map or are as large as it, and a
+    scan of ISM_EDGE_SENSORS[sensor_name] with ranges just above
+    min_range, at occ_tol above it, under occ_tol, invalid, without a hit
+    and below min_range. Used here (ism_edge_check) and by the CPU tests
+    (tests/test_torch_pf_kernels.py)."""
+    sensor = ISM_EDGE_SENSORS[sensor_name]
+    side, win, cells = ISM_EDGE_WINDOWS[window]
+    rng = np.random.default_rng(len(sensor_name) * 10 + side)
+    res, origin_xy = ISM_EDGE_RES, ISM_EDGE_ORIGIN
+    B, P = sensor.n_beams, len(cells)
+    rc = np.asarray(cells, np.float64)
+    poses = np.column_stack([
+        origin_xy[0] + (rc[:, 1] + rng.uniform(0, 1, P)) * res,
+        origin_xy[1] + (rc[:, 0] + rng.uniform(0, 1, P)) * res,
+        rng.uniform(-np.pi, 1.3 * np.pi, P),
+    ]).astype(np.float32)
+    occ_tol = ism_occ_tol(res)
+    ranges = rng.uniform(0.3, 4.0, B).astype(np.float32)
+    near = np.arange(B) % 5 == 1
+    ranges[near] = (sensor.min_range + rng.uniform(1e-4, occ_tol, near.sum())
+                    ).astype(np.float32)
+    ranges[4] = np.float32(sensor.min_range + occ_tol)
+    ranges[6] = np.nextafter(np.float32(sensor.min_range), np.float32(1))
+    ranges[3::29] = np.inf                              # invalid
+    ranges[7::31] = np.float32(sensor.max_range)        # no hit
+    ranges[11::37] = np.float32(0.5 * sensor.min_range)  # below min_range
+    return dict(sensor=sensor, side=side, win=win, poses=poses,
+                ranges=ranges, origin_xy=origin_xy, resolution=res)
+
+
+def ism_edge_check(device) -> list:
+    """Phase 3, kernel 1 ism on every pair of ism_edge_operands, on float32
+    maps drawn from [-6, 6]: every cell as its plain version gives it."""
+    checked = []
+    for sensor_name in sorted(ISM_EDGE_SENSORS):
+        for window in sorted(ISM_EDGE_WINDOWS):
+            op = ism_edge_operands(sensor_name, window)
+            side, win = op["side"], op["win"]
+            poses = torch.as_tensor(op["poses"], device=device)
+            rng = np.random.default_rng(SEED + side)
+            maps = torch.as_tensor(
+                rng.uniform(-6.0, 6.0, (poses.shape[0], side, side))
+                .astype(np.float32), device=device,
+            )
+            kw = dict(
+                occupancy.update_constants(
+                    GridConfig(resolution=op["resolution"]), op["sensor"]),
+                region=(win, win), origin_xy=op["origin_xy"],
+            )
+            ranges = torch.as_tensor(op["ranges"], device=device)
+            a = update_ism(maps.clone(), poses, ranges, **kw)
+            b = update_ism(maps.clone(), poses, ranges, plain=True, **kw)
+            n_diff = int((a != b).sum())
+            print(f"update_ism edge operands {sensor_name} {window} "
+                  f"[{poses.shape[0]}, {win}x{win}] of [{side}x{side}]: "
+                  f"{n_diff} cells differ (tolerance 0)")
+            if n_diff:
+                raise AssertionError(
+                    f"update_ism on its {sensor_name} {window} edge operands "
+                    "disagrees with its plain version")
+            checked.append(f"{sensor_name} {window}")
+    return checked
 
 
 def apply_edge_operands(seed: int = 0) -> dict:
@@ -950,25 +1139,29 @@ def corr_check(cfg, pf, log, device, frontend):
     )
 
 
-def _device_activities(fn, n: int = 20) -> dict:
+def _device_activities(fn, kernel: str, n: int = 20) -> dict:
     """{device activity name: count a call} of `fn`, from a torch.profiler
-    trace of `n` calls (kernels, copies and fills alike)."""
+    trace of `n` calls (kernels, copies and fills alike), which must hold
+    the kernel whose name contains `kernel` once a call and nothing else.
+    Any other activity, or more than `n` of the kernel, fails at once. A
+    trace can lose a record at its edges (seen once: 0.9 a call): a trace
+    with fewer than `n` is taken again, at most three times."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    counts = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    for _ in range(3):
+        counts = {}
+        for e in _device_events(fn, n):
             counts[e.name] = counts.get(e.name, 0) + 1
-    if not counts:
-        raise AssertionError("torch.profiler recorded no device activity")
-    return {k: v / n for k, v in counts.items()}
+        per_call = {k: v / n for k, v in counts.items()}
+        mine = sum(v for k, v in counts.items() if kernel in k)
+        if mine > n or any(kernel not in k for k in counts):
+            raise AssertionError(f"{kernel}: {per_call} device activities a "
+                                 "call, expected the one kernel")
+        if mine == n:
+            return per_call
+    raise AssertionError(f"{kernel}: {mine} records of {n} calls in each of "
+                         "three traces")
 
 
 def ray_check(cfg, log, device):
@@ -1005,11 +1198,8 @@ def ray_check(cfg, log, device):
         print(f"update_ray: {int((d != 0).sum())} cells differ, max "
               f"{float(d.max()):.3g}")
         raise AssertionError("update_ray disagrees with its plain version")
-    per_call = _device_activities(lambda: update(False))
+    per_call = _device_activities(lambda: update(False), "update_ray_kernel")
     print(f"update_ray device activities a call: {per_call}")
-    if sum(per_call.values()) != 1:
-        raise AssertionError(f"update_ray: {per_call} device activities a "
-                             "call, expected one kernel")
     B = ranges.numel()
     # the touched (cell, beam) pairs: a chord crosses at most
     # (|dx| + |dy|) * r_free / res + 2 cells
@@ -1253,6 +1443,11 @@ def main(kernels_only: bool = False):
     )
     checks["window_field"]["at_fastslam16"] = checks["corr_scores"].pop("field")
     checks["update_ray"] = ray_check(ray_cfg, log, device)
+    floor_ms, floor_by = launch_floor(device)
+    print(f"launch floor, an empty kernel: {floor_ms:.4g} ms ({floor_by})")
+    for name in ("update_hybrid", "update_ray", "score_offsets",
+                 "search_space"):
+        checks[name].update(launch_floor_ms=floor_ms, launch_floor_by=floor_by)
     torch.cuda.synchronize()
     print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
     if kernels_only:

@@ -36,7 +36,7 @@ import torch
 from slam2d_tpu_torch.core.numerics import inv_f32
 from slam2d_tpu_torch.ops import _build
 
-_MAX_BEAMS = 2048  # 3 f32 tables of this length fit the kernel's 48 KB smem
+_MAX_BEAMS = 2048  # beam tables of this length fit the kernels' 48 KB smem
 
 
 def update_hybrid_plain(
@@ -195,6 +195,32 @@ def window_origins(poses, region, shape, origin_xy, resolution):
     return (r0, c0), (ox, oy)
 
 
+def ism_cell_polar(poses, region, shape, *, origin_xy, resolution,
+                   angle_min):
+    """(d, phi) [P, Hr, Wr] float32: the range and the bearing (relative to
+    angle_min, wrapped to [-pi, pi)) of every cell center of each
+    particle's `region` window, placed as `window_origins` says, with the
+    kernel's float32 operations."""
+    Hr, Wr = region
+    dev = poses.device
+    _, (ox, oy) = window_origins(poses, region, shape, origin_xy, resolution)
+    col = torch.arange(Wr, dtype=torch.float32, device=dev)
+    row = torch.arange(Hr, dtype=torch.float32, device=dev)
+    px, py, pth = (poses[:, i, None, None] for i in range(3))
+    cx = ox[:, None, None] + ((col + 0.5) * resolution)[None, None, :] - px
+    cy = oy[:, None, None] + ((row + 0.5) * resolution)[None, :, None] - py
+    d = torch.sqrt(cx * cx + cy * cy)
+    P = poses.shape[0]
+    phi = torch.atan2(cy.expand(P, Hr, Wr), cx.expand(P, Hr, Wr))
+    phi = phi - pth - angle_min
+    return d, torch.remainder(phi + math.pi, 2 * math.pi) - math.pi
+
+
+def ism_occ_tol(resolution) -> float:
+    """The occupied channel's range tolerance, float32(0.75 * res)."""
+    return float(np.float32(0.75 * resolution))
+
+
 def update_ism_plain(
     maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
     min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
@@ -207,25 +233,17 @@ def update_ism_plain(
     Hr, Wr = region
     B = ranges.shape[0]
     dev = maps.device
-    (r0, c0), (ox, oy) = window_origins(
-        poses, region, (H, W), origin_xy, resolution
-    )
+    (r0, c0), _ = window_origins(poses, region, (H, W), origin_xy, resolution)
     pidx = torch.arange(P, device=dev)[:, None, None]
     rows = (r0[:, None] + torch.arange(Hr, device=dev))[:, :, None]
     cols = (c0[:, None] + torch.arange(Wr, device=dev))[:, None, :]
     g = maps[pidx, rows, cols].to(torch.float32)            # [P, Hr, Wr]
 
     r_hit, rmin3 = _beam_tables(ranges, min_range, max_range)
-    col = torch.arange(Wr, dtype=torch.float32, device=dev)
-    row = torch.arange(Hr, dtype=torch.float32, device=dev)
-    px, py, pth = (poses[:, i, None, None] for i in range(3))
-    cx = ox[:, None, None] + ((col + 0.5) * resolution)[None, None, :] - px
-    cy = oy[:, None, None] + ((row + 0.5) * resolution)[None, :, None] - py
-    d = torch.sqrt(cx * cx + cy * cy)
-    phi = torch.atan2(cy.expand(P, Hr, Wr), cx.expand(P, Hr, Wr))
-    phi = phi - pth - angle_min
-    phi = torch.remainder(phi + math.pi, 2 * math.pi) - math.pi
-
+    d, phi = ism_cell_polar(
+        poses, region, (H, W), origin_xy=origin_xy, resolution=resolution,
+        angle_min=angle_min,
+    )
     k0 = torch.floor(phi / step)
     free = torch.zeros_like(d, dtype=torch.bool)
     for k in (k0, k0 + 1):
@@ -235,7 +253,7 @@ def update_ism_plain(
             & (torch.abs(phi - kb.to(torch.float32) * step) <= 0.5 * step)
             & (d < rmin3[kb] - resolution)
         )
-    occ_tol = float(np.float32(0.75 * resolution))
+    occ_tol = ism_occ_tol(resolution)
     # a true division (a Python number over a tensor would be rounded
     # twice, through the tensor's reciprocal)
     tol = torch.full_like(d, occ_tol) / torch.clamp(d, min=1e-6)
@@ -250,6 +268,40 @@ def update_ism_plain(
     out = torch.clamp(g + upd * enable, -l_clamp, l_clamp)
     maps[pidx, rows, cols] = out.to(maps.dtype)
     return maps
+
+
+_ISM_BOX = 6  # the kernel's candidate box side, cells (BOX, update_ism.cu)
+
+
+def ism_occ_boxes(poses, ranges, region, shape, *, origin_xy, resolution,
+                  step, angle_min, min_range, max_range):
+    """The kernel's candidate boxes of the occupied channel: (top-left
+    window cells [P, B, 2] int64 (row, col) of each beam's _ISM_BOX^2 box,
+    [P, B] bool: the beam can mark a cell at all).
+
+    A cell that beam b marks (|phi - b*step| <= tol = occ_tol / max(d,
+    1e-6), |d - r_b| <= occ_tol) has its center within |d - r_b| + d * tol
+    <= 2 * occ_tol of b's endpoint, a chord being no longer than its arc,
+    whatever the wrap of phi. The box holds the cells whose centers lie
+    within 2 * occ_tol / res + 1 cells of the endpoint along each axis:
+    one cell of slack for the rounding of the endpoint (the kernel's fast
+    sine and cosine). A beam can mark only if -r_b <= occ_tol (r_b is -1
+    for a beam that does not hit)."""
+    dev = poses.device
+    B = ranges.shape[0]
+    _, (ox, oy) = window_origins(poses, region, shape, origin_xy, resolution)
+    r_hit, _ = _beam_tables(ranges, min_range, max_range)
+    occ_tol = ism_occ_tol(resolution)
+    inv_res = inv_f32(resolution)
+    beam = torch.arange(B, dtype=torch.float32, device=dev)
+    a = poses[:, 2:3] + angle_min + beam * step                   # [P, B]
+    ex = (poses[:, 0:1] + r_hit * torch.cos(a) - ox[:, None]) * inv_res - 0.5
+    ey = (poses[:, 1:2] + r_hit * torch.sin(a) - oy[:, None]) * inv_res - 0.5
+    half = 2.0 * occ_tol * inv_res + 1.0
+    top_left = torch.stack(
+        [torch.ceil(ey - half), torch.ceil(ex - half)], dim=-1
+    ).to(torch.int64)
+    return top_left, (-r_hit <= occ_tol).expand(poses.shape[0], B)
 
 
 def _check_ism(maps, poses, ranges, region):
@@ -312,7 +364,7 @@ def update_ism(
         ranges.data_ptr(), P, H, W, region[0], region[1], ranges.shape[0],
         origin_xy[0], origin_xy[1], resolution, inv_f32(resolution), step,
         f32(0.5 * f32(step)), angle_min, min_range, max_range,
-        f32(0.75 * resolution), l_free, l_occ, l_clamp, enable,
+        ism_occ_tol(resolution), l_free, l_occ, l_clamp, enable,
         _build.stream_handle(maps.device),
     )
     _build.check(err, "slam2d_update_ism")

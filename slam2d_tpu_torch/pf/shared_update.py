@@ -88,24 +88,35 @@ def slot_grid(poses, cfg: FrontendConfig, pf: PFConfig):
     return slot, mean_t + k * step
 
 
+def carve_operands(slot_theta, cfg: FrontendConfig, win: int):
+    """(poses [G, 3], origin_xy, constants) of the ISM update that builds
+    the carve images: the sensor at world (0, 0) with one heading a slot,
+    in a frame whose origin puts it at the center of cell (win // 2,
+    win // 2), l_occ = 0."""
+    res = cfg.grid.resolution
+    o = float(np.float32(-(win // 2) * res - 0.5 * res))
+    poses = torch.zeros(
+        (slot_theta.shape[0], 3), dtype=torch.float32,
+        device=slot_theta.device,
+    )
+    poses[:, 2] = slot_theta
+    consts = update_constants(cfg.grid, cfg.sensor)
+    consts["l_occ"] = 0.0
+    return poses, (o, o), consts
+
+
 def carve_images(ranges, slot_theta, cfg: FrontendConfig, win: int,
                  plain: bool = False):
     """[G, win, win] float32 free-carve images of the scan, one per slot
-    heading, from one launch of the ISM update on a zero stack: the sensor
-    at world (0, 0) in a frame whose origin puts it at the center of cell
-    (win // 2, win // 2), l_occ = 0."""
-    G = slot_theta.shape[0]
-    res = cfg.grid.resolution
-    o = float(np.float32(-(win // 2) * res - 0.5 * res))
-    poses = torch.zeros((G, 3), dtype=torch.float32, device=ranges.device)
-    poses[:, 2] = slot_theta
+    heading, from one launch of the ISM update on a zero stack, with the
+    operands of carve_operands."""
+    poses, origin_xy, consts = carve_operands(slot_theta, cfg, win)
     images = torch.zeros(
-        (G, win, win), dtype=torch.float32, device=ranges.device
+        (slot_theta.shape[0], win, win), dtype=torch.float32,
+        device=ranges.device,
     )
-    consts = update_constants(cfg.grid, cfg.sensor)
-    consts["l_occ"] = 0.0
     return update_ism(
-        images, poses, ranges, region=(win, win), origin_xy=(o, o),
+        images, poses, ranges, region=(win, win), origin_xy=origin_xy,
         plain=plain, **consts,
     )
 

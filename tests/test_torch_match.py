@@ -24,6 +24,8 @@ from slam2d_tpu_torch.ops import score as tscore
 from slam2d_tpu_torch.ops import search_space as tfield
 from torch_parity import SENSOR, synth_ranges, to_port
 
+import chip_smoke
+
 torch.set_num_threads(1)
 
 GCFG = GridConfig(
@@ -116,6 +118,104 @@ def test_score_offsets_matches_gather(bilinear, case):
     assert out.shape == ref.shape == (5, 2 * radius + 1, 2 * radius + 1)
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+# bench.py's matcher (1024^2 grid at 0.05 m, coarse_factor 4, search_xy
+# 0.3 m, n_theta 13): (window cells, cell size, radius, thetas, bilinear)
+FRONTEND_PASSES = {
+    "coarse": (136, 0.2, 2, 13, False),   # [13, 5, 5] on the pooled window
+    "fine": (544, 0.05, 4, 5, True),      # [5, 9, 9] on the scan window
+}
+
+
+def _frontend_pass_operands(pass_name):
+    """S, ranges (every 9th invalid), the window's origin, the pass's
+    theta offsets and the prior of one frontend pass."""
+    size, cell, radius, T, bilinear = FRONTEND_PASSES[pass_name]
+    rng = np.random.default_rng(size)
+    S = rng.uniform(-0.6, 1.0, (size, size)).astype(np.float32)
+    ranges = synth_ranges(POSE)
+    ranges[::9] = np.nan
+    # the window centered on the pose, as the frontend's scan window is
+    origin = (float(POSE[0]) - 13.55, float(POSE[1]) - 13.65)
+    dth = np.linspace(-0.15, 0.15, 13).astype(np.float32)[
+        (13 - T) // 2:(13 + T) // 2]
+    prior = POSE + np.array([0.03, -0.02, 0.01], np.float32)
+    return S, ranges, origin, dth, prior
+
+
+def _port_positions(prior, ranges, dth, cell, origin):
+    pts, valid = tocc.scan_endpoints_local(
+        torch.from_numpy(ranges), to_port(SENSOR)
+    )
+    pos = tcor.endpoint_positions(
+        torch.from_numpy(prior), pts, valid, torch.from_numpy(dth), cell,
+        origin,
+    )
+    return pos, valid
+
+
+@pytest.mark.parametrize("pass_name", sorted(FRONTEND_PASSES))
+def test_score_window_plain_matches_gather_at_frontend_shapes(pass_name):
+    """The scorer's plain version (which the kernel is held against on the
+    GPU) at the frontend's own shapes, 180 beams (every 9th invalid),
+    against the JAX package's score_offsets(impl="gather")."""
+    size, cell, radius, T, bilinear = FRONTEND_PASSES[pass_name]
+    S, ranges, origin, dth, prior = _frontend_pass_operands(pass_name)
+    offs = jnp.arange(-radius, radius + 1, dtype=jnp.int32)
+
+    @jax.jit
+    def ref_fn(S, prior, ranges, dth):
+        pts, valid = jocc.scan_endpoints_local(ranges, SENSOR)
+        return jcor.score_offsets(
+            S, prior, pts, valid, dth, offs, offs, cell,
+            jnp.asarray(origin, jnp.float32), bilinear=bilinear, impl="gather",
+        )
+
+    ref = np.asarray(ref_fn(*map(jnp.asarray, (S, prior, ranges, dth))))
+    (pos_row, pos_col), valid = _port_positions(prior, ranges, dth, cell,
+                                                origin)
+    assert tuple(pos_row.shape) == (T, 180)
+    out = tscore.score_window_plain(
+        torch.from_numpy(S), pos_row, pos_col, valid, radius, bilinear
+    ).numpy()
+    n = 2 * radius + 1
+    assert out.shape == ref.shape == (T, n, n)
+    assert np.isfinite(out).all() and np.abs(out).max() > 0.05
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shift", [0.0, 0.45])
+@pytest.mark.parametrize("pass_name", sorted(FRONTEND_PASSES))
+def test_score_bound_counts_the_cells_under_the_taps(pass_name, shift):
+    """chip_smoke.py's bound of the scorer reads each cell of S under a
+    valid beam's taps once: the distinct in-bounds cells of the (n + 1)^2
+    patches from floor(pos) (bilinear) or the n^2 patches around
+    round(pos), counted here beam by beam, with the endpoints moved by
+    `shift` windows so that some patches leave S."""
+    size, cell, radius, T, bilinear = FRONTEND_PASSES[pass_name]
+    S, ranges, origin, dth, prior = _frontend_pass_operands(pass_name)
+    pos, valid = _port_positions(prior, ranges, dth, cell, origin)
+    pos = tuple(p - shift * size for p in pos)
+    n = 2 * radius + 1
+    cells = set()
+    rnd = np.floor if bilinear else np.round
+    lo, hi = -radius, radius + (2 if bilinear else 1)
+    for t in range(T):
+        for b in np.flatnonzero(valid.numpy()):
+            r0 = int(rnd(pos[0][t, b].item()))
+            c0 = int(rnd(pos[1][t, b].item()))
+            cells.update(
+                (r, c) for r in range(r0 + lo, r0 + hi)
+                for c in range(c0 + lo, c0 + hi)
+                if 0 <= r < size and 0 <= c < size
+            )
+    B, nv = valid.numel(), int(valid.sum())
+    bound = chip_smoke.score_bound(torch.from_numpy(S), pos, valid, n,
+                                   bilinear)
+    assert 0 < len(cells) < size * size
+    assert bound["bytes"] == 4 * len(cells) + 8 * T * B + B + 4 * T * n * n
+    assert bound["operations"] == T * n * n * nv * 2 * (4 if bilinear else 1)
 
 
 @pytest.mark.parametrize("windowed", [False, True])

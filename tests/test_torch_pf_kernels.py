@@ -20,6 +20,8 @@ TPU kernels, run on the CPU in interpret mode (the port's plain versions).
 
 import dataclasses
 import math
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +43,10 @@ from slam2d_tpu_torch.ops import update as tupd
 from slam2d_tpu_torch.pf import fastslam as tfs
 from torch_parity import SENSOR, synth_ranges, to_port
 
+import chip_smoke
+
 torch.set_num_threads(1)
+ROOT = Path(__file__).resolve().parents[1]
 
 GCFG = GridConfig(
     height=320, width=320, resolution=0.1, center_x=10.0, center_y=10.0,
@@ -132,6 +137,83 @@ def test_integrate_scan_ism_matches_jax(impl, dtype):
     assert (np.isclose(off, abs(GCFG.l_free), atol=atol)
             | np.isclose(off, GCFG.l_occ, atol=atol)).all(), off
     assert (out != win_t.float().numpy()).sum() > 1000
+
+
+# ---- the ISM kernel's candidate boxes of the occupied channel ------------
+
+
+def test_ism_box_side_is_the_kernels():
+    """ops/update.py:_ISM_BOX, the side of the plain twin's boxes, is the
+    BOX that csrc/update_ism.cu compiles with."""
+    src = (ROOT / "slam2d_tpu_torch" / "csrc" / "update_ism.cu").read_text()
+    sides = re.findall(r"constexpr int BOX = (\d+);", src)
+    assert sides == [str(tupd._ISM_BOX)]
+
+
+@pytest.mark.parametrize("window", sorted(chip_smoke.ISM_EDGE_WINDOWS))
+@pytest.mark.parametrize("sensor_name", sorted(chip_smoke.ISM_EDGE_SENSORS))
+def test_ism_occ_boxes_hold_every_occupied_pair(sensor_name, window):
+    """Every (beam, cell) pair that meets the ISM update's occupied
+    predicate (the plain version's float32 operations) lies in the beam's
+    candidate box (ops/update.py:ism_occ_boxes, the kernel's), and its
+    cell center lies within 2 * occ_tol of the beam's endpoint (the bound
+    the box widens by one cell), on chip_smoke.py's ism_edge_operands:
+    seeded poses (headings past pi included) and scans with ranges just
+    above min_range, at occ_tol above it, under occ_tol, invalid and
+    without a hit."""
+    op = chip_smoke.ism_edge_operands(sensor_name, window)
+    sensor, side, win = op["sensor"], op["side"], op["win"]
+    poses, ranges = op["poses"], op["ranges"]
+    res, origin_xy = op["resolution"], op["origin_xy"]
+    B = sensor.n_beams
+    occ_tol = tupd.ism_occ_tol(res)
+    pose_t, ranges_t = torch.from_numpy(poses), torch.from_numpy(ranges)
+    kw = dict(origin_xy=origin_xy, resolution=res, angle_min=sensor.angle_min)
+    step = sensor.fov_rad / (B - 1)
+    boxes, can = tupd.ism_occ_boxes(
+        pose_t, ranges_t, (win, win), (side, side), step=step,
+        min_range=sensor.min_range, max_range=sensor.max_range, **kw,
+    )
+    d, phi = tupd.ism_cell_polar(pose_t, (win, win), (side, side), **kw)
+    r_hit, _ = tupd._beam_tables(ranges_t, sensor.min_range, sensor.max_range)
+    tol = torch.full_like(d, occ_tol) / torch.clamp(d, min=1e-6)
+    (r0, c0), (ox, oy) = tupd.window_origins(
+        pose_t, (win, win), (side, side), origin_xy, res
+    )
+    n_pairs, n_near, n_past_pi = 0, 0, 0
+    for b in range(B):
+        pred = (torch.abs(phi - np.float32(b * np.float32(step))) <= tol) & (
+            torch.abs(d - r_hit[b]) <= occ_tol
+        )
+        if not pred.any():
+            continue
+        assert bool(can[:, b].all())
+        p, r, c = (t.numpy() for t in torch.nonzero(pred, as_tuple=True))
+        top, left = boxes[p, b, 0].numpy(), boxes[p, b, 1].numpy()
+        inside = (r >= top) & (r < top + tupd._ISM_BOX) & (c >= left) & (
+            c < left + tupd._ISM_BOX
+        )
+        assert inside.all(), (
+            f"beam {b}: {(~inside).sum()} occupied cells outside its box, "
+            f"e.g. particle {p[~inside][0]} cell {r[~inside][0], c[~inside][0]}"
+        )
+        # float64 geometry: the endpoint and the marked cells' centers
+        px, py, pth = poses[p].astype(np.float64).T
+        a = pth + sensor.angle_min + b * step
+        ex = px + float(r_hit[b]) * np.cos(a)
+        ey = py + float(r_hit[b]) * np.sin(a)
+        cx = ox.double().numpy()[p] + (c + 0.5) * res
+        cy = oy.double().numpy()[p] + (r + 0.5) * res
+        dist = np.hypot(cx - ex, cy - ey)
+        assert dist.max() <= 2 * occ_tol * (1 + 1e-5) + 1e-6, dist.max()
+        n_pairs += p.size
+        n_near += p.size if float(r_hit[b]) <= sensor.min_range + occ_tol else 0
+        n_past_pi += p.size if b * step > np.pi else 0
+    assert n_pairs > 500 and n_near > 0
+    assert (n_past_pi > 0) == (sensor.fov_rad > np.pi)
+    if window == "clamped":   # a window at each edge of the map
+        assert {0, side - win} <= set(r0.tolist())
+        assert {0, side - win} <= set(c0.tolist())
 
 
 def test_cell_center_world_matches_jax():
