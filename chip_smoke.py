@@ -17,11 +17,16 @@ Phases, each of which raises on failure:
    window field at small shapes whose alignment selects it, and the apply
    (kernel 8) at a small shape with anchors at every edge and off the map
    for maps and images in float32 and bfloat16 each (apply_edge_operands);
-   the exact-ray update must be one device activity a call (counted in a
-   torch.profiler trace), the scorer must give the same bits twice, and
-   the ISM update runs at FastSLAM-1000's carve-image shape too and, held
+   the exact-ray update and the correlation must be one device activity
+   a call (counted in a torch.profiler trace), the scorer, the
+   correlation and the hybrid update must give the same bits twice, the
+   ISM update runs at FastSLAM-1000's carve-image shape too and, held
    to every cell, on small operands that reach the corners of its
-   candidate boxes (ism_edge_operands). Timed three
+   candidate boxes (ism_edge_operands), and the correlation and the
+   hybrid update run on small operands at the edges of their designs
+   (corr_edge_operands: every R, both E dtypes, the vector and scalar
+   forms; hybrid_edge_operands: windows clamped into each corner of the
+   map, every kind of range, stacked and on-edge endpoints). Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
    events (median of 30; the host's enqueue time sits inside);
    `device_ms`, `library_device_ms`, 50 calls back to back between two
@@ -57,8 +62,11 @@ Phases, each of which raises on failure:
    plain step from the same state and draws (phase 7's tolerances);
 10. FastSLAM-16 (`bench_pf.py --particles 16`: the per-particle refine,
    kernel 5) over the same log: the phase 6 checks, with one field launch
-   and one correlation launch per pass per refine event; then kernel step
-   against plain step at its first 8 refine events;
+   and one correlation launch per pass per refine event; the same run
+   again with every correlation call held to its plain version (and the
+   calls whose best candidate differs counted), and once more with the
+   plain version in its place, each run's ATE at most 1 m; then kernel
+   step against plain step at its first 8 refine events;
 11. the frontend with update_impl="pallas_ray" (kernel 1 "ray") over
    bench.py's log: finite trajectory, one ray launch per update event,
    ATE at most 1 m, printed beside odometry's and phase 4's.
@@ -264,19 +272,48 @@ def launch_floor(device):
     return _cuda_device_ms(empty)
 
 
+def _hybrid_cells_ok(a, b, g, name):
+    """Phase 3's tolerance of kernel 1 "hybrid" against its plain version:
+    at most 0.05% of the cells differ, each by one l_free or l_occ (its
+    atan2f, sinf and cosf against PyTorch's). Returns (cells differing,
+    max |err|)."""
+    diff = (a - b).abs()
+    n_diff = int((diff != 0).sum())
+    off = diff[diff != 0]
+    one_step = ((off - abs(g.l_free)).abs() < 1e-5) | (
+        (off - g.l_occ).abs() < 1e-5
+    )
+    print(f"{name}: {n_diff} of {a.numel()} cells differ (tolerance: "
+          "<= 0.05%, each by one l_free or l_occ)")
+    if n_diff > 0.0005 * a.numel() or not bool(one_step.all()):
+        raise AssertionError(f"{name}: disagrees with its plain version")
+    return n_diff, float(diff.max())
+
+
+def corr_tolerance(E, Sp):
+    """[P, T, 1]: the largest |err| kernel 5 may have against its plain
+    version on E [P, T, H, W], Sp [P, H+R, W+R], per (p, t): CORR_RTOL x
+    sum|E| x max|Sp| (float32 summation-order rounding), plus 1e-6."""
+    scale = E.float().abs().sum(dim=(-2, -1)) * Sp.abs().amax(dim=(-2, -1))[:, None]
+    return CORR_RTOL * scale[..., None] + 1e-6
+
+
 def _corr_check(E, Sp, R, name):
     """Kernel 5 against its plain version on E [P, T, H, W], Sp [P, H+R,
-    W+R]: |err| <= CORR_RTOL x sum|E| x max|Sp| per (p, t), the float32
-    summation-order bound. Returns (max |err|, kernel out)."""
+    W+R], within corr_tolerance; a second call must give the same bits.
+    Returns (max |err|, kernel out)."""
     out = corr_scores(E, Sp, R, R)
     ref = corr_scores(E, Sp, R, R, plain=True)
     err = (out - ref).abs()
-    scale = E.float().abs().sum(dim=(-2, -1)) * Sp.abs().amax(dim=(-2, -1))[:, None]
-    ok = bool((err <= CORR_RTOL * scale[..., None] + 1e-6).all())
+    ok = bool((err <= corr_tolerance(E, Sp)).all())
+    same = torch.equal(out, corr_scores(E, Sp, R, R))
     print(f"corr_scores {name} {list(E.shape)} R={R}: max |err| "
-          f"{float(err.max()):.3g} (tolerance {CORR_RTOL} x sum|E| x max|Sp|)")
+          f"{float(err.max()):.3g} (tolerance {CORR_RTOL} x sum|E| x max|Sp|),"
+          f" same bits twice {same}")
     if not ok:
         raise AssertionError(f"corr_scores {name} disagrees with its plain version")
+    if not same:
+        raise AssertionError(f"corr_scores {name} is not deterministic")
     return float(err.max()), out
 
 
@@ -288,6 +325,151 @@ def _conv_corr(E, Sp, R):
         Sp[None, :, : H + R - 1, : W + R - 1], E.reshape(P * T, 1, H, W),
         groups=P,
     ).reshape(P, T, R * R)
+
+
+# kernel 5's edge operands (corr_edge_operands): H, W, R and whether E's
+# base sits one element past a 16-byte boundary
+CORR_EDGE_CASES = {
+    "vector": (29, 40, 1, False),      # whole 16-byte units a row
+    "straddle": (30, 36, 3, False),    # bf16 units across row ends
+    "odd_width": (37, 33, 5, False),   # H * W odd: the scalar form
+    "misaligned": (29, 40, 7, True),   # the scalar form
+    "tall": (40, 24, 9, False),
+    "narrow": (32, 5, 11, False),      # a unit spans several rows
+}
+
+
+def corr_edge_operands(case: str, dtype: str) -> dict:
+    """Numpy operands of kernel 5 (corr_scores) at the edges of its design,
+    E [2, 3, H, W] and Sp [2, H+R, W+R] for CORR_EDGE_CASES[case] (every
+    R of ops/corr.py's _SIZES among the cases): E sparse (5% of its cells
+    nonzero, of either sign) with nonzeros on every cell of its first and
+    last rows and columns, one image dense (a nonzero in every 16-byte
+    unit, across every boundary between blocks), one all zero; E's values
+    rounded to `dtype` ("bfloat16" or "float32"); Sp drawn from [-0.6, 1]
+    over all of it. `misaligned`: the card check reads E from a base one
+    element past a 16-byte boundary (_misaligned). Used here
+    (corr_edge_check) and by the CPU tests (tests/test_torch_corr.py)."""
+    H, W, R, misaligned = CORR_EDGE_CASES[case]
+    rng = np.random.default_rng(100 * len(case) + R)
+    P, T = 2, 3
+    E = rng.uniform(-1.0, 1.0, (P, T, H, W)).astype(np.float32)
+    E[rng.uniform(size=E.shape) > 0.05] = 0.0
+    edge = rng.uniform(0.1, 1.0, (4, P, T, max(H, W))).astype(np.float32)
+    E[:, :, 0, :], E[:, :, -1, :] = edge[0, ..., :W], edge[1, ..., :W]
+    E[:, :, :, 0], E[:, :, :, -1] = edge[2, ..., :H], edge[3, ..., :H]
+    E[0, 0] = rng.uniform(0.1, 1.0, (H, W))
+    E[1, 2] = 0.0
+    if dtype == "bfloat16":
+        E = torch.from_numpy(E).to(torch.bfloat16).float().numpy()
+    Sp = rng.uniform(-0.6, 1.0, (P, H + R, W + R)).astype(np.float32)
+    return dict(E=E, Sp=Sp, R=R, misaligned=misaligned)
+
+
+def corr_bound(E, Sp, R: int) -> dict:
+    """Kernel 5's bound on E [P, T, H, W], Sp [P, H+R, W+R]: E read whole
+    (the kernel streams every cell to find the nonzero ones), the distinct
+    cells of Sp under the R x R lags of the nonzero E cells of any theta of
+    their particle (Sp[p, h + dr, w + dc] for dr, dc < R) read once, the
+    scores written once; a multiply-add per nonzero E cell and lag."""
+    P, T, H, W = E.shape
+    nonzero = E != 0
+    any_theta = nonzero.any(dim=1)
+    need = torch.zeros((P, H + R, W + R), dtype=torch.bool, device=E.device)
+    for dr in range(R):
+        for dc in range(R):
+            need[:, dr:dr + H, dc:dc + W] |= any_theta
+    cells = int(need.sum())
+    return _bound(E.numel() * E.element_size() + 4 * cells + 4 * P * T * R * R,
+                  2 * int(nonzero.sum()) * R * R)
+
+
+def corr_edge_check(device) -> list:
+    """Phase 3, kernel 5 on every case of corr_edge_operands in both E
+    dtypes: within corr_tolerance of its plain version, the same bits
+    twice. Returns the cases checked."""
+    checked = []
+    for case in CORR_EDGE_CASES:
+        for dtype in ("bfloat16", "float32"):
+            op = corr_edge_operands(case, dtype)
+            E = torch.as_tensor(op["E"], device=device).to(getattr(torch, dtype))
+            if op["misaligned"]:
+                E = _misaligned(E)
+            Sp = torch.as_tensor(op["Sp"], device=device)
+            _corr_check(E, Sp, op["R"], f"edge operands {case} {dtype}")
+            checked.append(f"{case} {dtype}")
+    return checked
+
+
+# kernel 1 hybrid's edge operands (hybrid_edge_operands): the sensor's
+# cell (row, col) on a 160^2 map, which clamps its 123 x 131 window into
+# each corner of the map; the window's sides are multiples of neither the
+# kernel's 8-row nor its 64-column tiles, so its last tiles are partial
+HYBRID_EDGE_WINDOW = (123, 131)
+HYBRID_EDGE_CORNERS = {
+    "low_left": (3, 5), "low_right": (6, 110),
+    "high_left": (120, 2), "high_right": (110, 125),
+}
+
+
+def hybrid_edge_operands(corner: str) -> dict:
+    """Operands of the hybrid update (kernel 1 hybrid) at the edges of its
+    design: a HYBRID_EDGE_WINDOW window (float32, drawn from [-10.5,
+    10.5]) of a 160^2 map at 0.125 m clamped into
+    HYBRID_EDGE_CORNERS[corner], the sensor on a cell corner and 180
+    beams at 12 m whose ranges are NaN, +-inf, at and below min_range,
+    just above it, at and beyond max_range (no hit), or reach past the
+    window; six neighbouring beams at 0.26 m (endpoint
+    counts of 2 or more); beam 90 along +x exactly (its angle plus the
+    heading is 0), so that its endpoint falls exactly on a cell corner
+    (the resolution is a power of two: every step is exact). Returns the
+    port's GridConfig and SensorConfig, `grid` [123, 131], `pose` [3],
+    `ranges` [180] (numpy float32) and the window's `origin_rc`. Used here
+    (hybrid_edge_check) and by the CPU tests
+    (tests/test_torch_update.py)."""
+    sensor = SensorConfig(n_beams=180, max_range=12.0)
+    cfg = GridConfig(height=160, width=160, resolution=0.125, center_x=8.0,
+                     center_y=8.0, update_impl="pallas_hybrid")
+    (win_h, win_w), res = HYBRID_EDGE_WINDOW, cfg.resolution
+    row, col = HYBRID_EDGE_CORNERS[corner]
+    rng = np.random.default_rng(row * 1000 + col)
+    angles = np.asarray(sensor.beam_angles(), np.float32)
+    pose = np.array([cfg.origin_x + col * res, cfg.origin_y + row * res,
+                     -angles[90]], np.float32)
+    origin_rc = (min(max(row - win_h // 2, 0), cfg.height - win_h),
+                 min(max(col - win_w // 2, 0), cfg.width - win_w))
+    B = sensor.n_beams
+    ranges = rng.uniform(0.3, 11.0, B).astype(np.float32)
+    ranges[3::29] = np.nan
+    ranges[5::31] = np.inf
+    ranges[8::37] = -np.inf
+    ranges[9::41] = sensor.max_range            # valid, no hit
+    ranges[17::43] = 1.5 * sensor.max_range     # beyond it: no hit
+    ranges[11::47] = sensor.min_range           # invalid
+    ranges[13::53] = 0.5 * sensor.min_range     # invalid
+    ranges[15::59] = np.nextafter(np.float32(sensor.min_range), np.float32(1))
+    ranges[40:46] = 0.26                        # one endpoint cell
+    ranges[90] = 1.5 + 0.25 * (row % 4)         # on a cell corner
+    grid = rng.uniform(-10.5, 10.5, (win_h, win_w)).astype(np.float32)
+    return dict(cfg=cfg, sensor=sensor, grid=grid, pose=pose, ranges=ranges,
+                origin_rc=origin_rc)
+
+
+def hybrid_edge_check(device) -> list:
+    """Phase 3, kernel 1 hybrid on every corner of hybrid_edge_operands:
+    phase 3's tolerance against its plain version. Returns the corners
+    checked."""
+    checked = []
+    for corner in HYBRID_EDGE_CORNERS:
+        op = hybrid_edge_operands(corner)
+        grid, pose, ranges = (torch.as_tensor(op[k], device=device)
+                              for k in ("grid", "pose", "ranges"))
+        a, b = (occupancy.integrate_scan(
+            grid, pose, ranges, op["cfg"], op["sensor"],
+            origin_rc=op["origin_rc"], plain=plain) for plain in (False, True))
+        _hybrid_cells_ok(a, b, op["cfg"], f"update_hybrid edge operands {corner}")
+        checked.append(corner)
+    return checked
 
 
 def kernel_checks(cfg, log, device):
@@ -316,20 +498,17 @@ def kernel_checks(cfg, log, device):
         )
 
     a, b = update(False), update(True)
-    diff = (a - b).abs()
-    n_diff = int((diff != 0).sum())
-    off = diff[diff != 0]
-    one_step = ((off - abs(g.l_free)).abs() < 1e-5) | (
-        (off - g.l_occ).abs() < 1e-5
-    )
-    print(f"update_hybrid [{uwin}x{uwin}]: {n_diff} of {gw.numel()} cells "
-          "differ (tolerance: <= 0.05%, each by one l_free or l_occ)")
-    if n_diff > 0.0005 * gw.numel() or not bool(one_step.all()):
-        raise AssertionError("update_hybrid disagrees with its plain version")
+    n_diff, max_err = _hybrid_cells_ok(a, b, g, f"update_hybrid [{uwin}x{uwin}]")
+    # one thread a cell, integer endpoint counts: same bits every call
+    same = torch.equal(a, update(False))
+    print(f"update_hybrid same bits twice {same}")
+    if not same:
+        raise AssertionError("update_hybrid is not deterministic")
     results["update_hybrid"] = dict(
-        max_abs_err=float(diff.max()), cells_differing=n_diff,
+        max_abs_err=max_err, cells_differing=n_diff,
         tolerance="<=0.05% of cells, each by one l_free or l_occ",
-        shape=[uwin, uwin],
+        same_bits_twice=same, shape=[uwin, uwin],
+        edge_operands_checked=hybrid_edge_check(device),
         # the window read and written once, the scan; ~30 operations a cell
         **_times(lambda: update(False), lambda: update(True), _bound(
             2 * gw.numel() * 4 + 8 * ranges.numel() + 12, 30 * gw.numel())),
@@ -1111,6 +1290,9 @@ def corr_check(cfg, pf, log, device, frontend):
     E = correlative.splat_image(*sp, S.shape[1:], torch.bfloat16)
     Sp = F.pad(S, (0, R, 0, R)).contiguous()
     err, out = _corr_check(E, Sp, R, "FastSLAM-16 refine")
+    per_call = _device_activities(lambda: corr_scores(E, Sp, R, R),
+                                  "corr_kernel")
+    print(f"corr_scores device activities a call: {per_call}")
 
     Ef = E.float()
     prev = torch.backends.cudnn.allow_tf32
@@ -1118,20 +1300,17 @@ def corr_check(cfg, pf, log, device, frontend):
     try:
         lib_err = float((_conv_corr(Ef, Sp, R) - out).abs().max())
         print(f"conv2d (TF32 off) on the same inputs: max |diff| {lib_err:.3g}")
-        nnz = int((E != 0).sum())
-        # E and Sp read once, the scores written once; a multiply-add per
-        # nonzero E cell and lag (what these splats need)
         times = _times(
             lambda: corr_scores(E, Sp, R, R),
             lambda: corr_scores(E, Sp, R, R, plain=True),
-            _bound(E.numel() * E.element_size() + Sp.numel() * 4
-                   + out.numel() * 4, 2 * nnz * R * R),
-            library=lambda: _conv_corr(Ef, Sp, R),
+            corr_bound(E, Sp, R), library=lambda: _conv_corr(Ef, Sp, R),
         )
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     return dict(
         max_abs_err=err, tolerance=f"{CORR_RTOL} x sum|E| x max|Sp| per (p, t)",
+        same_bits_twice=True, device_kernels_per_call=sum(per_call.values()),
+        edge_operands_checked=corr_edge_check(device),
         library_call="torch.nn.functional.conv2d, groups=P, "
                      "cudnn.allow_tf32=False, E widened to float32 beforehand",
         library_max_abs_diff=lib_err, shape=list(E.shape) + [R, R],
@@ -1259,7 +1438,8 @@ def _pf_expected(cfg, pf, counts):
 
 def run_pf(cfg, pf, log, device, label):
     """Phases 6, 8 and 10: FastSLAM over the whole bench_pf log through
-    the kernels, every launch counted against the gate decisions."""
+    the kernels, every launch counted against the gate decisions. Returns
+    the launches of the kernels the path runs, and the ATE."""
     warm = {k: np.asarray(v)[:64] for k, v in log.items()}
     run_fastslam(warm, cfg, pf, device, seed=SEED)
     torch.cuda.synchronize()
@@ -1305,7 +1485,7 @@ def run_pf(cfg, pf, log, device, label):
         raise AssertionError(f"{label}: launches {launches}, expected {expect}")
     if counts["host_syncs"] > counts["refines"]:
         raise AssertionError(f"{label}: more than one host read per refine")
-    return {k: v for k, v in launches.items() if expect[k] > 0}
+    return {k: v for k, v in launches.items() if expect[k] > 0}, ate
 
 
 def pf_parity(cfg, pf, log, device, gate: int, n_events: int, label,
@@ -1363,6 +1543,57 @@ def pf_parity(cfg, pf, log, device, gate: int, n_events: int, label,
     if worst["pose"] > PF_POSE_TOL or worst["log_w"] > PF_LOGW_TOL:
         raise AssertionError(f"{label}: kernel and plain FastSLAM steps disagree")
     return worst
+
+
+def corr_held_runs(cfg, pf, log, device, ate):
+    """Phase 10: FastSLAM-16's run twice more. First with every call of
+    kernel 5 also made through its plain version on the same inputs: each
+    must lie within corr_tolerance of it, and the calls and particles whose
+    best candidate (the first maximum over thetas and lags of the raw
+    scores) differs between the two are counted. Then with the plain
+    version in place of the kernel. Each run's ATE beside `ate`, the
+    measured run's: the two sum orders give two filters, both of which
+    must stay within PF_MAX_ATE_M."""
+    held = dict(calls=0, calls_best_differs=0, particles_best_differs=0,
+                max_err_over_tolerance=0.0)
+
+    def checked(E, Sp, R, C, plain=False):
+        out = corr_scores(E, Sp, R, C)
+        ref = corr_scores(E, Sp, R, C, plain=True)
+        over = float(((out - ref).abs() / corr_tolerance(E, Sp)).max())
+        P = E.shape[0]
+        best = out.reshape(P, -1).argmax(1) != ref.reshape(P, -1).argmax(1)
+        n_best = int(best.sum())
+        held["calls"] += 1
+        held["calls_best_differs"] += int(n_best > 0)
+        held["particles_best_differs"] += n_best
+        held["max_err_over_tolerance"] = max(held["max_err_over_tolerance"],
+                                             over)
+        return out
+
+    def plain(E, Sp, R, C, plain=False):
+        return corr_scores(E, Sp, R, C, plain=True)
+
+    ates = {}
+    try:
+        for name, fn in (("held", checked), ("plain", plain)):
+            correlative.corr_scores = fn
+            _, traj, _, _ = run_fastslam(log, cfg, pf, device, seed=SEED)
+            if not np.isfinite(traj).all():
+                raise AssertionError(f"fastslam-16 {name} run: not finite")
+            ates[name] = ate_rmse(traj, log["gt_poses"], align=False)
+    finally:
+        correlative.corr_scores = corr_scores
+    result = dict(ate_m=ate, ate_m_held_run=ates["held"],
+                  ate_m_plain_run=ates["plain"], **held)
+    print("fastslam-16, kernel 5 held to its plain version at every call:",
+          json.dumps(result))
+    if held["max_err_over_tolerance"] > 1.0:
+        raise AssertionError("fastslam-16: a correlation call of the run "
+                             "disagrees with its plain version")
+    if max(ates.values()) > PF_MAX_ATE_M:
+        raise AssertionError(f"fastslam-16: ATE {ates} m above {PF_MAX_ATE_M} m")
+    return result
 
 
 def run_ray(cfg, log, device, hybrid_ate):
@@ -1458,16 +1689,19 @@ def main(kernels_only: bool = False):
     by_path = {}
     traj, by_path["4 frontend"] = run_slice(cfg, log, device)
     parity_run(cfg, log, device, traj)
-    by_path["6 FastSLAM-100"] = run_pf(pf_cfg, pf, pf_log, device,
-                                       "fastslam-100")
+    by_path["6 FastSLAM-100"], _ = run_pf(pf_cfg, pf, pf_log, device,
+                                          "fastslam-100")
     pf_parity(pf_cfg, pf, pf_log, device, 0, PF_PARITY_REFINES,
               "fastslam-100")
-    by_path["8 FastSLAM-1000"] = run_pf(cfg1k, pf1k, pf_log, device,
-                                        "fastslam-1000")
+    by_path["8 FastSLAM-1000"], _ = run_pf(cfg1k, pf1k, pf_log, device,
+                                           "fastslam-1000")
     pf_parity(cfg1k, pf1k, pf_log, device, 1, PF1000_PARITY_UPDATES,
               "fastslam-1000", after_boot=True)
-    by_path["10 FastSLAM-16"] = run_pf(cfg16, pf16, pf_log, device,
-                                       "fastslam-16")
+    by_path["10 FastSLAM-16"], ate16 = run_pf(cfg16, pf16, pf_log, device,
+                                              "fastslam-16")
+    checks["corr_scores"]["fastslam16_runs_held"] = corr_held_runs(
+        cfg16, pf16, pf_log, device, ate16
+    )
     pf_parity(cfg16, pf16, pf_log, device, 0, PF_PARITY_REFINES,
               "fastslam-16")
     hybrid_ate = ate_rmse(traj, log["gt_poses"], align=False)

@@ -69,10 +69,8 @@ _SIGNATURES = {
     # maps, map_bf16, images, img_bf16, anchors, slots, ep_r, ep_c, ep_w,
     # P, H, W, win, G, B, l_clamp, stream
     "slam2d_shared_apply": [_P, _I, _P, _I] + [_P] * 5 + [_I] * 6 + [_F, _P],
-    # H -> row chunks of the partial sums
-    "slam2d_corr_chunks": [_I],
-    # E, e_bf16, Sp, partial, out, P, T, H, W, R, C, stream
-    "slam2d_corr_scores": [_P, _I, _P, _P, _P] + [_I] * 6 + [_P],
+    # E, e_bf16, Sp, out, P, T, H, W, R, C, stream
+    "slam2d_corr_scores": [_P, _I, _P, _P] + [_I] * 6 + [_P],
     # grid, out, pose, ranges, angles, H, W, B, ox, oy, res, min_range,
     # max_range, 1/ray_samples, res/2, 1/res, angle_min, step, l_free,
     # l_occ, l_clamp, enable, stream

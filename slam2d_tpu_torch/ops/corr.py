@@ -67,14 +67,9 @@ def corr_scores(E, Sp, R: int, C: int, plain: bool = False):
         raise ValueError(f"no correlation kernel for device {E.device}")
     lib = _build.load_library()
     out = torch.empty((P, T, R * C), dtype=torch.float32, device=E.device)
-    partial = torch.empty(
-        lib.slam2d_corr_chunks(H) * P * T * R * C, dtype=torch.float32,
-        device=E.device,
-    )
     err = lib.slam2d_corr_scores(
         E.data_ptr(), int(E.dtype == torch.bfloat16), Sp.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), P, T, H, W, R, C,
-        _build.stream_handle(E.device),
+        out.data_ptr(), P, T, H, W, R, C, _build.stream_handle(E.device),
     )
     _build.check(err, "slam2d_corr_scores")
     corr_scores.launches += 1

@@ -21,6 +21,7 @@ Tolerances:
 
 import dataclasses
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -78,6 +79,72 @@ def test_corr_plain_matches_pallas(edtype, T, H, W, R):
     scale = np.abs(np.asarray(jE.astype(jnp.float32))).sum(axis=(2, 3))
     tol = np.broadcast_to(1e-5 * scale[:, :, None] + 1e-7, ref.shape)
     np.testing.assert_array_less(np.abs(out.numpy() - ref), tol)
+
+
+@pytest.mark.parametrize("edtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", list(chip_smoke.CORR_EDGE_CASES))
+def test_corr_plain_matches_pallas_on_edge_operands(case, edtype):
+    """chip_smoke.py's corr_edge_operands (every R, vector and scalar forms
+    of the kernel, a dense and a zero image, nonzeros on every edge cell),
+    each particle through corr_scores_pallas, within chip_smoke.py's
+    corr_tolerance (the card check's)."""
+    op = chip_smoke.corr_edge_operands(case, edtype)
+    E, Sp, R = op["E"], op["Sp"], op["R"]
+    jE = jnp.asarray(E).astype(jnp.dtype(edtype))
+    ref = np.stack([
+        np.asarray(corr_scores_pallas(jE[p], jnp.asarray(Sp[p]), R, R,
+                                      interpret=True))
+        for p in range(E.shape[0])
+    ])
+    tE = torch.from_numpy(E).to(getattr(torch, edtype))
+    tSp = torch.from_numpy(Sp)
+    out = tcorr.corr_scores(tE, tSp, R, R)
+    assert out.shape == ref.shape == (2, 3, R * R)
+    tol = np.broadcast_to(chip_smoke.corr_tolerance(tE, tSp).numpy(), ref.shape)
+    np.testing.assert_array_less(np.abs(out.numpy() - ref), tol)
+    assert not ref[1, 2].any() and np.abs(ref[0, 0]).max() > 0.1
+
+
+@pytest.mark.parametrize("sparse", [False, True])
+@pytest.mark.parametrize("case", list(chip_smoke.CORR_EDGE_CASES))
+def test_corr_bound_counts_the_cells_under_the_lags(case, sparse):
+    """chip_smoke.py's bound of kernel 5 reads E whole and each cell of Sp
+    under the R x R lags of a nonzero E cell of any theta of its particle
+    once, counted here cell by cell: on corr_edge_operands (a dense image,
+    nonzero borders) and on the same shapes with a few nonzero cells an
+    image, some on the last row or column."""
+    op = _corr_bound_operands(case, sparse)
+    E, Sp, R = op["E"], op["Sp"], op["R"]
+    P, T, H, W = E.shape
+    cells = {
+        (p, h + dr, w + dc)
+        for p, t, h, w in zip(*np.nonzero(E))
+        for dr in range(R) for dc in range(R)
+    }
+    nnz = int(np.count_nonzero(E))
+    bound = chip_smoke.corr_bound(torch.from_numpy(E).to(torch.bfloat16),
+                                  torch.from_numpy(Sp), R)
+    assert 0 < len(cells) < Sp.size
+    assert bound["bytes"] == 2 * E.size + 4 * len(cells) + 4 * P * T * R * R
+    assert bound["operations"] == 2 * nnz * R * R
+
+
+def _corr_bound_operands(case, sparse):
+    """corr_edge_operands(case, "bfloat16"), or with `sparse` E of its shape
+    holding 6 nonzero cells an image, drawn from a seed (one image all
+    zero, one on the last row and column)."""
+    op = chip_smoke.corr_edge_operands(case, "bfloat16")
+    if sparse:
+        E = op["E"]
+        rng = np.random.default_rng(len(case))
+        P, T, H, W = E.shape
+        E[:] = 0.0
+        for p in range(P):
+            for t in range(T):
+                E[p, t, rng.integers(0, H, 6), rng.integers(0, W, 6)] = 0.5
+        E[0, 1, H - 1, W - 1] = 0.25
+        E[1, 2] = 0.0
+    return op
 
 
 @pytest.mark.parametrize("bilinear", [True, False])

@@ -12,6 +12,7 @@ l_free or one l_occ.
 import dataclasses
 import math
 
+import chip_smoke
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +87,50 @@ def test_update_matches_pallas_hybrid(case, enable):
         np.testing.assert_array_equal(out, grid)
     else:
         assert (out != grid).sum() > 500
+
+
+@pytest.mark.parametrize("corner", list(chip_smoke.HYBRID_EDGE_CORNERS))
+def test_update_matches_pallas_hybrid_on_edge_operands(corner):
+    """chip_smoke.py's hybrid_edge_operands (a window clamped into each
+    corner of the map, every kind of range, stacked and on-corner
+    endpoints) through the port's integrate_scan and the TPU kernel."""
+    op = chip_smoke.hybrid_edge_operands(corner)
+    cfg, sensor = op["cfg"], op["sensor"]
+    jcfg = GridConfig(**dataclasses.asdict(cfg))
+    jsensor = SensorConfig(**dataclasses.asdict(sensor))
+    origin_xy = tocc.window_origin_xy(cfg, op["origin_rc"])
+    # the TPU kernel takes whole blocks of 8 rows; the update is cell by
+    # cell, so it runs on the window with rows appended and those are dropped
+    H = op["grid"].shape[0]
+    grid8 = np.pad(op["grid"], ((0, -H % 8), (0, 0)))
+    ref = np.asarray(
+        pallas_dense_update(
+            jnp.asarray(grid8), jnp.asarray(op["pose"]),
+            jnp.asarray(op["ranges"]), jcfg, jsensor, origin_xy=origin_xy,
+            interpret=True, variant="hybrid",
+        )
+    )[:H]
+    out = tocc.integrate_scan(
+        torch.from_numpy(op["grid"]), torch.from_numpy(op["pose"]),
+        torch.from_numpy(op["ranges"]), cfg, sensor,
+        origin_rc=op["origin_rc"],
+    ).numpy()
+    _assert_update_parity(ref, out, jcfg)
+    # what the operands are for: a window cell that gains 2 l_occ or more
+    # (stacked endpoints), and beam 90's endpoint on a cell corner
+    ranges, pose, res = op["ranges"], op["pose"], cfg.resolution
+    r = np.clip(ranges, 0, sensor.max_range)
+    hit = (ranges > sensor.min_range) & (ranges < sensor.max_range)
+    a = np.asarray(sensor.beam_angles(), np.float32) + pose[2]
+    col = np.floor((pose[0] + np.cos(a) * r - origin_xy[0]) / res)
+    row = np.floor((pose[1] + np.sin(a) * r - origin_xy[1]) / res)
+    win_h, win_w = chip_smoke.HYBRID_EDGE_WINDOW
+    inside = hit & (row >= 0) & (row < win_h) & (col >= 0) & (col < win_w)
+    cells = row[inside] * win_w + col[inside]
+    assert np.unique(cells, return_counts=True)[1].max() >= 2
+    ex = pose[0] + r[90] - np.float32(origin_xy[0])
+    ey = pose[1] - np.float32(origin_xy[1])
+    assert a[90] == 0 and inside[90] and ex / res % 1 == 0 and ey / res % 1 == 0
 
 
 def test_update_window_with_integer_origin():
