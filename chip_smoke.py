@@ -17,9 +17,14 @@ Phases, each of which raises on failure:
    window field at small shapes whose alignment selects it, and the apply
    (kernel 8) at a small shape with anchors at every edge and off the map
    for maps and images in float32 and bfloat16 each (apply_edge_operands);
-   the exact-ray update and the correlation must be one device activity
-   a call (counted in a torch.profiler trace), the scorer, the
-   correlation and the hybrid update must give the same bits twice, the
+   the exact-ray update, the correlation and the search-space build must
+   be one device activity a call (counted in a torch.profiler trace), the
+   scorer, the correlation, the hybrid update and the search-space build
+   must give the same bits twice, the search-space build runs at the full
+   1024^2 map too and, with 0 cells off its plain version, on small
+   operands at the edges of its design (search_space_edge_operands:
+   shapes that are no multiple of a tile, 3, 9, 13 and 63 taps, log-odds
+   at the clips and at the free threshold), the
    ISM update runs at FastSLAM-1000's carve-image shape too and, held
    to every cell, on small operands that reach the corners of its
    candidate boxes (ism_edge_operands), and the correlation and the
@@ -69,7 +74,15 @@ Phases, each of which raises on failure:
    step against plain step at its first 8 refine events;
 11. the frontend with update_impl="pallas_ray" (kernel 1 "ray") over
    bench.py's log: finite trajectory, one ray launch per update event,
-   ATE at most 1 m, printed beside odometry's and phase 4's.
+   ATE at most 1 m, printed beside odometry's and phase 4's;
+12. localization (run_localization) on phase 4's final map over a second
+   traversal of bench.py's world (its route reversed, twice its odometry
+   noise): finite trajectory, ATE below odometry's and at most phase 4's
+   + 0.1 m, the map unchanged, one search-space build, no update, two
+   scorer launches a match and one host read a scan; scans/s; the first
+   256 scans again through the plain versions (phase 5's tolerances);
+   peak_uniqueness (over a 1.2 m window) at 8 matched poses through the
+   kernels and through the plain versions: finite, within 2e-6.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -77,6 +90,7 @@ Prints one JSON line with the kernels' numbers, then as its last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -86,7 +100,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from slam2d_tpu_torch.config import GridConfig, SensorConfig
+from slam2d_tpu_torch.config import GridConfig, MatcherConfig, SensorConfig
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.window import (
     blur_halo_cells,
@@ -119,6 +133,7 @@ from slam2d_tpu_torch.run.bench_configs import (
     bench_config,
     bench_log,
     card,
+    localization_log,
     pf1000_bench_config,
     pf_bench_config,
     pf_bench_log,
@@ -126,7 +141,11 @@ from slam2d_tpu_torch.run.bench_configs import (
     ray_bench_config,
 )
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
-from slam2d_tpu_torch.run.frontend import frontend_step, run_frontend
+from slam2d_tpu_torch.run.frontend import (
+    frontend_step,
+    run_frontend,
+    run_localization,
+)
 
 SEED = 0
 KERNEL_TIMING_RUNS = 30
@@ -134,6 +153,12 @@ PARITY_SCANS = 256
 POSE_TOL_M = 5e-3
 POSE_TOL_RAD = 5e-3
 PF_MAX_ATE_M = 1.0        # phase 6: above this the filter diverged
+LOC_ATE_SLACK_M = 0.1     # phase 12: the map carries phase 4's own error
+PEAK_SCANS = 8            # phase 12: peak_uniqueness held at 8 scans
+PEAK_TOL = 2e-6           # phase 12: the coarse scores' tolerance
+PEAK_SEARCH_XY = 1.2      # phase 12: a loop-closure window for the margin
+                          # (at bench.py's 0.3 m every offset lies within
+                          # the 0.5 m exclusion and the margin is +inf)
 PF_PARITY_REFINES = 8     # phase 7
 PF_POSE_TOL = 2e-4        # phase 7, m and rad
 PF_LOGW_TOL = 3e-3        # phase 7: 30 x score 5e-5 on two particles
@@ -518,23 +543,39 @@ def kernel_checks(cfg, log, device):
     def field(x, plain):
         return correlative.build_search_space(x, m, g.resolution, plain=plain)
 
-    errs = {}
+    errs, same = {}, {}
     for name, x in (("window", gw), ("full", full)):
-        errs[name] = float((field(x, False) - field(x, True)).abs().max())
-        print(f"search_space [{x.shape[0]}x{x.shape[1]}]: max |err| "
-              f"{errs[name]:.3g} (tolerance 1e-6)")
-    if max(errs.values()) > 1e-6:
-        raise AssertionError("search_space disagrees with its plain version")
+        out = field(x, False)
+        errs[name] = _search_space_cells_ok(
+            out, field(x, True), f"search_space [{x.shape[0]}x{x.shape[1]}]")
+        # one thread a cell, a fixed sum order: the same bits every call
+        same[name] = torch.equal(out, field(x, False))
+    print(f"search_space same bits twice {same}")
+    if not all(same.values()):
+        raise AssertionError(f"search_space is not deterministic: {same}")
+    per_call = _device_activities(lambda: field(gw, False),
+                                  "search_space_kernel")
+    print(f"search_space device activities a call: {per_call}")
     n_taps = 2 * blur_halo_cells(m, g.resolution) + 1
-    results["search_space"] = dict(
-        max_abs_err=max(errs.values()), tolerance="atol 1e-6",
-        shape=[uwin, uwin],
-        full_map_ms=_cuda_ms(lambda: field(full, False)),
-        full_map_plain_ms=_cuda_ms(lambda: field(full, True)),
-        # read and write the window once; two blur passes and ~8 more
+
+    def field_bound(x):
+        # read and write the map once; two blur passes and ~8 more
         # operations a cell
-        **_times(lambda: field(gw, False), lambda: field(gw, True), _bound(
-            2 * gw.numel() * 4, gw.numel() * (4 * n_taps + 8))),
+        return _bound(2 * x.numel() * 4, x.numel() * (4 * n_taps + 8))
+
+    results["search_space"] = dict(
+        max_abs_err=max(e for e, _ in errs.values()),
+        cells_differing=sum(c for _, c in errs.values()),
+        tolerance="atol 1e-6", same_bits_twice=all(same.values()),
+        shape=[uwin, uwin], device_kernels_per_call=sum(per_call.values()),
+        edge_operands_checked=search_space_edge_check(device),
+        full_map=dict(
+            shape=list(full.shape), max_abs_err=errs["full"][0],
+            **_times(lambda: field(full, False), lambda: field(full, True),
+                     field_bound(full)),
+        ),
+        **_times(lambda: field(gw, False), lambda: field(gw, True),
+                 field_bound(gw)),
     )
 
     # kernel 2: coarse [13, 5, 5] on the 136^2 pooled window, fine
@@ -608,6 +649,74 @@ def kernel_checks(cfg, log, device):
     return results
 
 
+def _search_space_cells_ok(a, b, name):
+    """(max |a - b|, cells differing by more than 1e-6) of a search space
+    built by the kernel (a) and by its plain version (b); raises if any
+    cell differs."""
+    d = (a - b).abs()
+    err, n_diff = float(d.max()), int((d > 1e-6).sum())
+    print(f"{name}: max |err| {err:.3g}, {n_diff} cells differ "
+          "(tolerance 1e-6)")
+    if n_diff:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err, n_diff
+
+
+SEARCH_EDGE_SHAPES = {"123x131": (123, 131), "1x517": (1, 517),
+                      "520x7": (520, 7)}
+SEARCH_EDGE_HALOS = (1, 4, 6, 31)   # 3, 9, 13 and 63 taps
+
+
+def search_space_edge_operands(seed: int = 0) -> dict:
+    """name -> dict(logodds [H, W] float32, halo, taps) for kernel 3 at the
+    edges of its design: shapes that are not a multiple of any tile, and
+    windows narrower than the halo (1 x 517, 520 x 7), with 3, 9, 13
+    (the count compiled in) and 63 taps, a Gaussian of sigma
+    halo / 3 cells, peak-normalized (correlative.gaussian_kernel_1d).
+    A third of the cells hold log-odds at +-occ_evidence_sat, at twice
+    it, at 0, and at logit(free_threshold) and up to 4 float32 ulps either
+    side of it; the rest are uniform in [-4, 4]. The matcher's other
+    settings are MatcherConfig's defaults."""
+    mcfg = MatcherConfig()
+    sat, thr = np.float32(mcfg.occ_evidence_sat), mcfg.free_threshold
+    logit = np.float32(np.log(thr / (1.0 - thr)))
+    special = [sat, -sat, 2 * sat, -2 * sat, np.float32(0.0), logit]
+    up = down = logit
+    for _ in range(4):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(-np.inf))
+        special += [up, down]
+    special = np.array(special, np.float32)
+    rng = np.random.default_rng(seed)
+    ops = {}
+    for shape_name, shape in SEARCH_EDGE_SHAPES.items():
+        for hw in SEARCH_EDGE_HALOS:
+            lo = rng.uniform(-4.0, 4.0, shape).astype(np.float32)
+            pick = rng.random(shape) < 1 / 3
+            lo[pick] = rng.choice(special, int(pick.sum()))
+            ops[f"{shape_name} {2 * hw + 1} taps"] = dict(
+                logodds=lo, halo=hw,
+                taps=correlative.gaussian_kernel_1d(hw / 3, hw),
+            )
+    return ops
+
+
+def search_space_edge_check(device) -> list:
+    """Phase 3, kernel 3 on search_space_edge_operands: 0 cells may differ
+    from the plain version (atol 1e-6). Returns the operands checked."""
+    mcfg = MatcherConfig()
+    kw = dict(occ_sat=mcfg.occ_evidence_sat,
+              free_threshold=mcfg.free_threshold,
+              free_penalty=mcfg.free_penalty)
+    ops = search_space_edge_operands()
+    for name, op in ops.items():
+        lo = torch.as_tensor(op["logodds"], device=device)
+        _search_space_cells_ok(search_space(lo, op["taps"], **kw),
+                               search_space(lo, op["taps"], plain=True, **kw),
+                               f"search_space {name}")
+    return list(ops)
+
+
 def score_bound(S, pos, valid, n: int, bilinear: bool) -> dict:
     """The distinct cells of S under the valid beams' taps read once
     (a beam's (n + 1)^2 patch from floor(pos) when bilinear, else its
@@ -652,7 +761,7 @@ def run_slice(cfg, log, device):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    _, traj, scores = run_frontend(log, cfg, device)
+    state, traj, scores = run_frontend(log, cfg, device)
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
@@ -688,22 +797,105 @@ def run_slice(cfg, log, device):
         launches=launches, **counts,
     )
     print("slice:", json.dumps(result))
-    return traj, launches
+    return traj, launches, state
 
 
 def parity_run(cfg, log, device, traj):
     """Phase 5: the first scans with every kernel's plain version."""
     part = {k: np.asarray(v)[:PARITY_SCANS] for k, v in log.items()}
     _, traj_plain, _ = run_frontend(part, cfg, device, plain=True)
-    ref = traj[:PARITY_SCANS]
-    dxy = float(np.max(np.hypot(*(ref[:, :2] - traj_plain[:, :2]).T)))
-    dth = float(np.max(np.abs(
-        np.angle(np.exp(1j * (ref[:, 2] - traj_plain[:, 2])))
-    )))
+    dxy, dth = _pose_errors(traj[:PARITY_SCANS], traj_plain)
     print(f"plain-version slice, {PARITY_SCANS} scans: max |dxy| {dxy:.3g} m, "
           f"max |dtheta| {dth:.3g} rad (tolerance {POSE_TOL_M} / {POSE_TOL_RAD})")
     if dxy > POSE_TOL_M or dth > POSE_TOL_RAD:
         raise AssertionError("kernel and plain slices disagree")
+
+
+def run_localize(cfg, log, device, logodds, slice_ate):
+    """Phase 12: localization (run_localization) on phase 4's final map
+    over a second traversal of bench.py's world through the kernels; the
+    first scans again through the plain versions; peak_uniqueness at
+    matched poses through the kernels and through the plain versions."""
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    run_localization(warm, cfg, logodds, device)
+    torch.cuda.synchronize()
+    keep = logodds.clone()
+    for fn in _counters().values():
+        fn.launches = 0
+    for name in ("host_syncs", "matches", "updates"):
+        setattr(frontend_step, name, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, traj, scores, events = run_localization(log, cfg, logodds, device)
+    end.record()
+    end.synchronize()
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    T = len(traj)
+    scans_run = -(-T // cfg.chunk) * cfg.chunk
+    counts = dict(host_syncs=frontend_step.host_syncs,
+                  matches=frontend_step.matches, updates=frontend_step.updates)
+    if not np.isfinite(traj).all():
+        raise AssertionError("localization: trajectory is not finite")
+    ate = ate_rmse(traj, log["gt_poses"], align=False)
+    ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
+    elapsed = start.elapsed_time(end) / 1e3
+    result = dict(
+        scans=T, scans_run=scans_run, scans_per_sec=T / elapsed,
+        seconds_cuda_events=elapsed, ate_m=ate, ate_odom_m=ate_odom,
+        ate_slice_m=slice_ate, launches=launches, events=events, **counts,
+    )
+    print("localization:", json.dumps(result))
+    if not (ate < ate_odom and ate <= slice_ate + LOC_ATE_SLACK_M):
+        raise AssertionError(
+            f"localization ATE {ate} not below odometry's {ate_odom} and "
+            f"within {LOC_ATE_SLACK_M} m of the map's run ({slice_ate})")
+    if not (torch.equal(logodds, keep) and torch.equal(state.logodds, keep)):
+        raise AssertionError("localization changed the map")
+    expect = {"update_hybrid": 0, "search_space": 1,
+              "score_offsets": 2 * counts["matches"]}
+    if launches != expect or counts["matches"] <= 0 or counts["updates"]:
+        raise AssertionError(f"localization: launches {launches}, "
+                             f"expected {expect}; {counts}")
+    if counts["host_syncs"] != scans_run:
+        raise AssertionError(f"localization: {counts['host_syncs']} host "
+                             f"reads for {scans_run} scans, expected one a scan")
+
+    part = {k: np.asarray(v)[:PARITY_SCANS] for k, v in log.items()}
+    _, traj_plain, _, _ = run_localization(part, cfg, logodds, device,
+                                           plain=True)
+    dxy, dth = _pose_errors(traj[:PARITY_SCANS], traj_plain)
+    print(f"plain-version localization, {PARITY_SCANS} scans: max |dxy| "
+          f"{dxy:.3g} m, max |dtheta| {dth:.3g} rad (tolerance {POSE_TOL_M} / "
+          f"{POSE_TOL_RAD})")
+    if dxy > POSE_TOL_M or dth > POSE_TOL_RAD:
+        raise AssertionError("kernel and plain localizations disagree")
+
+    g, s = cfg.grid, cfg.sensor
+    m = dataclasses.replace(cfg.matcher, search_xy=PEAK_SEARCH_XY)
+    matched = np.flatnonzero(scores != -1.0)
+    picks = matched[np.linspace(0, len(matched) - 1, PEAK_SCANS).astype(int)]
+    diffs = []
+    for i in picks:
+        pose = torch.as_tensor(traj[i], device=device)
+        ranges = torch.as_tensor(log["ranges"][i], device=device)
+        a, b = (float(correlative.peak_uniqueness(
+            logodds, ranges, pose, g, m, s, plain=plain))
+            for plain in (False, True))
+        diffs.append(abs(a - b))
+        print(f"peak_uniqueness at scan {i}: kernels {a:.7g}, plain {b:.7g}")
+    if not np.isfinite(diffs).all() or max(diffs) > PEAK_TOL:
+        raise AssertionError(f"peak_uniqueness: kernel and plain margins "
+                             f"differ by {max(diffs)} > {PEAK_TOL}")
+    return {"search_space": launches["search_space"],
+            "score_offsets": launches["score_offsets"]}
+
+
+def _pose_errors(a, b):
+    """(max |dxy|, max |dtheta|) between two [T, 3] trajectories."""
+    dxy = float(np.max(np.hypot(*(a[:, :2] - b[:, :2]).T)))
+    dth = float(np.max(np.abs(np.angle(np.exp(1j * (a[:, 2] - b[:, 2]))))))
+    return dxy, dth
 
 
 def _map_cells_ok(a, b, gcfg, name):
@@ -1679,6 +1871,8 @@ def main(kernels_only: bool = False):
     for name in ("update_hybrid", "update_ray", "score_offsets",
                  "search_space"):
         checks[name].update(launch_floor_ms=floor_ms, launch_floor_by=floor_by)
+    checks["search_space"]["full_map"].update(launch_floor_ms=floor_ms,
+                                              launch_floor_by=floor_by)
     torch.cuda.synchronize()
     print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
     if kernels_only:
@@ -1687,7 +1881,7 @@ def main(kernels_only: bool = False):
 
     # the paths, each with its counts set to 0 just before it
     by_path = {}
-    traj, by_path["4 frontend"] = run_slice(cfg, log, device)
+    traj, by_path["4 frontend"], slice_state = run_slice(cfg, log, device)
     parity_run(cfg, log, device, traj)
     by_path["6 FastSLAM-100"], _ = run_pf(pf_cfg, pf, pf_log, device,
                                           "fastslam-100")
@@ -1706,6 +1900,9 @@ def main(kernels_only: bool = False):
               "fastslam-16")
     hybrid_ate = ate_rmse(traj, log["gt_poses"], align=False)
     by_path["11 ray frontend"] = run_ray(ray_cfg, log, device, hybrid_ate)
+    by_path["12 localization"] = run_localize(
+        cfg, localization_log(cfg.sensor), device, slice_state.logodds,
+        hybrid_ate)
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",

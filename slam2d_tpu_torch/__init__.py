@@ -1,5 +1,6 @@
-"""slam2d_tpu_torch — the scan-matching frontend and FastSLAM of slam2d_tpu
-in PyTorch, with hand-written CUDA kernels for the NVIDIA H100 (sm_90a).
+"""slam2d_tpu_torch — the scan-matching frontend, localization on a fixed
+map and FastSLAM of slam2d_tpu in PyTorch, with hand-written CUDA kernels
+for the NVIDIA H100 (sm_90a).
 
 The JAX package `slam2d_tpu` is the reference this package is tested
 against; its layout is mirrored here (config, core/se2, data/synth,
@@ -13,8 +14,9 @@ Every function takes tensors and works on their device: a CUDA tensor
 goes through the kernels in `slam2d_tpu_torch/csrc/` (built on first use
 by `ops/_build.py`), a CPU tensor through each kernel's plain PyTorch
 version in the same module. The entry points (`run_frontend`,
-`frontend_init`, `run_fastslam`, `fastslam_init`) run on the card unless
-the caller passes another device.
+`run_frontend_offline`, `run_localization`, `frontend_init`,
+`run_fastslam`, `fastslam_init`) run on the card unless the caller passes
+another device.
 """
 
 from slam2d_tpu_torch.config import (  # noqa: F401

@@ -10,7 +10,8 @@ by one of two scorers (`resolve_score_impl`): the gather scorer
 (`score_cmx`: an endpoint-splat image per theta, correlated with S by
 ops/corr.py; the per-particle refine's). `match_scan` matches one scan
 against one map; `match_scans` matches it for a batch of particles, each
-against its own search space, with one scorer launch per pass.
+against its own search space, with one scorer launch per pass;
+`peak_uniqueness` scores a match's coarse window for its peak margin.
 Everything stays on the tensors' device; nothing here reads a value back
 to the host.
 """
@@ -254,6 +255,50 @@ def _argmax3(scores):
     flat_idx = torch.argmax(scores.reshape(-1))
     T, R, C = scores.shape
     return flat_idx // (R * C), (flat_idx % (R * C)) // C, flat_idx % C
+
+
+def peak_uniqueness(
+    logodds, ranges, prior_pose, gcfg: GridConfig, mcfg: MatcherConfig,
+    sensor: SensorConfig, excl_m: float = 0.5, search_space=None,
+    origin_xy=None, plain: bool = False,
+):
+    """Peak-dominance margin of a match, a 0-d tensor on the input's device.
+
+    Scores the coarse search window around prior_pose (the scorer of
+    match_scan's coarse pass) and returns best - second_best, where
+    second_best is the best score whose translation lies more than
+    ceil(excl_m / coarse cell) coarse cells from the argmax along a
+    row or a column, at any theta. Aliased matches (corridors, lattices)
+    show several near-equal peaks and a small margin; unique ones a large
+    one. `search_space` and `origin_xy` as for match_scan."""
+    impl = resolve_score_impl(mcfg.score_impl)
+    S = (
+        build_search_space(logodds, mcfg, gcfg.resolution, plain=plain)
+        if search_space is None
+        else search_space
+    )
+    f = mcfg.coarse_factor
+    pts_local, valid = scan_endpoints_local(ranges, sensor)
+    origin = (
+        (gcfg.origin_x, gcfg.origin_y) if origin_xy is None else origin_xy
+    )
+    r_coarse = int(math.ceil(int(round(mcfg.search_xy / gcfg.resolution)) / f))
+    sc = score_offsets(
+        coarse_space(S, f), prior_pose, pts_local, valid,
+        _theta_table(mcfg, prior_pose.device), r_coarse, gcfg.resolution * f,
+        origin, plain=plain, impl=impl, use_bf16=mcfg.score_bf16,
+    )
+    t, r, c = _argmax3(sc)
+    best = _take(sc, t, r, c)
+    excl = int(math.ceil(excl_m / (gcfg.resolution * f)))
+    # |off[i] - off[r]| = |i - r| on the window's own offsets
+    idx = torch.arange(2 * r_coarse + 1, device=sc.device)
+    far = (
+        (torch.abs(idx[None, :, None] - r) > excl)
+        | (torch.abs(idx[None, None, :] - c) > excl)
+    )
+    second = torch.where(far, sc, -torch.inf).amax()
+    return best - second
 
 
 def match_scan(

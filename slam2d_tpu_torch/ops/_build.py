@@ -51,9 +51,9 @@ _SIGNATURES = {
     "slam2d_score_offsets": [_P] * 5 + [_I] * 7 + [_P],
     # stream: one launch of an empty kernel (the floor under a launch)
     "slam2d_empty_launch": [_P],
-    # logodds, scratch, out, H, W, taps (host array), n_taps, 1/occ_sat,
+    # logodds, out, H, W, taps (host array), n_taps, 1/occ_sat,
     # free_threshold, free_penalty, stream
-    "slam2d_search_space": [_P, _P, _P, _I, _I, _P, _I, _F, _F, _F, _P],
+    "slam2d_search_space": [_P, _P, _I, _I, _P, _I, _F, _F, _F, _P],
     # maps, in_bf16, origins, out, out_bf16, P, Hm, Wm, win, taps (host
     # array), n_taps, 1/occ_sat, free_logit, free_penalty, stream
     "slam2d_window_field": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I]

@@ -8,6 +8,8 @@ match/correlative.py:build_search_space:
     blur = clip(separable zero-padded blur of occ, rows then columns, 0, 1)
     S    = blur - free_penalty * [sigmoid(l) < free_threshold] * (1 - blur)
 
+The kernel is one launch a call: a block a tile of S, the tile and its
+blur halo copied into shared memory once and blurred there.
 `search_space` sends a CUDA tensor to the kernel and a CPU tensor to
 `search_space_plain`; anything else raises.
 """
@@ -77,11 +79,10 @@ def search_space(
     if logodds.device.type != "cuda":
         raise ValueError(f"no search-space kernel for device {logodds.device}")
     H, W = logodds.shape
-    scratch = torch.empty_like(logodds)
     out = torch.empty_like(logodds)
     lib = _build.load_library()
     err = lib.slam2d_search_space(
-        logodds.data_ptr(), scratch.data_ptr(), out.data_ptr(), H, W,
+        logodds.data_ptr(), out.data_ptr(), H, W,
         taps.ctypes.data, len(taps), inv_f32(occ_sat), free_threshold,
         free_penalty,
         _build.stream_handle(logodds.device),

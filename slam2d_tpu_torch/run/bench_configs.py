@@ -1,8 +1,9 @@
 """The configurations and synthetic logs of the JAX package's bench.py
 (the frontend) and bench_pf.py (FastSLAM at its defaults, with 100, 1000
-or 16 particles), for the scripts that drive the port on a GPU
-(chip_smoke.py, scripts/profile_torch.py), and the card's name and power
-limit as nvidia-smi reports them.
+or 16 particles) and a localization log in bench.py's world, for the
+scripts that drive the port on a GPU (chip_smoke.py,
+scripts/profile_torch.py), and the card's name and power limit as
+nvidia-smi reports them.
 """
 
 from __future__ import annotations
@@ -98,6 +99,17 @@ def pf_bench_log(sensor):
     return simulate_log(
         SynthWorld.box_rooms(20.0), np.array(_ROUTE[:7]), sensor, step=0.05,
         seed=LOG_SEED,
+    )
+
+
+def localization_log(sensor):
+    """A second traversal of bench.py's world for localization on the map
+    of bench_log: its route reversed, with twice bench_log's odometry
+    noise (seed 9), as tests/test_localize.py makes its second traversal
+    noisier than the mapping one."""
+    return simulate_log(
+        SynthWorld.box_rooms(20.0), np.array(_ROUTE[::-1]), sensor,
+        step=0.05, odom_noise_xy=0.008, odom_noise_theta=0.004, seed=9,
     )
 
 

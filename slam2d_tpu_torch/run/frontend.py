@@ -3,18 +3,21 @@
 Per scan: prior = pose ⊕ odometry delta; a motion-gated correlative match
 against the cached search space inside a scan window; a motion-gated
 log-odds update of an update window, whose search-space window is then
-rebuilt and written back.
+rebuilt and written back. In localization mode (`run_localization`,
+cfg.localize_only) the map is fixed: no bootstrap and no update.
 
 The two gates are read on the host: each is one small device-to-host read
 per scan that also brings back the integer window center, so a window
-costs no second read. The trajectory stays on the device until the end of
-`run_frontend`. Plain integers on `frontend_step` count the host reads
-(`host_syncs`) and the scans that were matched (`matches`) and integrated
-(`updates`); a caller may reset them.
+costs no second read (localization has the match gate alone). The
+trajectory stays on the device until the end of `run_frontend`. Plain
+integers on `frontend_step` count the host reads (`host_syncs`) and the
+scans that were matched (`matches`) and integrated (`updates`); a caller
+may reset them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -95,10 +98,11 @@ def frontend_step(
     kernel's plain PyTorch version even on a CUDA device (for checks).
     Bootstrap (first `bootstrap_dist` meters) trusts the odometry prior
     and integrates every scan; afterwards the matcher and the map update
-    each run only after enough motion (see FrontendConfig).
+    each run only after enough motion (see FrontendConfig). With
+    cfg.localize_only the map is given: there is no bootstrap, and the
+    step returns after the match with the map, its search space and
+    last_map_pose untouched.
     """
-    if cfg.localize_only:
-        raise NotImplementedError("localization mode is not ported yet")
     gcfg = cfg.grid
     delta = se2.between(state.prev_odom, odom)
     step_len = torch.hypot(delta[0], delta[1])
@@ -107,9 +111,11 @@ def frontend_step(
     since_m = state.since_match + torch.stack(
         [step_len, torch.abs(se2.wrap_angle(delta[2]))]
     )
-    do_match = (~in_boot) & (
+    do_match = (
         (since_m[0] >= cfg.match_min_motion) | (since_m[1] >= cfg.match_min_rot)
     )
+    if not cfg.localize_only:
+        do_match = do_match & ~in_boot
 
     win = scan_window_cells(gcfg, cfg.sensor, cfg.matcher)
     windowed = win < min(gcfg.height, gcfg.width)
@@ -138,6 +144,14 @@ def frontend_step(
         )
         since_m = torch.zeros_like(since_m)
     dist = state.dist + step_len
+    if cfg.localize_only:
+        return (
+            FrontendState(
+                state.logodds, state.search_space, pose, odom, dist,
+                state.last_map_pose, since_m,
+            ),
+            (pose, score),
+        )
 
     moved = torch.hypot(
         pose[0] - state.last_map_pose[0], pose[1] - state.last_map_pose[1]
@@ -189,25 +203,22 @@ frontend_step.matches = 0
 frontend_step.updates = 0
 
 
-def _chunk_iter(odom: np.ndarray, ranges: np.ndarray, K: int):
-    """Yield (o [K,3], r [K,B]) with the tail chunk padded by repeating
+def _pad_log(odom: np.ndarray, ranges: np.ndarray, K: int):
+    """(odom, ranges) with the tail padded to a multiple of K by repeating
     the last record, exactly as the JAX driver does (the padded scans run
     and change the final state)."""
-    T = len(odom)
-    for s in range(0, T, K):
-        o = odom[s : s + K]
-        r = ranges[s : s + K]
-        if len(o) < K:
-            pad = K - len(o)
-            o = np.concatenate([o, np.repeat(o[-1:], pad, axis=0)])
-            r = np.concatenate([r, np.repeat(r[-1:], pad, axis=0)])
-        yield o, r
+    pad = -len(odom) % K
+    if pad:
+        odom = np.concatenate([odom, np.repeat(odom[-1:], pad, axis=0)])
+        ranges = np.concatenate([ranges, np.repeat(ranges[-1:], pad, axis=0)])
+    return odom, ranges
 
 
 def run_frontend(
     log: dict, cfg: FrontendConfig, device="cuda",
     state: FrontendState | None = None,
     plain: bool = False,
+    frame_cb=None,
 ):
     """Run the frontend over a host-side log dict {odom, ranges} on `device`.
 
@@ -215,7 +226,14 @@ def run_frontend(
     tail chunk is padded by repeating the last record and the outputs are
     truncated. `plain=True` runs every kernel's plain version (checks only).
 
-    Returns (final_state, traj [T, 3] np.ndarray, scores [T] np.ndarray).
+    `frame_cb(logodds, traj_chunk)` is called at every chunk boundary (for
+    animation capture), with the state's map tensor, which later scans
+    update in place (copy it to keep it), and the chunk's real poses as a
+    numpy [n, 3] array: one host read a chunk, so leave it None on
+    throughput runs.
+
+    Returns (final_state, traj [T, 3] np.ndarray, scores [T] np.ndarray),
+    both fetched from the device in one copy.
     """
     odom = np.asarray(log["odom"], np.float32)
     ranges = np.asarray(log["ranges"], np.float32)
@@ -225,19 +243,99 @@ def run_frontend(
         state = frontend_init(
             cfg, device, start_pose=odom[0], start_odom=odom[0], plain=plain
         )
-    n_pad = -(-T // K) * K
-    traj = torch.empty((n_pad, 3), dtype=torch.float32, device=device)
-    scores = torch.empty(n_pad, dtype=torch.float32, device=device)
-    for i, (o, r) in enumerate(_chunk_iter(odom, ranges, K)):
-        o = torch.as_tensor(o, device=device)
-        r = torch.as_tensor(r, device=device)
+    odom, ranges = _pad_log(odom, ranges, K)
+    # [n_pad, 4]: the pose and the score of each scan
+    out = torch.empty((len(odom), 4), dtype=torch.float32, device=device)
+    for s in range(0, len(odom), K):
+        o = torch.as_tensor(odom[s : s + K], device=device)
+        r = torch.as_tensor(ranges[s : s + K], device=device)
         for k in range(K):
             state, (pose, score) = frontend_step(
                 state, o[k], r[k], cfg, plain=plain
             )
-            traj[i * K + k] = pose
-            scores[i * K + k] = score
-    return state, traj[:T].cpu().numpy(), scores[:T].cpu().numpy()
+            out[s + k, :3] = pose
+            out[s + k, 3] = score
+        if frame_cb is not None:
+            frame_cb(state.logodds, out[s : min(s + K, T), :3].cpu().numpy())
+    out = out[:T].cpu().numpy()
+    return state, out[:, :3].copy(), out[:, 3].copy()
+
+
+def run_frontend_offline(
+    log: dict, cfg: FrontendConfig, device="cuda",
+    state: FrontendState | None = None,
+):
+    """Whole-log frontend (offline mapping), with the JAX package's
+    semantics: the tail padded to a multiple of cfg.chunk by repeating
+    the last record, one fetch of the trajectory, the outputs truncated;
+    bit-identical to `run_frontend`. Until the chunks replay as CUDA
+    graphs it runs `run_frontend`'s own loop over the padded log.
+
+    Returns (final_state, traj [T, 3] np.ndarray, scores [T] np.ndarray).
+    """
+    odom = np.asarray(log["odom"], np.float32)
+    ranges = np.asarray(log["ranges"], np.float32)
+    T = len(odom)
+    odom, ranges = _pad_log(odom, ranges, cfg.chunk)
+    state, traj, scores = run_frontend(
+        {"odom": odom, "ranges": ranges}, cfg, device, state=state
+    )
+    return state, traj[:T], scores[:T]
+
+
+def run_localization(
+    log: dict, cfg: FrontendConfig, logodds, device="cuda", start_pose=None,
+    recover: bool = False, recover_score: float = 0.25,
+    recover_accept: float = 0.5, recover_margin: float = 0.0,
+    recover_consistent: bool = True, plain: bool = False,
+):
+    """Pose tracking against a FIXED prebuilt map (no bootstrap, no map
+    updates): the AMCL-style localization mode. `logodds` is an [H, W]
+    log-odds map (numpy or a tensor) of cfg.grid's geometry, e.g. a
+    previous run's final map; it is copied, so the caller's map comes back
+    unchanged. The search space is built once, on the whole map, and the
+    scans run through `run_frontend` with cfg.localize_only set: one host
+    read a scan (the match gate). `start_pose` defaults to the first
+    odometry pose. `plain=True` runs every kernel's plain version (checks
+    only).
+
+    Relocalization (`recover=True`, with its `recover_*` settings, as in
+    the JAX package) needs match/global_loc, which is not ported yet, and
+    raises NotImplementedError.
+
+    Returns (final_state, traj [T, 3], scores [T], events): events is []
+    (the accepted recoveries)."""
+    if recover:
+        raise NotImplementedError(
+            "run_localization(recover=True): relocalization needs "
+            "match/global_loc, which is not ported yet"
+        )
+    cfg = dataclasses.replace(cfg, localize_only=True)
+    odom = np.asarray(log["odom"], np.float32)
+    if isinstance(logodds, torch.Tensor):
+        grid = logodds.to(device=device, dtype=torch.float32, copy=True)
+    else:
+        grid = torch.tensor(np.asarray(logodds, np.float32), device=device)
+    grid = grid.contiguous()
+    if tuple(grid.shape) != (cfg.grid.height, cfg.grid.width):
+        raise ValueError(
+            f"map of shape {tuple(grid.shape)}, the grid is "
+            f"{(cfg.grid.height, cfg.grid.width)}"
+        )
+    S = build_search_space(grid, cfg.matcher, cfg.grid.resolution, plain=plain)
+    pose = torch.tensor(
+        np.asarray(odom[0] if start_pose is None else start_pose, np.float32),
+        device=device,
+    )
+    # built directly: frontend_init would blur an empty grid for nothing
+    state = FrontendState(
+        grid, S, pose, torch.tensor(odom[0], device=device),
+        torch.zeros((), dtype=torch.float32, device=device), pose.clone(),
+        torch.zeros(2, dtype=torch.float32, device=device),
+    )
+    state, traj, scores = run_frontend(log, cfg, device, state=state,
+                                       plain=plain)
+    return state, traj, scores, []
 
 
 def state_from_numpy(arrays, device) -> FrontendState:

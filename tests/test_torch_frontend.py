@@ -108,7 +108,24 @@ def test_port_runs_without_jax():
 
 
 def test_localization_mode_is_not_ported():
+    """Of localization mode only relocalization (run_localization with
+    recover=True, which needs match/global_loc) is not ported, and raises.
+    A localize_only step runs: no bootstrap (it matches from the first
+    metre on), and the map, its search space and last_map_pose come back
+    untouched."""
     cfg = to_port(dataclasses.replace(frontend_cfg(256), localize_only=True))
     state = tfe.frontend_init(cfg, CPU)
+    kept = [t.clone() for t in state]
+    matches = tfe.frontend_step.matches
+    odom = torch.tensor([cfg.match_min_motion, 0.0, 0.0])
+    new, (pose, score) = tfe.frontend_step(
+        state, odom, torch.full((180,), 2.0), cfg
+    )
+    assert tfe.frontend_step.matches == matches + 1
+    for i in (0, 1, 5):   # logodds, search_space, last_map_pose
+        assert torch.equal(new[i], kept[i])
+    assert torch.equal(new.prev_odom, odom) and bool(torch.isfinite(pose).all())
+    log = {"odom": np.zeros((4, 3), np.float32),
+           "ranges": np.full((4, 180), 2.0, np.float32)}
     with pytest.raises(NotImplementedError):
-        tfe.frontend_step(state, torch.zeros(3), torch.full((180,), 2.0), cfg)
+        tfe.run_localization(log, cfg, kept[0].numpy(), CPU, recover=True)

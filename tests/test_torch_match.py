@@ -285,3 +285,76 @@ def test_search_space_wrapper_rejects_bad_input(bad):
         tfield.search_space(
             lo, taps, occ_sat=2.0, free_threshold=0.45, free_penalty=0.6
         )
+
+
+# peak_uniqueness scores loop-closure matches over a wide window: 1.2 m is
+# 7 x 7 coarse offsets of 0.4 m, some beyond either exclusion radius (at
+# MCFG's 0.3 m every offset lies within it and the margin is +inf)
+PEAK_MCFG = dataclasses.replace(MCFG, search_xy=1.2)
+# poses of the scans peak_uniqueness is held at: the map's own pose, one
+# across the room from it, and one in the window the windowed case cuts
+PEAK_SCANS = {
+    "near": (np.array([0.4, 0.2, 0.04], np.float32), False),
+    "far": (np.array([1.1, -0.6, -0.08], np.float32), False),
+    "window": (np.array([0.4, 0.2, 0.04], np.float32), True),
+}
+
+
+@pytest.mark.parametrize("excl_m", [0.3, 0.5])
+@pytest.mark.parametrize("scan", sorted(PEAK_SCANS))
+def test_peak_uniqueness_matches_jax(scan, excl_m):
+    lo = _jax_map()
+    offset, windowed = PEAK_SCANS[scan]
+    true_pose = POSE + offset
+    prior = true_pose + np.array([0.06, -0.05, 0.02], np.float32)
+    ranges = synth_ranges(true_pose)
+    kw_j, kw_t = {}, {}
+    if windowed:
+        S = np.asarray(
+            jcor.build_search_space(jnp.asarray(lo), MCFG, GCFG.resolution)
+        )
+        r0, c0 = 40, 52
+        Sw = np.ascontiguousarray(S[r0 : r0 + 128, c0 : c0 + 128])
+        origin = tocc.window_origin_xy(to_port(GCFG), (r0, c0))
+        kw_j = dict(search_space=jnp.asarray(Sw), origin_xy=origin)
+        kw_t = dict(search_space=torch.from_numpy(Sw), origin_xy=origin)
+    fn = jax.jit(lambda lo, r, p, **kw: jcor.peak_uniqueness(
+        lo, r, p, GCFG, PEAK_MCFG, SENSOR, excl_m=excl_m, **kw))
+    ref = float(fn(jnp.asarray(lo), jnp.asarray(ranges), jnp.asarray(prior),
+                   **kw_j))
+    out = tcor.peak_uniqueness(
+        torch.from_numpy(lo), torch.from_numpy(ranges), torch.from_numpy(prior),
+        to_port(GCFG), to_port(PEAK_MCFG), to_port(SENSOR), excl_m=excl_m,
+        **kw_t,
+    )
+    print(f"margin port {float(out):.7g} JAX {ref:.7g}")
+    assert out.dim() == 0 and np.isfinite(ref) and ref > 0
+    assert abs(float(out) - ref) <= 2e-6
+
+
+@pytest.mark.parametrize(
+    "name", sorted(chip_smoke.search_space_edge_operands())
+)
+def test_search_space_plain_matches_jax_at_edge_operands(name, monkeypatch):
+    """build_search_space's plain version (which kernel 3 is held to on
+    the GPU) against the JAX package's on chip_smoke.py's edge operands:
+    shapes that are no multiple of a tile, 3 to 63 taps (the halo set on
+    both packages' blur_halo_cells, sigma halo / 3 cells at a cell of
+    1 m), log-odds at the clips and around logit(free_threshold)."""
+    op = chip_smoke.search_space_edge_operands()[name]
+    hw = op["halo"]
+    mcfg = dataclasses.replace(MCFG, sigma_m=hw / 3)
+    monkeypatch.setattr("slam2d_tpu.grid.window.blur_halo_cells",
+                        lambda m, r: hw)
+    monkeypatch.setattr(tcor, "blur_halo_cells", lambda m, r: hw)
+    lo = op["logodds"]
+    ref = np.asarray(jax.jit(
+        lambda x: jcor.build_search_space(x, mcfg, 1.0))(jnp.asarray(lo)))
+    out = tcor.build_search_space(
+        torch.from_numpy(lo), to_port(mcfg), 1.0
+    ).numpy()
+    np.testing.assert_array_equal(
+        tcor.gaussian_kernel_1d(hw / 3, hw), op["taps"]
+    )
+    assert out.shape == lo.shape
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
