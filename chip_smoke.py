@@ -31,7 +31,9 @@ Phases, each of which raises on failure:
    hybrid update run on small operands at the edges of their designs
    (corr_edge_operands: every R, both E dtypes, the vector and scalar
    forms; hybrid_edge_operands: windows clamped into each corner of the
-   map, every kind of range, stacked and on-edge endpoints). Timed three
+   map, every kind of range, stacked and on-edge endpoints); the hybrid
+   update and the search-space build also at the tiled frontend's 544^2
+   window. Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
    events (median of 30; the host's enqueue time sits inside);
    `device_ms`, `library_device_ms`, 50 calls back to back between two
@@ -82,7 +84,37 @@ Phases, each of which raises on failure:
    scorer launches a match and one host read a scan; scans/s; the first
    256 scans again through the plain versions (phase 5's tolerances);
    peak_uniqueness (over a 1.2 m window) at 8 matched poses through the
-   kernels and through the plain versions: finite, within 2e-6.
+   kernels and through the plain versions: finite, within 2e-6;
+13. the tiled frontend (run_tiled_frontend) at the CLI's tile defaults
+   (512^2 tiles, 64 slots, 0.05 m) with bench.py's sensor, matcher and
+   chunk over a lap of the 60 m corridor world (4,551 scans; one 544^2
+   window for the match and the update): finite trajectory, ATE below
+   odometry's, 4 to 64 active tiles, one update and one search-space
+   build an update event, two scorer launches a match, two host reads a
+   scan and one a chunk; scans/s, peak memory; the first 256 scans again
+   through the plain versions (phase 5's tolerances); one gather_region /
+   scatter_region round trip on the final pool, bit-exact against numpy
+   on the stitched pool;
+14. relocalization on phase 4's final map: global_localize from 8 scans of
+   phase 12's log drawn with the seed, each within 0.15 m and 0.1 rad of
+   the pose phase 12 tracked for it on the same map (the ground truth's
+   error printed beside it) with a score above 0.4
+   (tests/test_global_loc.py's limits), or else an alias (a pose that
+   scores at least as well as the refine from the tracked pose) or a miss
+   that the JAX package makes too (on this map, by its sha256, JAX's sweep
+   peaks at the same cell and heading and its refine ends within 1e-3 m
+   and rad: scripts/relocalization_reference.json, made by
+   scripts/relocalization_reference.py); the same coarse cell and heading
+   through the plain versions and the refined pose within 1e-3 m and
+   1e-3 rad, ms a call and peak memory; then
+   run_localization(recover=True) over a kidnap log in bench.py's world
+   (two traversals, the odometry spliced): at least one event, median
+   position error after the last below 0.5 m, on the reference's map the
+   same event and skipped scans as JAX's, event poses within 1e-3, scores
+   within 1e-4 and ATE within 5 mm; one
+   search-space build, two scorer launches a match and one a
+   relocalization, one host read a scan, one a chunk and one a
+   relocalization; scans/s.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -91,7 +123,9 @@ Prints one JSON line with the kernels' numbers, then as its last line
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
+import os
 import statistics
 import sys
 import time
@@ -102,6 +136,15 @@ import torch.nn.functional as F
 
 from slam2d_tpu_torch.config import GridConfig, MatcherConfig, SensorConfig
 from slam2d_tpu_torch.grid import occupancy
+from slam2d_tpu_torch.grid.tiles import (
+    FREE_SLOT,
+    TiledGrid,
+    TileTable,
+    gather_region,
+    scatter_region,
+    stitch_tiles,
+    world_to_cell_global,
+)
 from slam2d_tpu_torch.grid.window import (
     blur_halo_cells,
     extract_window,
@@ -109,6 +152,11 @@ from slam2d_tpu_torch.grid.window import (
     update_window_cells,
 )
 from slam2d_tpu_torch.match import correlative
+from slam2d_tpu_torch.match.global_loc import (
+    global_localize,
+    refine_matcher,
+    sweep_cell,
+)
 from slam2d_tpu_torch.metrics import ate_rmse
 from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.ops import field as field_ops
@@ -133,18 +181,26 @@ from slam2d_tpu_torch.run.bench_configs import (
     bench_config,
     bench_log,
     card,
+    kidnap_log,
     localization_log,
     pf1000_bench_config,
     pf_bench_config,
     pf_bench_log,
     pf_per_particle_bench_config,
     ray_bench_config,
+    tiled_bench_config,
+    tiled_bench_log,
 )
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
 from slam2d_tpu_torch.run.frontend import (
     frontend_step,
     run_frontend,
     run_localization,
+)
+from slam2d_tpu_torch.run.frontend_tiled import (
+    run_tiled_frontend,
+    tiled_frontend_step,
+    tiled_window_cells,
 )
 
 SEED = 0
@@ -159,6 +215,15 @@ PEAK_TOL = 2e-6           # phase 12: the coarse scores' tolerance
 PEAK_SEARCH_XY = 1.2      # phase 12: a loop-closure window for the margin
                           # (at bench.py's 0.3 m every offset lies within
                           # the 0.5 m exclusion and the margin is +inf)
+GLOBAL_SCANS = 8          # phase 14: global_localize at 8 drawn scans
+GLOBAL_ERR_M = 0.15       # phase 14: tests/test_global_loc.py's limits
+GLOBAL_ERR_RAD = 0.1
+GLOBAL_MIN_SCORE = 0.4
+RELOC_REFERENCE = "scripts/relocalization_reference.json"  # phase 14: the
+                          # JAX package's relocalization on phase 4's map
+                          # (scripts/relocalization_reference.py)
+GLOBAL_PROFILE_CALLS = 3  # phase 14: calls traced for the device time
+RECOVER_TAIL_M = 0.5      # phase 14: median error after the last event
 PF_PARITY_REFINES = 8     # phase 7
 PF_POSE_TOL = 2e-4        # phase 7, m and rad
 PF_LOGW_TOL = 3e-3        # phase 7: 30 x score 5e-5 on two particles
@@ -539,12 +604,31 @@ def kernel_checks(cfg, log, device):
             2 * gw.numel() * 4 + 8 * ranges.numel() + 12, 30 * gw.numel())),
     )
 
-    # kernel 3: search-space build of the update window and of the full map
+    # kernel 1 on the tiled frontend's one window (match and update), 544^2
+    tcfg = tiled_bench_config()[1]
+    twin = tiled_window_cells(tcfg, s, m)
+    tw, t_origin = extract_window(full, center, twin)
+
+    def update_t(plain):
+        return occupancy.integrate_scan(
+            tw, pose, ranges, g, s, origin_rc=t_origin, plain=plain
+        )
+
+    n_diff_t, err_t = _hybrid_cells_ok(update_t(False), update_t(True), g,
+                                       f"update_hybrid [{twin}x{twin}]")
+    results["update_hybrid"]["at_tiled_window"] = dict(
+        shape=[twin, twin], max_abs_err=err_t, cells_differing=n_diff_t,
+        **_times(lambda: update_t(False), lambda: update_t(True), _bound(
+            2 * tw.numel() * 4 + 8 * ranges.numel() + 12, 30 * tw.numel())),
+    )
+
+    # kernel 3: search-space build of the update window, of the tiled
+    # window and of the full map
     def field(x, plain):
         return correlative.build_search_space(x, m, g.resolution, plain=plain)
 
     errs, same = {}, {}
-    for name, x in (("window", gw), ("full", full)):
+    for name, x in (("window", gw), ("tiled", tw), ("full", full)):
         out = field(x, False)
         errs[name] = _search_space_cells_ok(
             out, field(x, True), f"search_space [{x.shape[0]}x{x.shape[1]}]")
@@ -573,6 +657,11 @@ def kernel_checks(cfg, log, device):
             shape=list(full.shape), max_abs_err=errs["full"][0],
             **_times(lambda: field(full, False), lambda: field(full, True),
                      field_bound(full)),
+        ),
+        at_tiled_window=dict(
+            shape=list(tw.shape), max_abs_err=errs["tiled"][0],
+            **_times(lambda: field(tw, False), lambda: field(tw, True),
+                     field_bound(tw)),
         ),
         **_times(lambda: field(gw, False), lambda: field(gw, True),
                  field_bound(gw)),
@@ -888,7 +977,345 @@ def run_localize(cfg, log, device, logodds, slice_ate):
         raise AssertionError(f"peak_uniqueness: kernel and plain margins "
                              f"differ by {max(diffs)} > {PEAK_TOL}")
     return {"search_space": launches["search_space"],
+            "score_offsets": launches["score_offsets"]}, traj
+
+
+def _tiled_region_check(state, tcfg, table, win, pose, device):
+    """One gather_region / scatter_region round trip on a tiled frontend's
+    final log-odds pool, held bit for bit against numpy on the stitched
+    pool (stitch_tiles): the gathered window is the stitched slice (0 in
+    tiles that are not active); after a scatter of a seeded window into a
+    copy of the pool, each active tile's piece holds t + (w - t) in
+    float32 and every other cell is as it was."""
+    dense, (ox, oy) = stitch_tiles(state.grid, tcfg)
+    active = np.zeros_like(dense, dtype=bool)
+    coords = state.grid.coords[:-1].cpu().numpy()
+    act = coords[coords[:, 0] > FREE_SLOT]
+    r_min, c_min = act[:, 0].min(), act[:, 1].min()
+    t = tcfg.tile
+    for r, c in act:
+        active[(r - r_min) * t:(r - r_min + 1) * t,
+               (c - c_min) * t:(c - c_min + 1) * t] = True
+    center = world_to_cell_global(torch.as_tensor(pose[:2], device=device),
+                                  tcfg).cpu().tolist()
+    orc = (center[0] - win // 2, center[1] - win // 2)
+    r0, c0 = orc[0] - r_min * t, orc[1] - c_min * t
+    if not (0 <= r0 and 0 <= c0 and r0 + win <= dense.shape[0]
+            and c0 + win <= dense.shape[1]):
+        raise AssertionError(f"tiled region check: window {orc} outside the "
+                             f"stitched pool {dense.shape}")
+    got = gather_region(state.grid, tcfg, orc, win, table).cpu().numpy()
+    ref = dense[r0:r0 + win, c0:c0 + win]
+    gather_ok = np.array_equal(got, ref)
+    w = np.random.default_rng(SEED).normal(0.0, 3.0, (win, win)).astype(
+        np.float32)
+    grid = TiledGrid(state.grid.tiles.clone(), state.grid.coords)
+    scatter_region(grid, tcfg, torch.as_tensor(w, device=device), orc, table)
+    after, _ = stitch_tiles(grid, tcfg)
+    expect = dense.copy()
+    sl = (slice(r0, r0 + win), slice(c0, c0 + win))
+    piece = expect[sl]
+    expect[sl] = np.where(active[sl], piece + (w - piece), piece)
+    scatter_ok = np.array_equal(after, expect)
+    print(f"tiled region round trip, {win}^2 at {orc}: gather bit-exact "
+          f"{gather_ok}, scatter bit-exact {scatter_ok}")
+    if not (gather_ok and scatter_ok):
+        raise AssertionError("gather_region / scatter_region disagree with "
+                             "the stitched numpy reference")
+    return dict(window=[win, win], origin_rc=list(orc), gather_bit_exact=True,
+                scatter_bit_exact=True)
+
+
+def run_tiled(cfg, tcfg, log, device):
+    """Phase 13: the tiled frontend (run_tiled_frontend) over a lap of the
+    corridor world through the kernels; the first scans again through the
+    plain versions; one region round trip against numpy."""
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    run_tiled_frontend(warm, cfg, tcfg, device)
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+    for name in ("host_syncs", "matches", "updates"):
+        setattr(tiled_frontend_step, name, 0)
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    state, traj, scores = run_tiled_frontend(log, cfg, tcfg, device)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    T = len(traj)
+    n_chunks = -(-T // cfg.chunk)
+    scans_run = n_chunks * cfg.chunk
+    counts = dict(host_syncs=tiled_frontend_step.host_syncs,
+                  matches=tiled_frontend_step.matches,
+                  updates=tiled_frontend_step.updates)
+    if not np.isfinite(traj).all():
+        raise AssertionError("tiled frontend: trajectory is not finite")
+    ate = ate_rmse(traj, log["gt_poses"], align=False)
+    ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
+    coords = state.grid.coords[:-1].cpu().numpy()
+    n_active = int((coords[:, 0] > FREE_SLOT).sum())
+    elapsed = start.elapsed_time(end) / 1e3
+    result = dict(
+        scans=T, scans_run=scans_run, scans_per_sec=T / elapsed,
+        seconds_cuda_events=elapsed, seconds_host=wall, ate_m=ate,
+        ate_odom_m=ate_odom, active_tiles=n_active,
+        window=tiled_window_cells(tcfg, cfg.sensor, cfg.matcher),
+        host_reads_per_scan=counts["host_syncs"] / T, launches=launches,
+        peak_memory_bytes=peak, **counts,
+    )
+    print("tiled frontend:", json.dumps(result))
+    if not ate < ate_odom:
+        raise AssertionError(f"tiled frontend: ATE {ate} not below "
+                             f"odometry's {ate_odom}")
+    if not 4 <= n_active <= tcfg.n_slots:
+        raise AssertionError(f"tiled frontend: {n_active} active tiles")
+    expect = {"update_hybrid": counts["updates"],
+              "search_space": counts["updates"],
+              "score_offsets": 2 * counts["matches"]}
+    if launches != expect or min(launches.values()) <= 0:
+        raise AssertionError(f"tiled frontend: launches {launches}, "
+                             f"expected {expect}")
+    if counts["host_syncs"] != 2 * scans_run + n_chunks:
+        raise AssertionError(f"tiled frontend: {counts['host_syncs']} host "
+                             f"reads, expected two a scan and one a chunk")
+
+    part = {k: np.asarray(v)[:PARITY_SCANS] for k, v in log.items()}
+    _, traj_plain, _ = run_tiled_frontend(part, cfg, tcfg, device, plain=True)
+    dxy, dth = _pose_errors(traj[:PARITY_SCANS], traj_plain)
+    print(f"plain-version tiled frontend, {PARITY_SCANS} scans: max |dxy| "
+          f"{dxy:.3g} m, max |dtheta| {dth:.3g} rad (tolerance {POSE_TOL_M} / "
+          f"{POSE_TOL_RAD})")
+    if dxy > POSE_TOL_M or dth > POSE_TOL_RAD:
+        raise AssertionError("kernel and plain tiled frontends disagree")
+    table = TileTable.from_coords(tcfg, state.grid.coords)
+    _tiled_region_check(state, tcfg, table, result["window"], traj[-1],
+                        device)
+    return launches
+
+
+def run_global(cfg, loc_log, loc_traj, kidnap, device, logodds):
+    """Phase 14: (a) global_localize on phase 4's final map from
+    GLOBAL_SCANS scans of the localization log (a seeded draw), through the
+    kernels and through the plain versions, each held to the pose phase 12
+    tracked for that scan on the same map (`loc_traj`: the map carries
+    phase 4's own error, so the ground truth is printed beside it); (b)
+    run_localization with recover=True over a kidnap log in bench.py's
+    world."""
+    g, m, s = cfg.grid, cfg.matcher, cfg.sensor
+    ref, sha = relocalization_reference(logodds)
+    print(f"phase 4's map: sha256 {sha}; the JAX reference "
+          f"({RELOC_REFERENCE}) {'applies' if ref else 'was made on another map'}")
+    picks = global_picks(len(loc_log["odom"]))
+    global_localize(logodds, torch.as_tensor(loc_log["ranges"][0],
+                                             device=device), g, m, s)
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats(device)
+    base_mem = torch.cuda.memory_allocated(device)
+    rows, times = [], []
+    for i in picks:
+        ranges = torch.as_tensor(loc_log["ranges"][i], device=device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        pose, score, margin = global_localize(logodds, ranges, g, m, s,
+                                              return_margin=True)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        pose, score = pose.cpu().numpy(), float(score)
+        dxy, dth = _pose_errors(pose[None], loc_traj[i][None])
+        gxy, gth = _pose_errors(pose[None], loc_log["gt_poses"][i][None])
+        rows.append(dict(scan=int(i), pose=pose.tolist(), score=score,
+                         margin=float(margin), err_m=dxy, err_rad=dth,
+                         gt_err_m=gxy, gt_err_rad=gth))
+    peak = torch.cuda.max_memory_allocated(device) - base_mem
+    a_launches = {k: fn.launches for k, fn in _counters().items()}
+    last = torch.as_tensor(loc_log["ranges"][picks[-1]], device=device)
+    events = _device_events(lambda: global_localize(logodds, last, g, m, s),
+                            GLOBAL_PROFILE_CALLS)
+    device_ms = sum(e.time_range.end - e.time_range.start
+                    for e in events) / GLOBAL_PROFILE_CALLS / 1e3
+    S = correlative.build_search_space(logodds, m, g.resolution)
+    fine = refine_matcher(m, g)
+    for row, i in zip(rows, picks):
+        ranges = torch.as_tensor(loc_log["ranges"][i], device=device)
+        # the refine from the tracked pose: the score a correct answer
+        # reaches, which the global maximum may not fall below
+        _, at_tracked = correlative.match_scan(
+            logodds, ranges, torch.as_tensor(loc_traj[i], device=device), g,
+            fine, s, search_space=S)
+        row["score_at_tracked"] = float(at_tracked)
+        coarse = [global_localize(logodds, ranges, g, m, s, refine=False,
+                                  plain=plain)[0].cpu().numpy()
+                  for plain in (False, True)]
+        cells = [sweep_cell(c, g) for c in coarse]
+        plain_pose = global_localize(logodds, ranges, g, m, s,
+                                     plain=True)[0].cpu().numpy()
+        row["plain_dxy"], row["plain_dth"] = _pose_errors(
+            np.array(row["pose"])[None], plain_pose[None])
+        row["coarse_cell"], row["coarse_cell_plain"] = cells
+    ms = statistics.median(times)
+    jax_rows = {r["scan"]: r for r in ref["global_localize"]} if ref else {}
+    for row in rows:
+        row["within_limits"] = bool(
+            row["err_m"] < GLOBAL_ERR_M and row["err_rad"] < GLOBAL_ERR_RAD
+            and row["score"] > GLOBAL_MIN_SCORE)
+        # an alias: the pose found scores at least as well as the refine
+        # from the tracked pose, so the scan cannot tell the two apart
+        row["alias"] = bool(not row["within_limits"]
+                            and row["score"] >= row["score_at_tracked"])
+        jr = jax_rows.get(row["scan"])
+        if jr is not None:
+            row["jax_coarse_cell"] = jr["coarse_cell"]
+            row["jax_dxy"], row["jax_dth"] = _pose_errors(
+                np.array(row["pose"])[None], np.array(jr["pose"])[None])
+            row["jax_score"] = jr["score"]
+        # the reference's own miss: on this map JAX's sweep peaks at the
+        # same cell and heading, and its refine ends within 1e-3 m and rad
+        row["reference_miss"] = bool(
+            not row["within_limits"] and not row["alias"] and jr is not None
+            and list(row["coarse_cell"]) == jr["coarse_cell"]
+            and max(row["jax_dxy"], row["jax_dth"]) <= 1e-3)
+    result = dict(scans=rows, ms_per_call_median=ms, ms_per_call=times,
+                  device_ms_per_call=device_ms,
+                  device_kernels_per_call=len(events) / GLOBAL_PROFILE_CALLS,
+                  peak_memory_bytes_above_map=peak, launches=a_launches,
+                  map_sha256=sha, reference_applies=ref is not None,
+                  within_limits=sum(r["within_limits"] for r in rows),
+                  aliases=sum(r["alias"] for r in rows),
+                  reference_misses=sum(r["reference_miss"] for r in rows),
+                  coarse_cells_as_jax=sum(
+                      list(r["coarse_cell"]) == r.get("jax_coarse_cell")
+                      for r in rows))
+    print("global_localize:", json.dumps(result))
+    for row in rows:
+        # a miss must be an alias or one that the reference makes too; a
+        # miss that scores lower than the tracked pose and that JAX does
+        # not share is a search failure
+        if not (row["within_limits"] or row["alias"]
+                or row["reference_miss"]):
+            raise AssertionError(f"global_localize missed scan {row['scan']}: "
+                                 f"{row}")
+        if row["coarse_cell"] != row["coarse_cell_plain"]:
+            raise AssertionError(f"global_localize: kernel and plain sweeps "
+                                 f"peak apart at scan {row['scan']}")
+        if row["plain_dxy"] > 1e-3 or row["plain_dth"] > 1e-3:
+            raise AssertionError(f"global_localize: kernel and plain refines "
+                                 f"disagree at scan {row['scan']}")
+    # one search-space build (no search space given) and one scorer pass
+    # (the refine's window fits one fine pass) a call
+    if a_launches != {"update_hybrid": 0, "search_space": GLOBAL_SCANS,
+                      "score_offsets": GLOBAL_SCANS}:
+        raise AssertionError(f"global_localize: launches {a_launches}")
+
+    # (b) the entry point: localization with relocalization on a kidnap
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in kidnap.items()}
+    run_localization(warm, cfg, logodds, device, recover=True)
+    torch.cuda.synchronize()
+    for fn in _counters().values():
+        fn.launches = 0
+    for name in ("host_syncs", "matches", "updates"):
+        setattr(frontend_step, name, 0)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    _, traj, scores, events = run_localization(kidnap, cfg, logodds, device,
+                                               recover=True)
+    end.record()
+    end.synchronize()
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    counts = dict(host_syncs=frontend_step.host_syncs,
+                  matches=frontend_step.matches, updates=frontend_step.updates)
+    T = len(traj)
+    K = cfg.chunk
+    n_chunks = -(-T // K)
+    attempts = 0
+    for c in range(n_chunks):
+        sc = scores[c * K:(c + 1) * K]
+        mt = sc[sc != -1.0]
+        attempts += int(len(mt) >= 3 and float(np.median(mt)) < 0.25)
+    elapsed = start.elapsed_time(end) / 1e3
+    gt = kidnap["gt_poses"]
+    k0 = events[-1]["scan"] + 1 if events else T
+    tail = float(np.median(np.hypot(*(traj[k0:, :2] - gt[k0:, :2]).T))) \
+        if k0 < T else float("nan")
+    ate = ate_rmse(traj, gt, align=False)
+    result = dict(
+        scans=T, scans_run=n_chunks * K, scans_per_sec=T / elapsed,
+        seconds_cuda_events=elapsed, events=events, relocalizations=attempts,
+        median_err_after_last_event_m=tail, ate_m=ate, launches=launches,
+        **counts,
+    )
+    if ref:
+        # the JAX package's run on this map (tests/test_torch_global_loc.py's
+        # tolerances): the same event scans and skipped scans, event poses
+        # within 1e-3 m and rad, scores within 1e-4, ATE within 5 mm
+        jrec = ref["recovery"]
+        skipped = np.flatnonzero(scores == -1.0).tolist()
+        result.update(
+            jax_events=jrec["events"], jax_ate_m=jrec["ate_m"],
+            skipped_as_jax=skipped == jrec["skipped"],
+            event_pose_diffs=[_pose_errors(np.array(a["pose"])[None],
+                                           np.array(b["pose"])[None])
+                              for a, b in zip(events, jrec["events"])])
+    print("relocalization:", json.dumps(result))
+    if not events or not tail < RECOVER_TAIL_M:
+        raise AssertionError(f"relocalization: events {events}, median error "
+                             f"after the last {tail} m")
+    if ref:
+        jev = ref["recovery"]["events"]
+        if ([e["scan"] for e in events] != [e["scan"] for e in jev]
+                or not result["skipped_as_jax"]
+                or any(max(d) > 1e-3 for d in result["event_pose_diffs"])
+                or any(abs(a["score"] - b["score"]) > 1e-4
+                       for a, b in zip(events, jev))
+                or abs(ate - ref["recovery"]["ate_m"]) > 5e-3):
+            raise AssertionError(f"relocalization disagrees with the JAX "
+                                 f"package's on this map: {result}")
+    expect = {"update_hybrid": 0, "search_space": 1,
+              "score_offsets": 2 * counts["matches"] + attempts}
+    if launches != expect:
+        raise AssertionError(f"relocalization: launches {launches}, "
+                             f"expected {expect}")
+    if counts["host_syncs"] != n_chunks * K + n_chunks + attempts:
+        raise AssertionError(f"relocalization: {counts['host_syncs']} host "
+                             "reads, expected one a scan, one a chunk and "
+                             "one a relocalization")
+    return {"search_space": launches["search_space"],
             "score_offsets": launches["score_offsets"]}
+
+
+def global_picks(n_scans):
+    """Phase 14's GLOBAL_SCANS scans of a log of `n_scans`, a seeded draw
+    (scripts/relocalization_reference.py draws the same)."""
+    return np.sort(np.random.default_rng(SEED).choice(
+        n_scans, GLOBAL_SCANS, replace=False))
+
+
+def map_sha256(logodds) -> str:
+    """sha256 of a map's float32 cells in C order."""
+    a = logodds.detach().float().contiguous().cpu().numpy() if isinstance(
+        logodds, torch.Tensor) else np.asarray(logodds, np.float32)
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def relocalization_reference(logodds):
+    """(the JAX package's relocalization results on this map, or None when
+    they were made on another map; the map's sha256)."""
+    sha = map_sha256(logodds)
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        RELOC_REFERENCE)
+    with open(path) as f:
+        ref = json.load(f)
+    return (ref if ref["map"]["sha256"] == sha else None), sha
 
 
 def _pose_errors(a, b):
@@ -1900,9 +2327,15 @@ def main(kernels_only: bool = False):
               "fastslam-16")
     hybrid_ate = ate_rmse(traj, log["gt_poses"], align=False)
     by_path["11 ray frontend"] = run_ray(ray_cfg, log, device, hybrid_ate)
-    by_path["12 localization"] = run_localize(
-        cfg, localization_log(cfg.sensor), device, slice_state.logodds,
-        hybrid_ate)
+    loc_log = localization_log(cfg.sensor)
+    by_path["12 localization"], loc_traj = run_localize(
+        cfg, loc_log, device, slice_state.logodds, hybrid_ate)
+    tiled_cfg, tcfg = tiled_bench_config()
+    by_path["13 tiled frontend"] = run_tiled(
+        tiled_cfg, tcfg, tiled_bench_log(tiled_cfg.sensor), device)
+    by_path["14 relocalization"] = run_global(
+        cfg, loc_log, loc_traj, kidnap_log(cfg.sensor), device,
+        slice_state.logodds)
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",

@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time goes in the PyTorch port on one GPU.
 
-    python3 scripts/profile_torch.py frontend|ray [--warm 256] [--scans 256]
+    python3 scripts/profile_torch.py frontend|ray|localize|tiled
+        [--warm 256] [--scans 256]
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
         [--warm 128] [--scans 192] [--seeds N]
     (all: [--out profile_out])
 
 Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend;
-ray: with update_impl="pallas_ray") or at bench_pf.py's default config and
-log with 100, 1000 or 16 particles (fastslam, fastslam1000, fastslam16;
-bf16 512^2 maps): a warmup over the first `--warm` scans, then a torch.profiler
+ray: with update_impl="pallas_ray"; localize: localization on the final
+map of a frontend run over bench.py's log, along its localization log;
+tiled: the tiled frontend at the CLI's tile defaults over a lap of the
+corridor world, its host loop included) or at bench_pf.py's default
+config and log with 100, 1000 or 16 particles (fastslam, fastslam1000,
+fastslam16; bf16 512^2 maps): a warmup over the first `--warm` scans, then
+a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. Prints the
 kernels by device time, then one JSON line: the device busy share of the
 traced wall time, per-scan host time, the step's counters, the largest
@@ -44,10 +49,17 @@ from slam2d_tpu_torch.run.fastslam_run import run_fastslam  # noqa: E402
 from slam2d_tpu_torch.run.frontend import (  # noqa: E402
     frontend_init,
     frontend_step,
+    localization_init,
+    run_frontend,
+)
+from slam2d_tpu_torch.run.frontend_tiled import (  # noqa: E402
+    run_tiled_frontend,
+    tiled_frontend_step,
 )
 
 DEFAULTS = {  # warm, scans
-    "frontend": (256, 256), "ray": (256, 256), "fastslam": (128, 192),
+    "frontend": (256, 256), "ray": (256, 256), "localize": (256, 256),
+    "tiled": (256, 256), "fastslam": (128, 192),
     "fastslam1000": (128, 192), "fastslam16": (128, 192),
 }
 PF_CONFIGS = {
@@ -90,6 +102,41 @@ def frontend_steps(dev, cfg):
             state, _ = frontend_step(state, odom[k], ranges[k], cfg)
 
     return steps, frontend_step, ("host_syncs", "matches", "updates")
+
+
+def localize_steps(dev, cfg):
+    """(steps, counters) of localization on the final map of a frontend run
+    over bench.py's log (built before the trace), along its localization
+    log, as run_localization runs it."""
+    log = bench_configs.bench_log(cfg.sensor)
+    mapped, _, _ = run_frontend(log, cfg, dev)
+    loc = bench_configs.localization_log(cfg.sensor)
+    cfg, state = localization_init(cfg, mapped.logodds, loc["odom"][0], dev)
+    odom = torch.as_tensor(loc["odom"], device=dev)
+    ranges = torch.as_tensor(loc["ranges"], device=dev)
+
+    def steps(lo, hi):
+        nonlocal state
+        for k in range(lo, hi):
+            state, _ = frontend_step(state, odom[k], ranges[k], cfg)
+
+    return steps, frontend_step, ("host_syncs", "matches", "updates")
+
+
+def tiled_steps(dev):
+    """(steps, counters) of the tiled frontend: run_tiled_frontend over
+    scans lo..hi-1 (whole chunks) with the state carried, so its host loop
+    (forecast, activation, one pose read a chunk) is in the trace."""
+    cfg, tcfg = bench_configs.tiled_bench_config()
+    log = bench_configs.tiled_bench_log(cfg.sensor)
+    state = None
+
+    def steps(lo, hi):
+        nonlocal state
+        part = {k: np.asarray(v)[lo:hi] for k, v in log.items()}
+        state, _, _ = run_tiled_frontend(part, cfg, tcfg, dev, state=state)
+
+    return steps, tiled_frontend_step, ("host_syncs", "matches", "updates")
 
 
 def fastslam_steps(dev, cfg, pf, seeds):
@@ -162,6 +209,10 @@ def main():
         steps, step, counters = frontend_steps(
             dev, bench_configs.ray_bench_config()
         )
+    elif args.pipeline == "localize":
+        steps, step, counters = localize_steps(dev, bench_configs.bench_config())
+    elif args.pipeline == "tiled":
+        steps, step, counters = tiled_steps(dev)
     else:
         cfg, pf = PF_CONFIGS[args.pipeline]()
         steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds)

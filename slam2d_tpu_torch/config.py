@@ -173,7 +173,7 @@ class FrontendConfig:
     # Bootstrap: trust odometry (no matching) until this much travel, while
     # integrating every scan.
     bootstrap_dist: float = 3.0
-    # Localization-only mode (not ported).
+    # Localization-only mode: a fixed map, no bootstrap, no map update.
     localize_only: bool = False
     # Motion filter of the map update.
     map_update_min_motion: float = 0.30

@@ -1,10 +1,11 @@
 """Synthetic 2D world and log simulator, numpy only.
 
 A copy of the JAX package's slam2d_tpu/data/synth.py (SynthWorld,
-_waypoint_trajectory, simulate_log): a known line-segment world is
-raycast along a known trajectory to give CARMEN-style records, namely
-ground-truth poses, drifting noisy odometry and noisy range scans. The
-same seed gives the same arrays in both packages.
+_waypoint_trajectory, simulate_log, corridor_world, corridor_loop_log,
+splice_odom): a known line-segment world is raycast along a known
+trajectory to give CARMEN-style records, namely ground-truth poses,
+drifting noisy odometry and noisy range scans. The same seed gives the
+same arrays in both packages.
 """
 
 from __future__ import annotations
@@ -134,3 +135,69 @@ def simulate_log(
 
 def _wrap(a):
     return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def corridor_world(span: float = 60.0, width: float = 3.0) -> SynthWorld:
+    """MIT-Killian-style world: a large rectangular loop of corridors with
+    cross-connections and door alcoves (structure along every wall so the
+    matcher has features in both axes)."""
+    s, w = span, width
+    segs = []
+
+    def box(x0, y0, x1, y1):
+        segs.extend(
+            [(x0, y0, x1, y0), (x1, y0, x1, y1), (x1, y1, x0, y1), (x0, y1, x0, y0)]
+        )
+
+    # outer boundary and inner block => a ring corridor of width w
+    box(0, 0, s, s)
+    box(w, w, s - w, s - w)
+    # alcoves / doorframes along the inner block (feature texture)
+    for t in np.arange(2 * w, s - 2 * w, 6.0):
+        segs.append((t, w, t, w + 0.4))
+        segs.append((w, t, w + 0.4, t))
+        segs.append((t + 3.0, s - w, t + 3.0, s - w - 0.4))
+        segs.append((s - w, t + 3.0, s - w - 0.4, t + 3.0))
+    # a few pillars in the outer boundary walls
+    for t in np.arange(4.0, s - 4.0, 8.0):
+        segs.append((t, 0.0, t, 0.3))
+        segs.append((0.0, t, 0.3, t))
+        segs.append((t, s, t, s - 0.3))
+        segs.append((s, t, s - 0.3, t))
+    return SynthWorld(np.asarray(segs, dtype=np.float64))
+
+
+def corridor_loop_log(
+    sensor: SensorConfig | None = None,
+    span: float = 60.0,
+    step: float = 0.2,
+    seed: int = 0,
+    **noise,
+):
+    """A full lap around the ring corridor (closes a big loop at the end).
+    Returns (world, log)."""
+    sensor = sensor or SensorConfig()
+    world = corridor_world(span)
+    m = 1.5  # corridor centerline offset
+    wp = np.asarray(
+        [
+            [m, m], [m, span - m], [span - m, span - m],
+            [span - m, m], [m + 0.5, m],
+        ]
+    )
+    return world, simulate_log(world, wp, sensor, step=step, seed=seed, **noise)
+
+
+def splice_odom(a_odom: np.ndarray, b_odom: np.ndarray) -> np.ndarray:
+    """Continue b's odometry RIGIDLY from a's last pose — the
+    kidnapped-robot simulation splice: ground truth teleports between the
+    two traversals while the odometry frame lies smoothly onward. A
+    constant offset would NOT do this (adding a theta offset without
+    rotating the displacements corrupts b's own motion deltas)."""
+    from slam2d_tpu_torch.run.frontend_tiled import _np_between, _np_compose
+
+    anchor = np.asarray(a_odom[-1], np.float32)
+    b0 = np.asarray(b_odom[0], np.float32)
+    return np.stack(
+        [_np_compose(anchor, _np_between(b0, bk)) for bk in b_odom]
+    ).astype(np.float32)

@@ -63,10 +63,12 @@ def beam_angles(sensor: SensorConfig, device):
     )
 
 
-def window_origin_xy(cfg: GridConfig, origin_rc):
+def window_origin_xy(cfg, origin_rc):
     """Float32 world origin (x, y) of a window whose top-left cell is the
-    integer `origin_rc` on the config grid's lattice, rounded exactly as
-    the JAX package computes it (ox + float32(c0) * res, in float32)."""
+    integer `origin_rc` on the lattice of `cfg` (a GridConfig, or a
+    grid/tiles TileConfig: anything with origin_x, origin_y and
+    resolution), rounded exactly as the JAX package computes it (ox +
+    float32(c0) * res, in float32)."""
     r0, c0 = origin_rc
     res = np.float32(cfg.resolution)
     return (

@@ -1,9 +1,10 @@
 """The configurations and synthetic logs of the JAX package's bench.py
 (the frontend) and bench_pf.py (FastSLAM at its defaults, with 100, 1000
-or 16 particles) and a localization log in bench.py's world, for the
-scripts that drive the port on a GPU (chip_smoke.py,
-scripts/profile_torch.py), and the card's name and power limit as
-nvidia-smi reports them.
+or 16 particles), a localization log and a kidnap log in bench.py's
+world, and the tiled frontend at the CLI's tile defaults on a lap of the
+corridor world, for the scripts that drive the port on a GPU
+(chip_smoke.py, scripts/profile_torch.py), and the card's name and power
+limit as nvidia-smi reports them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,13 @@ from slam2d_tpu_torch.config import (
     PFConfig,
     SensorConfig,
 )
-from slam2d_tpu_torch.data.synth import SynthWorld, simulate_log
+from slam2d_tpu_torch.data.synth import (
+    SynthWorld,
+    corridor_loop_log,
+    simulate_log,
+    splice_odom,
+)
+from slam2d_tpu_torch.grid.tiles import TileConfig
 
 LOG_SEED = 0
 _ROUTE = [[3.0, 3.0], [3.0, 8.0], [8.0, 8.0], [12.0, 3.5], [16.0, 3.5],
@@ -111,6 +118,42 @@ def localization_log(sensor):
         SynthWorld.box_rooms(20.0), np.array(_ROUTE[::-1]), sensor,
         step=0.05, odom_noise_xy=0.008, odom_noise_theta=0.004, seed=9,
     )
+
+
+def kidnap_log(sensor):
+    """A kidnapped robot in bench.py's world at its step (0.05 m): two
+    traversals whose odometry is spliced so that it lies smoothly onward
+    while the ground truth teleports, built as tests/test_localize.py
+    builds its kidnap log (`test_recovery_after_kidnap`), at bench.py's
+    step and sensor. The second traversal runs on along bench.py's route
+    ((9, 17), (4, 16)): at 0.05 m steps and 64-scan chunks the test's
+    route gives it 3.6 chunks, too few for the two lost chunks recovery
+    waits for and a tracked stretch after them (609 scans in all)."""
+    world = SynthWorld.box_rooms(20.0)
+    a = simulate_log(world, np.array([[3.0, 3.0], [3.0, 8.0], [7.0, 8.0]]),
+                     sensor, step=0.05, seed=3)
+    b = simulate_log(world, np.array([[16.0, 3.5], [16.5, 8.5], [12.5, 13.5],
+                                      [9.0, 17.0], [4.0, 16.0]]),
+                     sensor, step=0.05, seed=4)
+    return {
+        "odom": np.concatenate([a["odom"], splice_odom(a["odom"], b["odom"])]),
+        "ranges": np.concatenate([a["ranges"], b["ranges"]]),
+        "gt_poses": np.concatenate([a["gt_poses"], b["gt_poses"]]),
+    }
+
+
+def tiled_bench_config():
+    """(cfg, tcfg): the CLI's tiled defaults, TileConfig(tile=512,
+    n_slots=64, resolution=0.05), with bench.py's sensor (180 beams, 12 m),
+    matcher and chunk 64 (cfg.grid lends only its log-odds constants)."""
+    return bench_config(), TileConfig(tile=512, n_slots=64, resolution=0.05)
+
+
+def tiled_bench_log(sensor):
+    """A lap of the 60 m ring corridor (corridor_loop_log, 0.05 m steps,
+    seed 3): ~228 m of travel, 4,551 scans."""
+    _, log = corridor_loop_log(sensor, span=60.0, step=0.05, seed=3)
+    return log
 
 
 def card() -> str:

@@ -75,9 +75,10 @@ def frontend_init(
     )
 
 
-def _read_gate(gate, center_rc=None):
-    """One device-to-host read of a gate (and a window center with it)."""
-    frontend_step.host_syncs += 1
+def read_gate(gate, center_rc=None, owner=None):
+    """One device-to-host read of a gate (and a window center with it),
+    counted in `owner.host_syncs` (frontend_step's by default)."""
+    (frontend_step if owner is None else owner).host_syncs += 1
     if center_rc is None:
         return bool(gate), None
     # one copy to the host: tolist() of a CUDA tensor copies per element
@@ -122,7 +123,7 @@ def frontend_step(
     uwin = update_window_cells(gcfg, cfg.sensor, cfg.matcher)
     uwindowed = uwin < min(gcfg.height, gcfg.width)
 
-    match, center = _read_gate(
+    match, center = read_gate(
         do_match, world_to_cell(prior[:2], gcfg) if windowed else None
     )
     frontend_step.matches += match
@@ -160,7 +161,7 @@ def frontend_step(
     do_update = in_boot | (moved >= cfg.map_update_min_motion) | (
         rotated >= cfg.map_update_min_rot
     )
-    update, center = _read_gate(
+    update, center = read_gate(
         do_update, world_to_cell(pose[:2], gcfg) if uwindowed else None
     )
     logodds, search_space = state.logodds, state.search_space
@@ -201,6 +202,20 @@ def frontend_step(
 frontend_step.host_syncs = 0
 frontend_step.matches = 0
 frontend_step.updates = 0
+
+
+def _run_chunk(state, odom, ranges, cfg, out, plain):
+    """Step the scans of one chunk (host arrays odom [K, 3], ranges [K, B],
+    copied to the device at once), writing each pose and score into the
+    rows of `out` [K, 4]. Returns (state, the chunk's ranges tensor)."""
+    o = torch.as_tensor(odom, device=out.device)
+    r = torch.as_tensor(ranges, device=out.device)
+    for k in range(len(odom)):
+        state, (pose, score) = frontend_step(state, o[k], r[k], cfg,
+                                             plain=plain)
+        out[k, :3] = pose
+        out[k, 3] = score
+    return state, r
 
 
 def _pad_log(odom: np.ndarray, ranges: np.ndarray, K: int):
@@ -247,14 +262,8 @@ def run_frontend(
     # [n_pad, 4]: the pose and the score of each scan
     out = torch.empty((len(odom), 4), dtype=torch.float32, device=device)
     for s in range(0, len(odom), K):
-        o = torch.as_tensor(odom[s : s + K], device=device)
-        r = torch.as_tensor(ranges[s : s + K], device=device)
-        for k in range(K):
-            state, (pose, score) = frontend_step(
-                state, o[k], r[k], cfg, plain=plain
-            )
-            out[s + k, :3] = pose
-            out[s + k, 3] = score
+        state, _ = _run_chunk(state, odom[s : s + K], ranges[s : s + K], cfg,
+                              out[s : s + K], plain)
         if frame_cb is not None:
             frame_cb(state.logodds, out[s : min(s + K, T), :3].cpu().numpy())
     out = out[:T].cpu().numpy()
@@ -283,6 +292,37 @@ def run_frontend_offline(
     return state, traj[:T], scores[:T]
 
 
+def localization_init(cfg: FrontendConfig, logodds, odom0, device="cuda",
+                      start_pose=None, plain: bool = False):
+    """(cfg with localize_only set, state) for tracking on the fixed map
+    `logodds` ([H, W] numpy or a tensor of cfg.grid's geometry, copied to
+    `device`): its search space built once (one kernel 3 launch), the pose
+    `start_pose` (default: the first odometry pose `odom0`)."""
+    cfg = dataclasses.replace(cfg, localize_only=True)
+    if isinstance(logodds, torch.Tensor):
+        grid = logodds.to(device=device, dtype=torch.float32, copy=True)
+    else:
+        grid = torch.tensor(np.asarray(logodds, np.float32), device=device)
+    grid = grid.contiguous()
+    if tuple(grid.shape) != (cfg.grid.height, cfg.grid.width):
+        raise ValueError(
+            f"map of shape {tuple(grid.shape)}, the grid is "
+            f"{(cfg.grid.height, cfg.grid.width)}"
+        )
+    S = build_search_space(grid, cfg.matcher, cfg.grid.resolution, plain=plain)
+    pose = torch.tensor(
+        np.asarray(odom0 if start_pose is None else start_pose, np.float32),
+        device=device,
+    )
+    # built directly: frontend_init would blur an empty grid for nothing
+    return cfg, FrontendState(
+        grid, S, pose, torch.tensor(np.asarray(odom0, np.float32),
+                                    device=device),
+        torch.zeros((), dtype=torch.float32, device=device), pose.clone(),
+        torch.zeros(2, dtype=torch.float32, device=device),
+    )
+
+
 def run_localization(
     log: dict, cfg: FrontendConfig, logodds, device="cuda", start_pose=None,
     recover: bool = False, recover_score: float = 0.25,
@@ -299,43 +339,86 @@ def run_localization(
     odometry pose. `plain=True` runs every kernel's plain version (checks
     only).
 
-    Relocalization (`recover=True`, with its `recover_*` settings, as in
-    the JAX package) needs match/global_loc, which is not ported yet, and
-    raises NotImplementedError.
+    With recover=True, a chunk whose matched scores collapse (at least 3
+    matched scans, median below `recover_score`; skipped scans score
+    exactly -1.0) triggers whole-map FFT relocalization
+    (match/global_loc.py) on the chunk's last scan. A candidate commits
+    when it scores >= recover_accept, clears the peak-uniqueness margin
+    `recover_margin` (0 disables) and, with recover_consistent, agrees
+    within 1 m / 0.5 rad with the previous lost chunk's candidate
+    transported by the odometry between them; a healthy chunk expires the
+    pending candidate. Recovery reads the chunk's scores once a chunk
+    (one more host read), and a relocalization's pose, score and margin
+    once more.
 
-    Returns (final_state, traj [T, 3], scores [T], events): events is []
-    (the accepted recoveries)."""
-    if recover:
-        raise NotImplementedError(
-            "run_localization(recover=True): relocalization needs "
-            "match/global_loc, which is not ported yet"
-        )
-    cfg = dataclasses.replace(cfg, localize_only=True)
+    Returns (final_state, traj [T, 3], scores [T], events): events lists
+    the accepted recoveries as {"scan", "score", "margin", "pose"} dicts,
+    rounded to 4 digits as the JAX package rounds them ([] without
+    recover)."""
     odom = np.asarray(log["odom"], np.float32)
-    if isinstance(logodds, torch.Tensor):
-        grid = logodds.to(device=device, dtype=torch.float32, copy=True)
-    else:
-        grid = torch.tensor(np.asarray(logodds, np.float32), device=device)
-    grid = grid.contiguous()
-    if tuple(grid.shape) != (cfg.grid.height, cfg.grid.width):
-        raise ValueError(
-            f"map of shape {tuple(grid.shape)}, the grid is "
-            f"{(cfg.grid.height, cfg.grid.width)}"
+    cfg, state = localization_init(cfg, logodds, odom[0], device,
+                                   start_pose=start_pose, plain=plain)
+    if not recover:
+        state, traj, scores = run_frontend(log, cfg, device, state=state,
+                                           plain=plain)
+        return state, traj, scores, []
+
+    from slam2d_tpu_torch.match.global_loc import global_localize
+    from slam2d_tpu_torch.run.frontend_tiled import _np_between, _np_compose
+
+    ranges = np.asarray(log["ranges"], np.float32)
+    T = len(odom)
+    K = cfg.chunk
+    odom_p, ranges_p = _pad_log(odom, ranges, K)
+    out = torch.empty((len(odom_p), 4), dtype=torch.float32, device=device)
+    events: list = []
+    cand = None          # (pose_np, scan_index) from the previous trigger
+    for s in range(0, len(odom_p), K):
+        state, r = _run_chunk(state, odom_p[s : s + K], ranges_p[s : s + K],
+                              cfg, out[s : s + K], plain)
+        n_here = min(K, T - s)
+        frontend_step.host_syncs += 1
+        sc_h = out[s : s + n_here, 3].cpu().numpy()
+        # skipped (no-motion) scans return EXACTLY -1.0; matched scans can
+        # score negative too, and those are the collapsed matches to detect
+        matched = sc_h[sc_h != -1.0]
+        if not (len(matched) >= 3
+                and float(np.median(matched)) < recover_score):
+            # healthy chunk: consistency only ever compares CONSECUTIVE
+            # lost chunks
+            cand = None
+            continue
+        last = s + n_here - 1
+        pose0, s0, m0 = global_localize(
+            state.logodds, r[n_here - 1], cfg.grid, cfg.matcher, cfg.sensor,
+            search_space=state.search_space, return_margin=True, plain=plain,
         )
-    S = build_search_space(grid, cfg.matcher, cfg.grid.resolution, plain=plain)
-    pose = torch.tensor(
-        np.asarray(odom[0] if start_pose is None else start_pose, np.float32),
-        device=device,
-    )
-    # built directly: frontend_init would blur an empty grid for nothing
-    state = FrontendState(
-        grid, S, pose, torch.tensor(odom[0], device=device),
-        torch.zeros((), dtype=torch.float32, device=device), pose.clone(),
-        torch.zeros(2, dtype=torch.float32, device=device),
-    )
-    state, traj, scores = run_frontend(log, cfg, device, state=state,
-                                       plain=plain)
-    return state, traj, scores, []
+        frontend_step.host_syncs += 1
+        got = torch.cat([pose0, s0.reshape(1), m0.reshape(1)]).cpu().numpy()
+        pose0, s0, m0 = got[:3], float(got[3]), float(got[4])
+        gated = s0 >= recover_accept and m0 >= recover_margin
+        agreed = not recover_consistent
+        if gated and recover_consistent and cand is not None:
+            # transport the previous candidate by the odometry between the
+            # two trigger scans and compare
+            dprev = _np_between(odom[cand[1]], odom[last])
+            expect = _np_compose(cand[0], dprev)
+            dd = _np_between(expect, pose0)
+            agreed = (
+                float(np.hypot(dd[0], dd[1])) <= 1.0
+                and abs(float(dd[2])) <= 0.5
+            )
+        if gated and agreed:
+            state = state._replace(pose=torch.as_tensor(pose0, device=device))
+            events.append({
+                "scan": last, "score": round(s0, 4), "margin": round(m0, 4),
+                "pose": [round(float(v), 4) for v in pose0],
+            })
+            cand = None
+        else:
+            cand = (pose0, last) if gated else None
+    out = out[:T].cpu().numpy()
+    return state, out[:, :3].copy(), out[:, 3].copy(), events
 
 
 def state_from_numpy(arrays, device) -> FrontendState:

@@ -107,11 +107,9 @@ def test_port_runs_without_jax():
     assert out.stdout.strip().splitlines()[-1] == "False False"
 
 
-def test_localization_mode_is_not_ported():
-    """Of localization mode only relocalization (run_localization with
-    recover=True, which needs match/global_loc) is not ported, and raises.
-    A localize_only step runs: no bootstrap (it matches from the first
-    metre on), and the map, its search space and last_map_pose come back
+def test_localize_only_step_leaves_the_map():
+    """A localize_only step: no bootstrap (it matches from the first metre
+    on), and the map, its search space and last_map_pose come back
     untouched."""
     cfg = to_port(dataclasses.replace(frontend_cfg(256), localize_only=True))
     state = tfe.frontend_init(cfg, CPU)
@@ -125,7 +123,3 @@ def test_localization_mode_is_not_ported():
     for i in (0, 1, 5):   # logodds, search_space, last_map_pose
         assert torch.equal(new[i], kept[i])
     assert torch.equal(new.prev_odom, odom) and bool(torch.isfinite(pose).all())
-    log = {"odom": np.zeros((4, 3), np.float32),
-           "ranges": np.full((4, 180), 2.0, np.float32)}
-    with pytest.raises(NotImplementedError):
-        tfe.run_localization(log, cfg, kept[0].numpy(), CPU, recover=True)

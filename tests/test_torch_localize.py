@@ -81,13 +81,6 @@ def test_localization_state_is_not_the_callers_map():
     assert ts.search_space.shape == given.shape
 
 
-def test_localization_recovery_raises():
-    prebuilt, log = _map_and_log()
-    with pytest.raises(NotImplementedError, match="global_loc"):
-        tfe.run_localization(log, to_port(jloc.CFG), prebuilt, CPU,
-                             recover=True)
-
-
 def test_localization_rejects_a_map_of_another_shape():
     prebuilt, log = _map_and_log()
     with pytest.raises(ValueError):

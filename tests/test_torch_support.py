@@ -1,7 +1,7 @@
 """PyTorch port: its own copies of the JAX package's JAX-free modules
-(slam2d_tpu_torch/config.py, data/synth.py, metrics.py) against the
-originals, and a scan of its sources for imports of the JAX package.
-Everything here is exact."""
+(slam2d_tpu_torch/config.py, data/synth.py, metrics.py, the numpy SE(2)
+helpers of run/frontend_tiled.py) against the originals, and a scan of
+its sources for imports of the JAX package. Everything here is exact."""
 
 import ast
 import dataclasses
@@ -63,6 +63,46 @@ def test_simulate_log_matches_jax(seed):
         tsynth.SynthWorld.box_rooms(16.0).segments,
         jsynth.SynthWorld.box_rooms(16.0).segments,
     )
+
+
+@pytest.mark.parametrize("span, step, seed", [(60.0, 0.2, 0), (28.0, 0.5, 3)])
+def test_corridor_world_and_loop_log_match_jax(span, step, seed):
+    np.testing.assert_array_equal(tsynth.corridor_world(span).segments,
+                                  jsynth.corridor_world(span).segments)
+    sensor = jcfg.SensorConfig(n_beams=90, max_range=10.0)
+    jw, ref = jsynth.corridor_loop_log(sensor, span=span, step=step,
+                                       seed=seed, odom_noise_xy=0.01)
+    tw, out = tsynth.corridor_loop_log(to_port(sensor), span=span, step=step,
+                                       seed=seed, odom_noise_xy=0.01)
+    np.testing.assert_array_equal(tw.segments, jw.segments)
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype == np.float32
+        np.testing.assert_array_equal(out[k], ref[k])
+
+
+def test_splice_odom_and_se2_helpers_match_jax():
+    from slam2d_tpu.run import frontend_tiled as jft
+    from slam2d_tpu_torch.run import frontend_tiled as tft
+
+    sensor = jcfg.SensorConfig(n_beams=30, max_range=10.0)
+    world = jsynth.SynthWorld.box_rooms(20.0)
+    a = jsynth.simulate_log(world, np.array([[3.0, 3.0], [3.0, 8.0]]),
+                            sensor, step=0.3, seed=3)
+    b = jsynth.simulate_log(world, np.array([[16.0, 3.5], [12.5, 13.5]]),
+                            sensor, step=0.3, seed=4)
+    ref = jsynth.splice_odom(a["odom"], b["odom"])
+    out = tsynth.splice_odom(a["odom"], b["odom"])
+    assert out.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(out, ref)
+    p, q = a["odom"][3], b["odom"][5]
+    for name in ("_np_between", "_np_compose"):
+        np.testing.assert_array_equal(getattr(tft, name)(p, q),
+                                      getattr(jft, name)(p, q))
+    for name in ("_np_between_batch", "_np_compose_batch"):
+        np.testing.assert_array_equal(getattr(tft, name)(p, b["odom"]),
+                                      getattr(jft, name)(p, b["odom"]))
+    np.testing.assert_array_equal(tft._np_inverse(q), jft._np_inverse(q))
 
 
 def test_ate_matches_jax():

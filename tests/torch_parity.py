@@ -39,6 +39,21 @@ def to_port(cfg):
     })
 
 
+def to_jax(cfg):
+    """The JAX package's config dataclass of the same name as the port's
+    config `cfg`: `to_port` the other way."""
+    import slam2d_tpu.config as jax_config
+
+    cls = getattr(jax_config, type(cfg).__name__)
+    return cls(**{
+        f.name: (
+            to_jax(v) if dataclasses.is_dataclass(v) else v
+        )
+        for f in dataclasses.fields(cfg)
+        for v in (getattr(cfg, f.name),)
+    })
+
+
 def frontend_cfg(size: int = 256, chunk: int = 16,
                  update_impl: str = "pallas_hybrid") -> FrontendConfig:
     """tests/test_frontend_e2e.py's config with the hybrid map update, the
