@@ -33,7 +33,11 @@ Phases, each of which raises on failure:
    forms; hybrid_edge_operands: windows clamped into each corner of the
    map, every kind of range, stacked and on-edge endpoints); the hybrid
    update and the search-space build also at the tiled frontend's 544^2
-   window. Timed three
+   window, and at full SLAM's shapes (fullslam_kernel_checks): the
+   hybrid update on a whole 1152^2 loop-attempt submap and on the 496^2
+   rebuild window, the search-space build on the submap, the scorer's
+   loop-matcher passes [41, 9, 9] over the 144^2 pooled submap and
+   [5, 17, 17] over the submap. Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
    events (median of 30; the host's enqueue time sits inside);
    `device_ms`, `library_device_ms`, 50 calls back to back between two
@@ -114,7 +118,22 @@ Phases, each of which raises on failure:
    within 1e-4 and ATE within 5 mm; one
    search-space build, two scorer launches a match and one a
    relocalization, one host read a scan, one a chunk and one a
-   relocalization; scans/s.
+   relocalization; scans/s;
+15. full SLAM (run_full_slam) at the CLI's `--mode full` defaults
+   (bench.py's frontend config; 512 keyframe slots, keyframes every 1 m,
+   loop radius 3 m, accept score 0.35) over two laps of bench.py's world
+   (715 scans): finite trajectory, at least one accepted loop, keyframe
+   ATE below odometry's at the same scans and at most the JAX package's
+   + 0.1 m (scripts/fullslam_reference.json, made by
+   scripts/fullslam_reference.py; keyframes and loop decisions compared
+   and printed), every launch accounted for (kernel 1 `hybrid`: the
+   frontend's updates and the scans of the submaps and of the rebuilds;
+   kernel 3: the frontend's updates + 1, a submap and a correction each;
+   kernel 2: a match's passes and three an attempt); scans/s, keyframes,
+   attempts, loops, chi2, ATEs, host reads a scan, peak memory; the first
+   512 scans again through the kernels and through the plain versions:
+   the same keyframes and (i, j, accepted) decisions, poses within 5e-3
+   m / rad.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -135,6 +154,7 @@ import torch
 import torch.nn.functional as F
 
 from slam2d_tpu_torch.config import GridConfig, MatcherConfig, SensorConfig
+from slam2d_tpu_torch.graph import se2_graph
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.tiles import (
     FREE_SLOT,
@@ -181,6 +201,8 @@ from slam2d_tpu_torch.run.bench_configs import (
     bench_config,
     bench_log,
     card,
+    fullslam_bench_config,
+    fullslam_bench_log,
     kidnap_log,
     localization_log,
     pf1000_bench_config,
@@ -198,9 +220,16 @@ from slam2d_tpu_torch.run.frontend import (
     run_localization,
 )
 from slam2d_tpu_torch.run.frontend_tiled import (
+    _np_between,
     run_tiled_frontend,
     tiled_frontend_step,
     tiled_window_cells,
+)
+from slam2d_tpu_torch.run.full_slam import (
+    default_loop_matcher,
+    default_submap_grid,
+    fetch,
+    run_full_slam,
 )
 
 SEED = 0
@@ -230,6 +259,13 @@ PF_LOGW_TOL = 3e-3        # phase 7: 30 x score 5e-5 on two particles
 MAP_CELL_SHARE = 0.0005   # cells an update may flip (one l_free / l_occ)
 BF16_STEP_ATOL = 0.07     # a flipped bf16 cell: the step +- one bf16 ulp
 PF1000_PARITY_UPDATES = 4  # phase 9
+FULLSLAM_POSE_TOL = 5e-3   # phase 15: kernel run against plain run, m, rad
+FULLSLAM_PARITY_SCANS = 512  # phase 15: the plain run's scans (8 chunks)
+FULLSLAM_REFERENCE = "scripts/fullslam_reference.json"  # phase 15: JAX's
+# run at the same config and log (scripts/fullslam_reference.py)
+FULLSLAM_JAX_ATE_SLACK_M = 0.1  # phase 15: kf ATE at most JAX's + this
+FULLSLAM_COUNTS = ("attempts", "submaps", "submap_scans", "rebuilt_scans",
+                   "corrections")
 CORR_RTOL = 1e-5          # kernel 5: |err| <= this x sum|E| x max|Sp|
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # least time of a call is the larger of bytes / HBM rate and operations /
@@ -2255,6 +2291,298 @@ def run_ray(cfg, log, device, hybrid_ate):
     return {"update_ray": launches["update_ray"]}
 
 
+def fullslam_kernel_checks(cfg, gcfg, log, device):
+    """Phase 3 at full SLAM's shapes, each kernel against its plain version
+    with seeded random maps: kernel 1 `hybrid` on a whole loop-attempt
+    submap (default_submap_grid: 1152^2, a scan at its pose relative to
+    an anchor keyframe) and on the 496^2 rebuild window of the 1024^2 map
+    (update_window_cells without a matcher); kernel 3 on the submap with
+    the loop matcher's blur; kernel 2's loop-matcher passes, coarse
+    [41, 9, 9] rounded over the 144^2 pooled submap and fine [5, 17, 17]
+    bilinear over the submap. Returns {kernel: {shape name: entry}}."""
+    rng = np.random.default_rng(SEED + 15)
+    g, s = cfg.grid, cfg.sensor
+    sub = default_submap_grid(cfg)
+    lm = default_loop_matcher(gcfg)
+    i = len(log["odom"]) // 2
+    gt = np.asarray(log["gt_poses"], np.float32)
+    pose = torch.as_tensor(np.asarray(_np_between(gt[i - 40], gt[i]),
+                                      np.float32), device=device)
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    submap = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (sub.height, sub.width)).astype(np.float32),
+        device=device)
+    full = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (g.height, g.width)).astype(np.float32),
+        device=device)
+    out = {"update_hybrid": {}, "search_space": {}, "score_offsets": {}}
+
+    def hybrid_entry(name, grid, at, gcfg_, origin_rc):
+        def update(plain):
+            return occupancy.integrate_scan(grid, at, ranges, gcfg_, s,
+                                            origin_rc=origin_rc, plain=plain)
+
+        n_diff, err = _hybrid_cells_ok(
+            update(False), update(True), gcfg_,
+            f"update_hybrid {name} [{grid.shape[0]}x{grid.shape[1]}]")
+        same = torch.equal(update(False), update(False))
+        if not same:
+            raise AssertionError(f"update_hybrid {name} is not deterministic")
+        out["update_hybrid"][name] = dict(
+            shape=list(grid.shape), max_abs_err=err, cells_differing=n_diff,
+            same_bits_twice=same,
+            **_times(lambda: update(False), lambda: update(True), _bound(
+                2 * grid.numel() * 4 + 8 * ranges.numel() + 12,
+                30 * grid.numel())),
+        )
+
+    hybrid_entry("at_submap", submap, pose, sub, None)
+    wpose = torch.as_tensor(gt[i], device=device)
+    gw, orc = extract_window(full, occupancy.world_to_cell(wpose[:2], g)
+                             .tolist(), update_window_cells(g, s))
+    hybrid_entry("at_rebuild_window", gw, wpose, g, orc)
+
+    def field(plain):
+        return correlative.build_search_space(submap, lm, sub.resolution,
+                                              plain=plain)
+
+    S = field(False)
+    err, n_diff = _search_space_cells_ok(
+        S, field(True), f"search_space submap [{sub.height}x{sub.width}]")
+    same = torch.equal(S, field(False))
+    if not same:
+        raise AssertionError("search_space on the submap is not deterministic")
+    n_taps = 2 * blur_halo_cells(lm, sub.resolution) + 1
+    out["search_space"]["at_submap"] = dict(
+        shape=list(S.shape), max_abs_err=err, cells_differing=n_diff,
+        same_bits_twice=same,
+        **_times(lambda: field(False), lambda: field(True), _bound(
+            2 * S.numel() * 4, S.numel() * (4 * n_taps + 8))),
+    )
+
+    f = lm.coarse_factor
+    r_coarse = -(-int(round(lm.search_xy / sub.resolution)) // f)
+    pts, valid = occupancy.scan_endpoints_local(ranges, s)
+    prior = pose + torch.as_tensor(
+        rng.uniform(-0.3, 0.3, 3).astype(np.float32), device=device)
+    dth = torch.as_tensor(correlative._theta_offsets(lm), device=device)
+    origin = (sub.origin_x, sub.origin_y)
+    n_fine = 2 * lm.fine_theta_bins + 1
+    t0 = (len(dth) - n_fine) // 2
+    passes = {
+        "loop_coarse": (correlative.coarse_space(S, f), correlative
+                        .endpoint_positions(prior, pts, valid, dth,
+                                            sub.resolution * f, origin),
+                        r_coarse, False),
+        "loop_fine": (S, correlative.endpoint_positions(
+            prior, pts, valid, dth[t0:t0 + n_fine], sub.resolution, origin),
+            f, True),
+    }
+    for name, (S_, pos, R, bil) in passes.items():
+        def score(plain, S_=S_, pos=pos, R=R, bil=bil):
+            return score_window(S_, *pos, valid, R, bil, plain=plain)
+
+        a = score(False)
+        err = float((a - score(True)).abs().max())
+        same = torch.equal(a, score(False))
+        print(f"score_offsets {name} {list(a.shape)} over "
+              f"{list(S_.shape)}: max |err| {err:.3g} (tolerance 1e-5), "
+              f"same bits twice {same}")
+        if err > 1e-5:
+            raise AssertionError(f"score_offsets {name} disagrees with its "
+                                 "plain version")
+        if not same:
+            raise AssertionError(f"score_offsets {name} is not deterministic")
+        n = 2 * R + 1
+        out["score_offsets"][name] = dict(
+            shape=list(a.shape), over=list(S_.shape), max_abs_err=err,
+            same_bits_twice=same,
+            **_times(lambda: score(False), lambda: score(True),
+                     score_bound(S_, pos, valid, n, bil)),
+        )
+    return out
+
+
+def _reset_fullslam_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+    for name in ("host_syncs", "matches", "updates"):
+        setattr(frontend_step, name, 0)
+    for name in FULLSLAM_COUNTS:
+        setattr(run_full_slam, name, 0)
+    fetch.reads = 0
+
+
+def run_fullslam(cfg, gcfg, log, device):
+    """Phase 15: full SLAM (run_full_slam) at the CLI's `--mode full`
+    defaults over two laps of bench.py's world through the kernels: at
+    least one accepted loop, keyframe ATE below odometry's at the same
+    scans, every launch accounted for (kernel 1 `hybrid`: the frontend's
+    updates, the submaps' and the rebuilds' scans; kernel 3: the
+    frontend's updates + 1, a submap and a correction each; kernel 2: a
+    match's passes (two at this config) and an attempt's match and peak
+    margin (three)). Returns (launches, result)."""
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    run_full_slam(warm, cfg, gcfg, device=device)
+    # cuSOLVER's first call sets it up: take it before the timed run
+    g = se2_graph.HostGraph(gcfg)
+    g.add_node(np.zeros(3))
+    g.add_node(np.ones(3))
+    g.add_edge(0, 1, np.ones(3), np.eye(3))
+    se2_graph.optimize(g.to_device(device), gcfg)
+    torch.cuda.synchronize()
+    _reset_fullslam_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = run_full_slam(log, cfg, gcfg, device=device)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    counts = dict(host_syncs=frontend_step.host_syncs,
+                  matches=frontend_step.matches,
+                  updates=frontend_step.updates, fetch_reads=fetch.reads,
+                  **{n: getattr(run_full_slam, n) for n in FULLSLAM_COUNTS})
+    T = len(res.traj)
+    scans_run = -(-T // cfg.chunk) * cfg.chunk
+    gt = np.asarray(log["gt_poses"])
+    idx = res.kf_scan_idx
+    att = res.loop_attempts
+    elapsed = start.elapsed_time(end) / 1e3
+    reads = counts["host_syncs"] + counts["fetch_reads"]
+    result = dict(
+        scans=T, scans_run=scans_run, scans_per_sec=T / elapsed,
+        seconds_cuda_events=elapsed, seconds_host=wall,
+        keyframes=len(idx), attempts_recorded=len(att),
+        accepted=int(att[:, 6].sum()) if len(att) else 0,
+        n_loops=res.n_loops, chi2=res.chi2,
+        kf_ate_m=ate_rmse(res.kf_poses, gt[idx], align=False),
+        kf_ate_odom_m=ate_rmse(log["odom"][idx], gt[idx], align=False),
+        ate_m=ate_rmse(res.traj, gt, align=False),
+        ate_odom_m=ate_rmse(log["odom"], gt, align=False),
+        host_reads=reads, host_reads_per_scan=reads / T,
+        peak_memory_bytes=peak, launches=launches, **counts,
+    )
+    print("full SLAM:", json.dumps(result))
+    if not np.isfinite(res.traj).all():
+        raise AssertionError("full SLAM: trajectory is not finite")
+    if res.n_loops < 1:
+        raise AssertionError("full SLAM: no loop was accepted")
+    if not result["kf_ate_m"] < result["kf_ate_odom_m"]:
+        raise AssertionError(
+            f"full SLAM: keyframe ATE {result['kf_ate_m']} not below "
+            f"odometry's {result['kf_ate_odom_m']}")
+    res_m = cfg.grid.resolution
+    expect = {
+        "update_hybrid": counts["updates"] + counts["submap_scans"]
+        + counts["rebuilt_scans"],
+        "search_space": counts["updates"] + 1 + counts["submaps"]
+        + counts["corrections"],
+        "score_offsets": _match_passes(cfg.matcher, res_m) * counts["matches"]
+        + (_match_passes(default_loop_matcher(gcfg), res_m) + 1)
+        * counts["attempts"],
+    }
+    if launches != expect or min(launches.values()) <= 0:
+        raise AssertionError(f"full SLAM: launches {launches}, expected "
+                             f"{expect}")
+    if counts["corrections"] != res.n_loops:
+        raise AssertionError(f"full SLAM: {counts['corrections']} "
+                             f"corrections for {res.n_loops} loops")
+    return launches, res
+
+
+def _match_passes(mcfg, resolution):
+    """Scorer launches of one match_scan: one pass where the whole
+    translation window fits the fine pass, else coarse and fine."""
+    return 1 if round(mcfg.search_xy / resolution) <= mcfg.coarse_factor else 2
+
+
+def _decisions(attempts):
+    """The (i, j, accepted) columns of loop attempts, as int tuples."""
+    a = np.asarray(attempts, np.float64).reshape(-1, 10)
+    return [tuple(int(v) for v in row) for row in a[:, [0, 1, 6]]]
+
+
+def fullslam_held(cfg, gcfg, log, device, res):
+    """Phase 15, held: (a) the first FULLSLAM_PARITY_SCANS scans run twice,
+    through the kernels and through their plain versions: the same
+    keyframes and (i, j, accepted) attempt decisions, the tracked poses
+    (frame_cb's, before corrections) and keyframe poses within 5e-3 m /
+    rad; (b) the whole run beside the JAX package's at the same config
+    and log (scripts/fullslam_reference.json): keyframe ATE at most JAX's
+    + 0.1 m; the keyframes and decisions compared and printed. Over the
+    whole log neither is held equal: the map update's atan2f flips cells
+    on a beam slot's edge against the JAX package's polynomial, and the
+    scorer sums in another order than its plain version, and in this log
+    such differences grow into other anchors and decisions late in the
+    second lap (PERF.md §6)."""
+    part = {k: np.asarray(v)[:FULLSLAM_PARITY_SCANS] for k, v in log.items()}
+    runs = {}
+    for plain in (False, True):
+        chunks = []
+        r = run_full_slam(part, cfg, gcfg, device=device, plain=plain,
+                          frame_cb=lambda m, tr, c=chunks: c.append(tr))
+        runs[plain] = (r, np.concatenate(chunks))
+    (k_res, k_tr), (p_res, p_tr) = runs[False], runs[True]
+    out = dict(
+        parity_scans=FULLSLAM_PARITY_SCANS,
+        plain_keyframes=len(p_res.kf_scan_idx),
+        plain_attempts=len(p_res.loop_attempts),
+        plain_loops=p_res.n_loops,
+        plain_same_keyframes=bool(np.array_equal(p_res.kf_scan_idx,
+                                                 k_res.kf_scan_idx)),
+        plain_same_decisions=_decisions(p_res.loop_attempts)
+        == _decisions(k_res.loop_attempts),
+    )
+    out["plain_tracked_dxy_m"], out["plain_tracked_dth_rad"] = _pose_errors(
+        k_tr, p_tr)
+    if out["plain_same_keyframes"]:
+        out["plain_kf_dxy_m"], out["plain_kf_dth_rad"] = _pose_errors(
+            k_res.kf_poses, p_res.kf_poses)
+    if out["plain_same_decisions"] and len(k_res.loop_attempts):
+        out["plain_score_err"] = float(np.abs(
+            p_res.loop_attempts[:, 2] - k_res.loop_attempts[:, 2]).max())
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           FULLSLAM_REFERENCE)) as fh:
+        ref = json.load(fh)
+    dj, dk = _decisions(ref["loop_attempts"]), _decisions(res.loop_attempts)
+    first = next((n for n, (a, b) in enumerate(zip(dj, dk)) if a != b),
+                 min(len(dj), len(dk)))
+    ref_idx = np.asarray(ref["kf_scan_idx"])
+    n = min(len(ref_idx), len(res.kf_scan_idx))
+    out.update(
+        jax_keyframes=len(ref_idx), jax_attempts=len(dj),
+        jax_n_loops=ref["n_loops"], jax_chi2=ref["chi2"],
+        jax_kf_ate_m=ref["kf_ate_m"], jax_ate_m=ref["traj_ate_m"],
+        jax_same_keyframes=bool(np.array_equal(ref_idx, res.kf_scan_idx)),
+        jax_same_keyframes_first=int(np.argmax(
+            np.r_[ref_idx[:n] != res.kf_scan_idx[:n], True])),
+        jax_same_decisions=dj == dk, jax_same_decisions_first=first,
+    )
+    gt = np.asarray(log["gt_poses"])
+    kf_ate = ate_rmse(res.kf_poses, gt[res.kf_scan_idx], align=False)
+    print("full SLAM held:", json.dumps(out))
+    if not (out["plain_same_keyframes"] and out["plain_same_decisions"]):
+        raise AssertionError("full SLAM: over the first "
+                             f"{FULLSLAM_PARITY_SCANS} scans the plain "
+                             "versions' run took other keyframes or loop "
+                             "decisions")
+    worst = max(out["plain_tracked_dxy_m"], out["plain_tracked_dth_rad"],
+                out["plain_kf_dxy_m"], out["plain_kf_dth_rad"])
+    if worst > FULLSLAM_POSE_TOL:
+        raise AssertionError("full SLAM: kernel and plain poses differ by "
+                             f"{worst} > {FULLSLAM_POSE_TOL}")
+    if kf_ate > ref["kf_ate_m"] + FULLSLAM_JAX_ATE_SLACK_M:
+        raise AssertionError(
+            f"full SLAM: keyframe ATE {kf_ate} above the JAX package's "
+            f"{ref['kf_ate_m']} + {FULLSLAM_JAX_ATE_SLACK_M} m")
+    return out
+
 def main(kernels_only: bool = False):
     """Every phase; with `kernels_only` (--kernels-only) phases 1-3 alone,
     for work on a kernel: the last line is then the checks' JSON, not the
@@ -2293,6 +2621,11 @@ def main(kernels_only: bool = False):
     )
     checks["window_field"]["at_fastslam16"] = checks["corr_scores"].pop("field")
     checks["update_ray"] = ray_check(ray_cfg, log, device)
+    fs_cfg, fs_gcfg = fullslam_bench_config()
+    fs_log = fullslam_bench_log(fs_cfg.sensor)
+    at_fullslam = fullslam_kernel_checks(fs_cfg, fs_gcfg, fs_log, device)
+    for name, entries in at_fullslam.items():
+        checks[name].update(entries)
     floor_ms, floor_by = launch_floor(device)
     print(f"launch floor, an empty kernel: {floor_ms:.4g} ms ({floor_by})")
     for name in ("update_hybrid", "update_ray", "score_offsets",
@@ -2300,6 +2633,10 @@ def main(kernels_only: bool = False):
         checks[name].update(launch_floor_ms=floor_ms, launch_floor_by=floor_by)
     checks["search_space"]["full_map"].update(launch_floor_ms=floor_ms,
                                               launch_floor_by=floor_by)
+    for name, entries in at_fullslam.items():
+        for key in entries:
+            checks[name][key].update(launch_floor_ms=floor_ms,
+                                     launch_floor_by=floor_by)
     torch.cuda.synchronize()
     print(f"kernel checks took {time.perf_counter() - t0:.1f} s")
     if kernels_only:
@@ -2336,6 +2673,9 @@ def main(kernels_only: bool = False):
     by_path["14 relocalization"] = run_global(
         cfg, loc_log, loc_traj, kidnap_log(cfg.sensor), device,
         slice_state.logodds)
+    by_path["15 full SLAM"], fs_res = run_fullslam(fs_cfg, fs_gcfg, fs_log,
+                                                   device)
+    fullslam_held(fs_cfg, fs_gcfg, fs_log, device, fs_res)
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",

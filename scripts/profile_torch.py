@@ -5,23 +5,30 @@
         [--warm 256] [--scans 256]
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
         [--warm 128] [--scans 192] [--seeds N]
+    python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
     (all: [--out profile_out])
 
 Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend;
 ray: with update_impl="pallas_ray"; localize: localization on the final
 map of a frontend run over bench.py's log, along its localization log;
 tiled: the tiled frontend at the CLI's tile defaults over a lap of the
-corridor world, its host loop included) or at bench_pf.py's default
-config and log with 100, 1000 or 16 particles (fastslam, fastslam1000,
-fastslam16; bf16 512^2 maps): a warmup over the first `--warm` scans, then
-a torch.profiler
+corridor world, its host loop included; fullslam: full SLAM at the CLI's
+`--mode full` defaults over two laps of bench.py's world, run_full_slam
+over the warmup scans and then over the traced ones resumed from its
+checkpoint) or at bench_pf.py's default config and log with 100, 1000
+or 16 particles (fastslam, fastslam1000, fastslam16; bf16 512^2 maps): a
+warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. Prints the
 kernels by device time, then one JSON line: the device busy share of the
 traced wall time, per-scan host time, the step's counters, the largest
 device costs and every kernel of the port's own. Writes the
 gzipped Chrome trace to `--out`. For fastslam, `--seeds N` first runs the
 whole log for proposal seeds 0..N-1 and prints each run's ATE and scans/s
-(CUDA events), their median and range. Needs a CUDA device.
+(CUDA events), their median and range. For fullslam, a whole run first
+times each accepted loop's graph solve (LoopCloser._dispatch_optimize:
+the graph's copy, the dense solve and the chi2 prune) and its map
+rebuild (IncrementalRebuilder), each between two synchronizes, and
+prints them. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -56,11 +63,14 @@ from slam2d_tpu_torch.run.frontend_tiled import (  # noqa: E402
     run_tiled_frontend,
     tiled_frontend_step,
 )
+from slam2d_tpu_torch.run import full_slam  # noqa: E402
 
 DEFAULTS = {  # warm, scans
     "frontend": (256, 256), "ray": (256, 256), "localize": (256, 256),
     "tiled": (256, 256), "fastslam": (128, 192),
     "fastslam1000": (128, 192), "fastslam16": (128, 192),
+    # the second lap, where the loops close (715 scans in all)
+    "fullslam": (384, 331),
 }
 PF_CONFIGS = {
     "fastslam": bench_configs.pf_bench_config,
@@ -139,6 +149,62 @@ def tiled_steps(dev):
     return steps, tiled_frontend_step, ("host_syncs", "matches", "updates")
 
 
+def accept_times(cfg, gcfg, log, dev):
+    """ms of each accepted loop's graph solve and of its map rebuild over a
+    whole run, each between two synchronizes (which the run otherwise
+    does not take), with the run's scans/s beside them."""
+    times = {"solve": [], "rebuild": []}
+    cls = {"solve": (full_slam.LoopCloser, "_dispatch_optimize"),
+           "rebuild": (full_slam.IncrementalRebuilder, "__call__")}
+    orig = {k: getattr(c, n) for k, (c, n) in cls.items()}
+
+    def timed(fn, out):
+        def wrap(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return wrap
+
+    full_slam.run_full_slam(log, cfg, gcfg, device=dev)   # warm
+    for k, (c, n) in cls.items():
+        setattr(c, n, timed(orig[k], times[k]))
+    try:
+        t0 = time.perf_counter()
+        res = full_slam.run_full_slam(log, cfg, gcfg, device=dev)
+        sec = time.perf_counter() - t0
+    finally:
+        for k, (c, n) in cls.items():
+            setattr(c, n, orig[k])
+    print(json.dumps(dict(
+        card=bench_configs.card(), scans=len(res.traj),
+        scans_per_sec_synced=len(res.traj) / sec, n_loops=res.n_loops,
+        solve_ms=times["solve"], rebuild_ms=times["rebuild"],
+        solve_ms_median=statistics.median(times["solve"] or [0.0]),
+        rebuild_ms_median=statistics.median(times["rebuild"] or [0.0]),
+    )))
+
+
+def fullslam_steps(dev):
+    """(steps, counters) of full SLAM: run_full_slam over scans lo..hi-1,
+    resumed from the previous part's checkpoint; accept_times first."""
+    cfg, gcfg = bench_configs.fullslam_bench_config()
+    log = bench_configs.fullslam_bench_log(cfg.sensor)
+    accept_times(cfg, gcfg, log, dev)
+    ckpt = None
+
+    def steps(lo, hi):
+        nonlocal ckpt
+        part = {k: np.asarray(v)[lo:hi] for k, v in log.items()}
+        ckpt = full_slam.run_full_slam(part, cfg, gcfg, device=dev,
+                                       resume=ckpt,
+                                       scan_index_offset=lo).ckpt
+
+    return steps, frontend_step, ("host_syncs", "matches", "updates")
+
+
 def fastslam_steps(dev, cfg, pf, seeds):
     """(steps(lo, hi) running FastSLAM over scans lo..hi-1, counters);
     with `seeds`, the whole-log sweep first."""
@@ -213,6 +279,8 @@ def main():
         steps, step, counters = localize_steps(dev, bench_configs.bench_config())
     elif args.pipeline == "tiled":
         steps, step, counters = tiled_steps(dev)
+    elif args.pipeline == "fullslam":
+        steps, step, counters = fullslam_steps(dev)
     else:
         cfg, pf = PF_CONFIGS[args.pipeline]()
         steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds)
@@ -221,6 +289,7 @@ def main():
     torch.cuda.synchronize()
     for name in counters:
         setattr(step, name, 0)
+    full_slam.fetch.reads = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -244,6 +313,8 @@ def main():
         device_busy_us=busy, device_busy_share=busy / wall_us,
         device_kernels=sum(v[0] for v in kernels.values()),
         **{name: getattr(step, name) for name in counters},
+        **({"fetch_reads": full_slam.fetch.reads}
+           if args.pipeline == "fullslam" else {}),
         top_kernels=[dict(name=k[:90], launches=v[0], us=v[1])
                      for k, v in top[:14]],
         # the port's own kernels (csrc/: anonymous namespaces outside at::)

@@ -1,7 +1,7 @@
 """Frozen config dataclasses of the port.
 
 A copy of the JAX package's SensorConfig, GridConfig, MatcherConfig,
-PFConfig and FrontendConfig (slam2d_tpu/config.py): the same field names,
+PFConfig, GraphConfig and FrontendConfig (slam2d_tpu/config.py): the same field names,
 defaults, properties and methods, so a configuration reads the same in
 both packages. The port keeps its own copy and imports nothing of
 slam2d_tpu. Settings that only the JAX package's TPU paths read
@@ -159,6 +159,59 @@ class PFConfig:
     # 2 * update_qstep_cells * res / max_range.
     update_qstep_cells: float = 0.5
     host_gate_min_particles: int = 512
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphConfig:
+    """Pose-graph backend and full SLAM's keyframe and loop gates."""
+
+    keyframe_dist: float = 0.5        # admit a keyframe every d meters ...
+    keyframe_angle: float = 0.5       # ... or psi radians
+    max_nodes: int = 512              # static node capacity
+    max_edges: int = 2048             # static edge capacity
+    gn_iters: int = 10
+    loop_radius: float = 3.0          # spatial gate for loop candidates
+    loop_min_gap: int = 20            # min keyframe index gap for a loop
+    # Accept gates, from the JAX package's precision/recall sweep of loop
+    # attempts labelled against ground truth (precision 1.0, recall ~0.91).
+    loop_score_accept: float = 0.45   # matcher score to accept a loop edge
+    # Plausibility gate: reject a loop whose implied correction of the
+    # current estimate exceeds these bounds (corridor aliases shifted by
+    # the structure's period); raised for long-drift logs.
+    loop_max_correction_xy: float = 1.0
+    loop_max_correction_theta: float = 0.4
+    # Drift-relative relaxation of that gate: the bound is max(fixed,
+    # rate * keyframe path length since max(matched keyframe, last
+    # accept)); 0 disables.
+    loop_correction_drift_xy: float = 0.03    # m of bound per m travelled
+    loop_correction_drift_theta: float = 0.012  # rad of bound per m
+    # Post-solve consistency prune: after an accepted loop's solve, loop
+    # edges whose whitened residual^2 exceeds this (or an accept that
+    # raises the converged chi^2 by more) are disabled for good and the
+    # graph solved again. 0 disables.
+    loop_prune_chi2: float = 9.0
+    # Skip loop attempts for this many keyframes after an accepted loop.
+    loop_cooldown: int = 3
+    # Peak-dominance gate: reject loops whose coarse score surface has a
+    # second peak (beyond 0.5 m of the best) within this margin of the
+    # best. 0 disables.
+    loop_min_peak_margin: float = 0.05
+    # Robust kernel on edge residuals, reweighted each Gauss-Newton
+    # iteration: "none" (quadratic), "huber" or "dcs" (Dynamic Covariance
+    # Scaling); delta in whitened-residual units.
+    robust_kind: str = "none"
+    robust_delta: float = 3.0
+    # Graduated non-convexity: iteration k < robust_gnc_iters uses delta *
+    # 10^(robust_gnc_iters - k). 0 = robust from the first iteration.
+    robust_gnc_iters: int = 2
+    damping: float = 1e-6             # Levenberg damping on H diagonal
+    # Settings of the JAX package's matrix-free and hierarchical solvers
+    # (graph/sparse.py), which the port does not have yet.
+    sparse_max_loops: int = 64
+    sparse_coarse_stride: int = 16
+    sparse_cg_iters: int = 48
+    hier_dense_max: int = 512
+    sparse_hier_cycles: int = 2
 
 
 @dataclasses.dataclass(frozen=True)

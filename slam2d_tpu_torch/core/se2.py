@@ -58,3 +58,8 @@ def rotate_points(theta, pts):
     s = torch.sin(theta)[..., None]
     px, py = pts[..., 0], pts[..., 1]
     return torch.stack([c * px - s * py, s * px + c * py], dim=-1)
+
+
+def error_se2(xi, xj, zij):
+    """Pose-graph edge error t2v(Z⁻¹ · (Xi⁻¹ · Xj))."""
+    return between(zij, between(xi, xj))

@@ -1,8 +1,9 @@
 """The configurations and synthetic logs of the JAX package's bench.py
 (the frontend) and bench_pf.py (FastSLAM at its defaults, with 100, 1000
 or 16 particles), a localization log and a kidnap log in bench.py's
-world, and the tiled frontend at the CLI's tile defaults on a lap of the
-corridor world, for the scripts that drive the port on a GPU
+world, the tiled frontend at the CLI's tile defaults on a lap of the
+corridor world, and full SLAM at the CLI's `--mode full` defaults on two
+laps of bench.py's world, for the scripts that drive the port on a GPU
 (chip_smoke.py, scripts/profile_torch.py), and the card's name and power
 limit as nvidia-smi reports them.
 """
@@ -16,6 +17,7 @@ import numpy as np
 
 from slam2d_tpu_torch.config import (
     FrontendConfig,
+    GraphConfig,
     GridConfig,
     MatcherConfig,
     PFConfig,
@@ -154,6 +156,32 @@ def tiled_bench_log(sensor):
     seed 3): ~228 m of travel, 4,551 scans."""
     _, log = corridor_loop_log(sensor, span=60.0, step=0.05, seed=3)
     return log
+
+
+def fullslam_bench_config():
+    """(cfg, graph_cfg): full SLAM as the CLI's `--mode full` runs it by
+    default, bench.py's frontend config (1024^2 at 0.05 m, 180 beams,
+    n_theta 13, chunk 64) with the JAX package's
+    scripts/bench_fullslam.py graph settings (512 nodes, 2048 edges,
+    keyframes every 1 m, loop gap 20, radius 3 m, accept score 0.35,
+    corrections up to 2.5 m, 10 Gauss-Newton iterations)."""
+    return bench_config(), GraphConfig(
+        max_nodes=512, max_edges=2048, keyframe_dist=1.0, loop_min_gap=20,
+        loop_radius=3.0, loop_score_accept=0.35, loop_max_correction_xy=2.5,
+        gn_iters=10,
+    )
+
+
+def fullslam_bench_log(sensor):
+    """scripts/bench_fullslam.py's log: two laps of bench.py's box-rooms
+    tour (0.15 m steps, odometry noise 0.02 m / 0.006 rad, seed 3), the
+    second lap re-entering the first's territory throughout: 715 scans."""
+    lap = _ROUTE[:-1] + [[3.0, 10.0]]
+    wp = np.array(lap + [[3.0, 3.5]] + lap[1:] + [[3.0, 4.0]])
+    return simulate_log(
+        SynthWorld.box_rooms(20.0), wp, sensor, step=0.15,
+        odom_noise_xy=0.02, odom_noise_theta=0.006, seed=3,
+    )
 
 
 def card() -> str:

@@ -20,7 +20,7 @@ from torch_parity import frontend_cfg, to_port
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = ["SensorConfig", "GridConfig", "MatcherConfig", "PFConfig",
-           "FrontendConfig"]
+           "GraphConfig", "FrontendConfig"]
 
 
 @pytest.mark.parametrize("name", CONFIGS)
