@@ -37,7 +37,16 @@ Phases, each of which raises on failure:
    hybrid update on a whole 1152^2 loop-attempt submap and on the 496^2
    rebuild window, the search-space build on the submap, the scorer's
    loop-matcher passes [41, 9, 9] over the 144^2 pooled submap and
-   [5, 17, 17] over the submap. Timed three
+   [5, 17, 17] over the submap; and the frontend step's forms of kernels
+   1 `hybrid`, 3 and 2, which read their gate and window origin from
+   device memory (gated_checks): kernel 1 in place on the 520^2 update
+   window and kernel 3 on its kept rectangle, at origins clamped into
+   each corner of the map and inside it, with gate 1 against their plain
+   versions and against the host-origin path (extract, the out-of-place
+   kernel, write back): 0 cells off; with gate 0 the map and S
+   bit-identical; kernel 2 with gate 0 leaves its output as it was (these
+   forms take each entry's top level, the host-origin forms go under
+   "out_of_place"). Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
    events (median of 30; the host's enqueue time sits inside);
    `device_ms`, `library_device_ms`, 50 calls back to back between two
@@ -50,10 +59,14 @@ Phases, each of which raises on failure:
    under it, `launch_floor_ms`, an empty kernel of the library timed as
    `device_ms` is;
 4. the frontend at bench.py's config and log (1024^2 grid at 0.05 m, 180
-   beams, 1078 scans, chunk 64): finite trajectory, ATE below odometry,
-   every kernel launched (updates, search-space builds and scorer passes
-   counted against the gate decisions); scans/s, ATE, launch counts and
-   host syncs;
+   beams, 1078 scans, chunk 64) as run_frontend runs it on CUDA, one CUDA
+   graph replay a chunk, then the same steps eagerly, then the graph path
+   again: finite trajectory, ATE below odometry (printed beside the
+   0.16099 m of the host-gated step), no host read during the scans, the
+   eager run's bits and device counters, one update, one search-space
+   build and two scorer launches a scan run (+1 build at the start), the
+   first run's returned map untouched by the second; scans/s of both
+   paths, capture time, peak memory;
 5. the first 256 scans again with every kernel replaced by its plain
    version on the card: the poses must agree within 5e-3 m / 5e-3 rad;
 6. FastSLAM at bench_pf.py's default config and log (100 particles, bf16
@@ -79,13 +92,15 @@ Phases, each of which raises on failure:
    plain version in its place, each run's ATE at most 1 m; then kernel
    step against plain step at its first 8 refine events;
 11. the frontend with update_impl="pallas_ray" (kernel 1 "ray") over
-   bench.py's log: finite trajectory, one ray launch per update event,
-   ATE at most 1 m, printed beside odometry's and phase 4's;
+   bench.py's log, eagerly (the exact-ray update reads its gate on the
+   host, one read a scan): finite trajectory, one ray launch per update
+   event, two scorer launches a scan run, ATE at most 1 m, printed beside
+   odometry's and phase 4's;
 12. localization (run_localization) on phase 4's final map over a second
    traversal of bench.py's world (its route reversed, twice its odometry
    noise): finite trajectory, ATE below odometry's and at most phase 4's
    + 0.1 m, the map unchanged, one search-space build, no update, two
-   scorer launches a match and one host read a scan; scans/s; the first
+   scorer launches a scan run and no host read; scans/s; the first
    256 scans again through the plain versions (phase 5's tolerances);
    peak_uniqueness (over a 1.2 m window) at 8 matched poses through the
    kernels and through the plain versions: finite, within 2e-6;
@@ -116,9 +131,9 @@ Phases, each of which raises on failure:
    position error after the last below 0.5 m, on the reference's map the
    same event and skipped scans as JAX's, event poses within 1e-3, scores
    within 1e-4 and ATE within 5 mm; one
-   search-space build, two scorer launches a match and one a
-   relocalization, one host read a scan, one a chunk and one a
-   relocalization; scans/s;
+   search-space build, two scorer launches a scan run and one a
+   relocalization, one host read a chunk and one a relocalization;
+   scans/s;
 15. full SLAM (run_full_slam) at the CLI's `--mode full` defaults
    (bench.py's frontend config; 512 keyframe slots, keyframes every 1 m,
    loop radius 3 m, accept score 0.35) over two laps of bench.py's world
@@ -126,10 +141,11 @@ Phases, each of which raises on failure:
    ATE below odometry's at the same scans and at most the JAX package's
    + 0.1 m (scripts/fullslam_reference.json, made by
    scripts/fullslam_reference.py; keyframes and loop decisions compared
-   and printed), every launch accounted for (kernel 1 `hybrid`: the
-   frontend's updates and the scans of the submaps and of the rebuilds;
-   kernel 3: the frontend's updates + 1, a submap and a correction each;
-   kernel 2: a match's passes and three an attempt); scans/s, keyframes,
+   and printed), every launch accounted for (kernel 1 `hybrid`: one a
+   scan run of the frontend and the scans of the submaps and of the
+   rebuilds; kernel 3: one a scan run + 1, a submap and a correction
+   each; kernel 2: a match's passes a scan run and three an attempt), no
+   host read of the frontend's; scans/s, keyframes,
    attempts, loops, chi2, ATEs, host reads a scan, peak memory; the first
    512 scans again through the kernels and through the plain versions:
    the same keyframes and (i, j, accepted) decisions, poses within 5e-3
@@ -169,7 +185,13 @@ from slam2d_tpu_torch.grid.window import (
     blur_halo_cells,
     extract_window,
     scan_window_cells,
+    take_window as window_take,
     update_window_cells,
+    window_origin,
+    window_origin_t,
+    window_origin_xy_t,
+    write_window,
+    write_window_blur_exact,
 )
 from slam2d_tpu_torch.match import correlative
 from slam2d_tpu_torch.match.global_loc import (
@@ -186,7 +208,7 @@ from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.gather import gather_rows
 from slam2d_tpu_torch.ops.score import score_window
-from slam2d_tpu_torch.ops.search_space import search_space
+from slam2d_tpu_torch.ops.search_space import search_space, search_space_window
 from slam2d_tpu_torch.ops.stack import shift_stack
 from slam2d_tpu_torch.ops.update import (
     ism_occ_tol,
@@ -237,6 +259,8 @@ KERNEL_TIMING_RUNS = 30
 PARITY_SCANS = 256
 POSE_TOL_M = 5e-3
 POSE_TOL_RAD = 5e-3
+SLICE_ATE_REFERENCE_M = 0.16099  # phase 4's ATE with the gates read on the
+                                 # host, printed beside
 PF_MAX_ATE_M = 1.0        # phase 6: above this the filter diverged
 LOC_ATE_SLACK_M = 0.1     # phase 12: the map carries phase 4's own error
 PEAK_SCANS = 8            # phase 12: peak_uniqueness held at 8 scans
@@ -774,6 +798,196 @@ def kernel_checks(cfg, log, device):
     return results
 
 
+# the frontend step's window centers (row, col) on bench.py's 1024^2 map:
+# its update window clamped into each corner, and inside (the log's scan)
+GATED_CENTERS = {
+    "top_left": (37, 21), "top_right": (12, 1003), "bottom_left": (1019, 40),
+    "bottom_right": (990, 1010),
+}
+
+
+def gated_checks(cfg, log, device):
+    """Phase 3, the frontend step's forms of kernels 1 `hybrid`, 3 and 2,
+    which read their gate and window origin from device memory: kernel 1
+    in place on the 520^2 update window and kernel 3 on its kept
+    rectangle, at origins clamped into each corner of the 1024^2 map and
+    inside it (the log's middle scan), each with gate 1 against its plain
+    version and against the host-origin path (extract_window, the
+    out-of-place kernel, write_window / write_window_blur_exact): 0 cells
+    off; with gate 0 the map and S bit-identical; kernel 2's fine pass
+    with gate 0 leaves `out` as it was and with gate 1 gives the ungated
+    bits. Each form timed as phase 3 times the kernels (gate 1), and its
+    gate-0 launch's device time beside it. Returns the three entries."""
+    rng = np.random.default_rng(SEED + 11)
+    g, m, s = cfg.grid, cfg.matcher, cfg.sensor
+    H, W = g.height, g.width
+    uwin, win = update_window_cells(g, s, m), scan_window_cells(g, s, m)
+    halo = blur_halo_cells(m, g.resolution)
+    taps = correlative.gaussian_kernel_1d(m.sigma_m / g.resolution, halo)
+    fkw = dict(occ_sat=m.occ_evidence_sat, free_threshold=m.free_threshold,
+               free_penalty=m.free_penalty)
+    i = len(log["odom"]) // 2
+    scan_pose = np.asarray(log["gt_poses"][i], np.float32)
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    full = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (H, W)).astype(np.float32), device=device)
+    S_full = search_space(full, taps, **fkw)
+    on, off = (torch.tensor(v, device=device) for v in (True, False))
+    res = np.float32(g.resolution)
+    centers = dict(GATED_CENTERS)
+    centers["interior"] = tuple(int(v) for v in occupancy.world_to_cell(
+        torch.as_tensor(scan_pose[:2]), g).tolist())
+    checked, off_plain = [], {"update_hybrid": 0, "search_space": 0}
+    max_err = {"update_hybrid": 0.0, "search_space": 0.0}
+    for name, (row, col) in centers.items():
+        pose = torch.tensor(
+            [np.float32(g.origin_x) + (np.float32(col) + np.float32(0.5)) * res,
+             np.float32(g.origin_y) + (np.float32(row) + np.float32(0.5)) * res,
+             scan_pose[2]], dtype=torch.float32, device=device)
+        center = occupancy.world_to_cell(pose[:2], g)
+        origin = window_origin_t(center, uwin, H, W)
+        orc = tuple(origin.tolist())
+        if orc != window_origin(center.tolist(), uwin, H, W):
+            raise AssertionError(f"{name}: device origin {orc}")
+        for gate in (on, off):
+            a, b = full.clone(), full.clone()
+            for plain, m_ in ((False, a), (True, b)):
+                occupancy.integrate_scan_window(
+                    m_, pose, ranges, g, s, origin=origin, size=(uwin, uwin),
+                    gate=gate, plain=plain)
+            # both fields from the kernel's map
+            Sa, Sb = S_full.clone(), S_full.clone()
+            for plain, S_ in ((False, Sa), (True, Sb)):
+                search_space_window(a, S_, taps, origin=origin,
+                                    size=(uwin, uwin), margin=halo,
+                                    gate=gate, plain=plain, **fkw)
+            today, S_today = full.clone(), S_full.clone()
+            if bool(gate):
+                gw, _ = extract_window(today, center.tolist(), uwin)
+                write_window(today, occupancy.integrate_scan(
+                    gw, pose, ranges, g, s, origin_rc=orc), orc)
+                Sw = search_space(extract_window(today, center.tolist(),
+                                                 uwin)[0], taps, **fkw)
+                write_window_blur_exact(S_today, Sw, orc, halo)
+            n_map = int((a != today).sum())
+            n_s = int((Sa != S_today).sum())
+            off_plain["update_hybrid"] += int((a != b).sum())
+            off_plain["search_space"] += int(((Sa - Sb).abs() > 1e-6).sum())
+            for key, (x, y) in (("update_hybrid", (a, b)),
+                                ("search_space", (Sa, Sb))):
+                max_err[key] = max(max_err[key], float((x - y).abs().max()))
+            print(f"gated {name} origin {orc} gate {int(gate)}: "
+                  f"update_hybrid {n_map} cells off the host-origin path, "
+                  f"{int((a != b).sum())} off plain; search_space {n_s} off "
+                  f"the host-origin path, {int((Sa != Sb).sum())} off plain")
+            if n_map or n_s:
+                raise AssertionError(f"gated {name}: the in-place forms "
+                                     "part from the host-origin path")
+            if not bool(gate) and not (torch.equal(a, full)
+                                       and torch.equal(Sa, S_full)):
+                raise AssertionError(f"gated {name}: gate 0 changed a map")
+            _hybrid_cells_ok(a, b, g, f"update_hybrid in place {name}")
+            _search_space_cells_ok(Sa, Sb, f"search_space kept {name}")
+        checked.append(name)
+
+    # timings at the interior origin (the log's scan)
+    pose = torch.as_tensor(scan_pose, device=device)
+    origin = window_origin_t(occupancy.world_to_cell(pose[:2], g), uwin, H, W)
+    buf, S_buf = full.clone(), S_full.clone()
+
+    def upd(gate, plain=False):
+        return occupancy.integrate_scan_window(
+            buf, pose, ranges, g, s, origin=origin, size=(uwin, uwin),
+            gate=gate, plain=plain)
+
+    def field(gate, plain=False):
+        return search_space_window(buf, S_buf, taps, origin=origin,
+                                   size=(uwin, uwin), margin=halo, gate=gate,
+                                   plain=plain, **fkw)
+
+    n_cells = uwin * uwin
+    hybrid = dict(
+        shape=[uwin, uwin], in_place_of=[H, W], origins_checked=checked,
+        cells_off_host_origin_path=0,
+        cells_off_plain=off_plain["update_hybrid"],
+        max_abs_err=max_err["update_hybrid"],
+        gate_off_device_ms=_cuda_device_ms(lambda: upd(off))[0],
+        **_times(lambda: upd(on), lambda: upd(on, True),
+                 _bound(2 * n_cells * 4 + 8 * ranges.numel() + 12 + 9,
+                        30 * n_cells)),
+    )
+    kept = (uwin - 2 * halo) ** 2
+    n_taps = len(taps)
+    space = dict(
+        shape=[uwin, uwin], in_place_of=[H, W], origins_checked=checked,
+        cells_off_host_origin_path=0,
+        cells_off_plain=off_plain["search_space"],
+        max_abs_err=max_err["search_space"],
+        gate_off_device_ms=_cuda_device_ms(lambda: field(off))[0],
+        # the window read once, the kept cells written once
+        **_times(lambda: field(on), lambda: field(on, True),
+                 _bound(n_cells * 4 + kept * 4 + 9,
+                        kept * (4 * n_taps + 8))),
+    )
+
+    # kernel 2: the fine pass over the 544^2 match window, gated
+    Sw = window_take(S_full, window_origin_t(
+        occupancy.world_to_cell(pose[:2], g), win, H, W), (win, win))
+    org = window_origin_xy_t(g.origin_x, g.origin_y, g.resolution,
+                             window_origin_t(occupancy.world_to_cell(
+                                 pose[:2], g), win, H, W))
+    pts, valid = occupancy.scan_endpoints_local(ranges, s)
+    dth = torch.as_tensor(correlative._theta_offsets(m), device=device)
+    pos = correlative.endpoint_positions(pose, pts, valid, dth[4:9],
+                                         g.resolution, org)
+    n_f = 2 * m.coarse_factor + 1
+    ref = score_window(Sw, *pos, valid, m.coarse_factor, True)
+    sentinel = torch.full_like(ref, 123.0)
+    out = sentinel.clone()
+    score_window(Sw, *pos, valid, m.coarse_factor, True, gate=off, out=out)
+    kept_out = torch.equal(out, sentinel)
+    score_window(Sw, *pos, valid, m.coarse_factor, True, gate=on, out=out)
+    same = torch.equal(out, ref)
+    print(f"score_offsets gated fine pass: gate 0 left out {kept_out}, gate 1 "
+          f"the ungated bits {same}")
+    if not (kept_out and same):
+        raise AssertionError("score_offsets: the gated form misbehaves")
+
+    def sc(gate, plain=False):
+        return score_window(Sw, *pos, valid, m.coarse_factor, True,
+                            plain=plain, gate=gate, out=out)
+
+    score = dict(
+        shape=[5, n_f, n_f], gate_off_kept_out=kept_out,
+        gate_on_same_bits=same, max_abs_err=float(
+            (sc(on) - score_window(Sw, *pos, valid, m.coarse_factor, True,
+                                   plain=True)).abs().max()),
+        gate_off_device_ms=_cuda_device_ms(lambda: sc(off))[0],
+        **_times(lambda: sc(on), lambda: sc(on, True),
+                 score_bound(Sw, pos, valid, n_f, True)),
+    )
+    # the float origin of every update window origin, on the device
+    c0 = torch.arange(W - uwin + 1, dtype=torch.int32, device=device)
+    got = window_origin_xy_t(g.origin_x, g.origin_y, g.resolution,
+                             torch.stack([c0, c0], 1)).cpu().numpy()
+    want = np.array([occupancy.window_origin_xy(g, (c, c))
+                     for c in range(W - uwin + 1)], np.float32)
+    if not np.array_equal(got, want):
+        raise AssertionError("window_origin_xy_t differs on the card")
+    return {"update_hybrid": hybrid, "search_space": space,
+            "score_offsets": score}
+
+
+# the top-level fields of a kernel entry that the frontend step's form
+# takes over; the host-origin form's move under "out_of_place"
+FORM_FIELDS = (
+    "ms", "plain_ms", "library_ms", "device_ms", "device_by", "bound_share",
+    "operands_fit_l2", "bound_ms", "bound_by", "bytes", "operations",
+    "library_device_ms", "library_device_by", "max_abs_err", "shape",
+    "cells_differing",
+)
+
+
 def _search_space_cells_ok(a, b, name):
     """(max |a - b|, cells differing by more than 1e-6) of a search space
     built by the kernel (a) and by its plain version (b); raises if any
@@ -872,57 +1086,104 @@ def _counters():
     }
 
 
-def run_slice(cfg, log, device):
-    """Phase 4: the frontend over the whole bench log through the kernels."""
-    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
-    run_frontend(warm, cfg, device)
-    torch.cuda.synchronize()
-
+def _reset_frontend_counts():
     for fn in _counters().values():
         fn.launches = 0
     for name in ("host_syncs", "matches", "updates"):
         setattr(frontend_step, name, 0)
+
+
+def _timed_frontend(cfg, log, device, graph):
+    """One run_frontend over `log` with the counts set to 0 just before
+    it: (state, traj, scores, result dict)."""
+    _reset_frontend_counts()
+    torch.cuda.reset_peak_memory_stats(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    state, traj, scores = run_frontend(log, cfg, device)
+    state, traj, scores = run_frontend(log, cfg, device, graph=graph)
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in _counters().items()}
+    elapsed = start.elapsed_time(end) / 1e3
     T = len(traj)
-    counts = dict(
+    result = dict(
+        scans=T, scans_run=-(-T // cfg.chunk) * cfg.chunk,
+        scans_per_sec=T / elapsed, seconds_cuda_events=elapsed,
+        seconds_host=wall,
+        launches={k: fn.launches for k, fn in _counters().items()},
         host_syncs=frontend_step.host_syncs, matches=frontend_step.matches,
         updates=frontend_step.updates,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
     )
+    return state, traj, scores, result
 
+
+def run_slice(cfg, log, device):
+    """Phase 4: the frontend over the whole bench log through the kernels,
+    as run_frontend runs it on CUDA (one CUDA graph replay a chunk), then
+    the same steps enqueued one by one (graph=False), then the graph path
+    again: no host read a scan; the eager run's bits and counts; one
+    update_hybrid, one search_space and two score_offsets launches a scan
+    run (the gates are on the device: a gated-off launch returns at once),
+    and one search_space more, the start's; the first run's returned map
+    untouched by the second."""
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    t0 = time.perf_counter()
+    run_frontend(warm, cfg, device)   # builds the chunk graph
+    capture_s = time.perf_counter() - t0
+    run_frontend(warm, cfg, device, graph=False)
+    torch.cuda.synchronize()
+
+    state, traj, scores, result = _timed_frontend(cfg, log, device, None)
+    _, traj_e, scores_e, eager = _timed_frontend(cfg, log, device, False)
+    kept = state.logodds.clone()
+    state2, traj2, _, again = _timed_frontend(cfg, log, device, None)
+    T, scans_run = len(traj), result["scans_run"]
     if not np.isfinite(traj).all():
         raise AssertionError("trajectory is not finite")
     ate = ate_rmse(traj, log["gt_poses"], align=False)
     ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
     if not ate < ate_odom:
         raise AssertionError(f"ATE {ate} is not below odometry's {ate_odom}")
-    # skipped scans report exactly -1; a matched score is >= -free_penalty
-    matched_in_log = int((scores != -1.0).sum())
-    expect = {
-        "update_hybrid": counts["updates"],
-        "search_space": counts["updates"] + 1,
-        "score_offsets": 2 * counts["matches"],
-    }
-    if launches != expect or min(launches.values()) <= 0:
-        raise AssertionError(f"launches {launches}, expected {expect}")
-    if matched_in_log > counts["matches"]:
-        raise AssertionError("more matched scores than matches counted")
-    elapsed = start.elapsed_time(end) / 1e3
-    result = dict(
-        scans=T, scans_run=-(-T // cfg.chunk) * cfg.chunk,
-        scans_per_sec=T / elapsed, seconds_cuda_events=elapsed,
-        seconds_host=wall, ate_m=ate, ate_odom_m=ate_odom,
-        launches=launches, **counts,
+    same_bits = bool(np.array_equal(traj, traj_e)
+                     and np.array_equal(scores, scores_e))
+    twice = bool(np.array_equal(traj, traj2)
+                 and torch.equal(state.logodds, kept)
+                 and torch.equal(state2.logodds, kept))
+    result.update(
+        ate_m=ate, ate_odom_m=ate_odom, ate_reference_m=SLICE_ATE_REFERENCE_M,
+        capture_s=capture_s, host_reads_per_scan=result["host_syncs"] / T,
+        eager_scans_per_sec=eager["scans_per_sec"],
+        eager_seconds_host=eager["seconds_host"],
+        eager_launches=eager["launches"],
+        eager_matches=eager["matches"], eager_updates=eager["updates"],
+        graph_again_scans_per_sec=again["scans_per_sec"],
+        same_bits_as_eager=same_bits, same_run_twice=twice,
     )
     print("slice:", json.dumps(result))
-    return traj, launches, state
+    if result["host_syncs"] or again["host_syncs"] or eager["host_syncs"]:
+        raise AssertionError("the frontend read the host during its scans")
+    if not same_bits:
+        raise AssertionError("the graph and eager trajectories differ")
+    if not twice:
+        raise AssertionError("a second graph run changed the first's map or "
+                             "gave another trajectory")
+    expect = {"update_hybrid": scans_run, "search_space": scans_run + 1,
+              "score_offsets": 2 * scans_run}
+    for r in (result, eager, again):
+        if r["launches"] != expect:
+            raise AssertionError(f"launches {r['launches']}, expected "
+                                 f"{expect}")
+    counts = (result["matches"], result["updates"])
+    if counts != (eager["matches"], eager["updates"]) or min(counts) <= 0:
+        raise AssertionError(f"device counters {counts} against the eager "
+                             f"run's {(eager['matches'], eager['updates'])}")
+    # skipped scans report exactly -1; a matched score is >= -free_penalty
+    if int((scores != -1.0).sum()) > result["matches"]:
+        raise AssertionError("more matched scores than matches counted")
+    return traj, result["launches"], state
 
 
 def parity_run(cfg, log, device, traj):
@@ -977,14 +1238,17 @@ def run_localize(cfg, log, device, logodds, slice_ate):
             f"within {LOC_ATE_SLACK_M} m of the map's run ({slice_ate})")
     if not (torch.equal(logodds, keep) and torch.equal(state.logodds, keep)):
         raise AssertionError("localization changed the map")
+    # the match gate is on the device: both scorer passes launch every
+    # scan run (returning at once where it is 0); one CUDA graph replay a
+    # chunk, no host read
     expect = {"update_hybrid": 0, "search_space": 1,
-              "score_offsets": 2 * counts["matches"]}
+              "score_offsets": 2 * scans_run}
     if launches != expect or counts["matches"] <= 0 or counts["updates"]:
         raise AssertionError(f"localization: launches {launches}, "
                              f"expected {expect}; {counts}")
-    if counts["host_syncs"] != scans_run:
+    if counts["host_syncs"] != 0:
         raise AssertionError(f"localization: {counts['host_syncs']} host "
-                             f"reads for {scans_run} scans, expected one a scan")
+                             f"reads for {scans_run} scans, expected none")
 
     part = {k: np.asarray(v)[:PARITY_SCANS] for k, v in log.items()}
     _, traj_plain, _, _ = run_localization(part, cfg, logodds, device,
@@ -1317,13 +1581,13 @@ def run_global(cfg, loc_log, loc_traj, kidnap, device, logodds):
             raise AssertionError(f"relocalization disagrees with the JAX "
                                  f"package's on this map: {result}")
     expect = {"update_hybrid": 0, "search_space": 1,
-              "score_offsets": 2 * counts["matches"] + attempts}
+              "score_offsets": 2 * n_chunks * K + attempts}
     if launches != expect:
         raise AssertionError(f"relocalization: launches {launches}, "
                              f"expected {expect}")
-    if counts["host_syncs"] != n_chunks * K + n_chunks + attempts:
+    if counts["host_syncs"] != n_chunks + attempts:
         raise AssertionError(f"relocalization: {counts['host_syncs']} host "
-                             "reads, expected one a scan, one a chunk and "
+                             "reads, expected one a chunk (its scores) and "
                              "one a relocalization")
     return {"search_space": launches["search_space"],
             "score_offsets": launches["score_offsets"]}
@@ -2282,10 +2546,18 @@ def run_ray(cfg, log, device, hybrid_ate):
         ate_hybrid_m=hybrid_ate, launches=launches, updates=updates,
         matches=matches, host_syncs=frontend_step.host_syncs,
     )))
+    # the match gate is on the device (both scorer passes launch every
+    # scan run); the exact-ray update has no gated in-place form, so its
+    # gate is read on the host, one read a scan run, and it launches once
+    # an update
+    scans_run = -(-len(traj) // cfg.chunk) * cfg.chunk
     expect = {"update_ray": updates, "search_space": updates + 1,
-              "score_offsets": 2 * matches}
+              "score_offsets": 2 * scans_run}
     if launches != expect or min(launches.values()) <= 0:
         raise AssertionError(f"ray frontend: launches {launches}, expected {expect}")
+    if frontend_step.host_syncs != scans_run:
+        raise AssertionError(f"ray frontend: {frontend_step.host_syncs} host "
+                             f"reads, expected one a scan run")
     if not ate <= PF_MAX_ATE_M:
         raise AssertionError(f"ray frontend: ATE {ate} m above {PF_MAX_ATE_M} m")
     return {"update_ray": launches["update_ray"]}
@@ -2417,11 +2689,12 @@ def run_fullslam(cfg, gcfg, log, device):
     """Phase 15: full SLAM (run_full_slam) at the CLI's `--mode full`
     defaults over two laps of bench.py's world through the kernels: at
     least one accepted loop, keyframe ATE below odometry's at the same
-    scans, every launch accounted for (kernel 1 `hybrid`: the frontend's
-    updates, the submaps' and the rebuilds' scans; kernel 3: the
-    frontend's updates + 1, a submap and a correction each; kernel 2: a
-    match's passes (two at this config) and an attempt's match and peak
-    margin (three)). Returns (launches, result)."""
+    scans, every launch accounted for (kernel 1 `hybrid`: one a scan run
+    of the frontend, whose gates are on the device, the submaps' and the
+    rebuilds' scans; kernel 3: one a scan run + 1, a submap and a
+    correction each; kernel 2: a match's passes a scan run (two at this
+    config) and an attempt's match and peak margin (three)), and no host
+    read of the frontend's. Returns (launches, result)."""
     warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
     run_full_slam(warm, cfg, gcfg, device=device)
     # cuSOLVER's first call sets it up: take it before the timed run
@@ -2477,18 +2750,23 @@ def run_fullslam(cfg, gcfg, log, device):
             f"full SLAM: keyframe ATE {result['kf_ate_m']} not below "
             f"odometry's {result['kf_ate_odom_m']}")
     res_m = cfg.grid.resolution
+    # the frontend's gates are on the device: its kernels launch every
+    # scan run, returning at once where their gate is 0
     expect = {
-        "update_hybrid": counts["updates"] + counts["submap_scans"]
+        "update_hybrid": scans_run + counts["submap_scans"]
         + counts["rebuilt_scans"],
-        "search_space": counts["updates"] + 1 + counts["submaps"]
+        "search_space": scans_run + 1 + counts["submaps"]
         + counts["corrections"],
-        "score_offsets": _match_passes(cfg.matcher, res_m) * counts["matches"]
+        "score_offsets": _match_passes(cfg.matcher, res_m) * scans_run
         + (_match_passes(default_loop_matcher(gcfg), res_m) + 1)
         * counts["attempts"],
     }
     if launches != expect or min(launches.values()) <= 0:
         raise AssertionError(f"full SLAM: launches {launches}, expected "
                              f"{expect}")
+    if counts["host_syncs"] != 0:
+        raise AssertionError(f"full SLAM: the frontend read the host "
+                             f"{counts['host_syncs']} times")
     if counts["corrections"] != res.n_loops:
         raise AssertionError(f"full SLAM: {counts['corrections']} "
                              f"corrections for {res.n_loops} loops")
@@ -2610,6 +2888,13 @@ def main(kernels_only: bool = False):
     # phase 3: every kernel against its plain version
     t0 = time.perf_counter()
     checks = kernel_checks(cfg, log, device)
+    # the frontend step's forms take the entries' top level; the
+    # host-origin forms, which full SLAM, the tiles and the checks call,
+    # move under "out_of_place"
+    for name, entry in gated_checks(cfg, log, device).items():
+        e = checks[name]
+        e["out_of_place"] = {k: e.pop(k) for k in FORM_FIELDS if k in e}
+        e.update(entry)
     variants = variant_checks(pf_cfg, pf, device)
     checks.update(pf_kernel_checks(pf_cfg, pf, pf_log, device,
                                    pf1k.n_particles))

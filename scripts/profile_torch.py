@@ -2,7 +2,7 @@
 """Where the time goes in the PyTorch port on one GPU.
 
     python3 scripts/profile_torch.py frontend|ray|localize|tiled
-        [--warm 256] [--scans 256]
+        [--warm 256] [--scans 256] [--eager]
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
         [--warm 128] [--scans 192] [--seeds N]
     python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
@@ -18,7 +18,10 @@ over the warmup scans and then over the traced ones resumed from its
 checkpoint) or at bench_pf.py's default config and log with 100, 1000
 or 16 particles (fastslam, fastslam1000, fastslam16; bf16 512^2 maps): a
 warmup over the first `--warm` scans, then a torch.profiler
-trace (CPU and CUDA activities) of the next `--scans` scans. Prints the
+trace (CPU and CUDA activities) of the next `--scans` scans. The
+frontend and localization run as run_frontend runs them on CUDA, one
+CUDA graph replay a chunk (`--warm` and `--scans` whole chunks);
+`--eager` steps them one by one instead. Prints the
 kernels by device time, then one JSON line: the device busy share of the
 traced wall time, per-scan host time, the step's counters, the largest
 device costs and every kernel of the port's own. Writes the
@@ -54,8 +57,10 @@ from slam2d_tpu_torch.pf.fastslam import (  # noqa: E402
 from slam2d_tpu_torch.run import bench_configs  # noqa: E402
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam  # noqa: E402
 from slam2d_tpu_torch.run.frontend import (  # noqa: E402
+    chunk_graph,
     frontend_init,
     frontend_step,
+    graph_capturable,
     localization_init,
     run_frontend,
 )
@@ -98,23 +103,49 @@ def _busy_us(events) -> float:
     return busy
 
 
-def frontend_steps(dev, cfg):
-    """(steps(lo, hi) running the frontend over scans lo..hi-1, counters)."""
-    log = bench_configs.bench_log(cfg.sensor)
-    odom = torch.as_tensor(log["odom"], device=dev)
-    ranges = torch.as_tensor(log["ranges"], device=dev)
-    state = frontend_init(cfg, dev, start_pose=log["odom"][0],
-                          start_odom=log["odom"][0])
+def _step_runner(dev, cfg, state, log, eager):
+    """steps(lo, hi) over scans lo..hi-1 of `log` from `state`: replays of
+    the config's CUDA graph, one a chunk, as run_frontend runs them (lo
+    and hi multiples of cfg.chunk), or with `eager` (or an update that
+    reads its gate on the host) the steps one by one."""
+    if eager or not graph_capturable(cfg):
+        odom = torch.as_tensor(log["odom"], device=dev)
+        ranges = torch.as_tensor(log["ranges"], device=dev)
+
+        def steps(lo, hi):
+            nonlocal state
+            for k in range(lo, hi):
+                state, _ = frontend_step(state, odom[k], ranges[k], cfg)
+
+        return steps
+    K = cfg.chunk
+    g = chunk_graph(cfg, dev, K)
+    g.load(state)
+    odom = torch.from_numpy(np.ascontiguousarray(log["odom"], np.float32))
+    ranges = torch.from_numpy(np.ascontiguousarray(log["ranges"], np.float32))
+    odom, ranges = odom.pin_memory(), ranges.pin_memory()
+    out = torch.empty((K, 4), dtype=torch.float32, device=dev)
 
     def steps(lo, hi):
-        nonlocal state
-        for k in range(lo, hi):
-            state, _ = frontend_step(state, odom[k], ranges[k], cfg)
+        if lo % K or hi % K:
+            raise ValueError(f"graph replays run whole chunks of {K} scans")
+        for s in range(lo, hi, K):
+            g.run_chunk(odom[s : s + K], ranges[s : s + K], out)
+        g.flush_counts()
 
+    return steps
+
+
+def frontend_steps(dev, cfg, eager=False):
+    """(steps(lo, hi) running the frontend over scans lo..hi-1, counters)."""
+    log = bench_configs.bench_log(cfg.sensor)
+    state = frontend_init(cfg, dev, start_pose=log["odom"][0],
+                          start_odom=log["odom"][0])
+    steps = _step_runner(dev, cfg, state, log, eager)
     return steps, frontend_step, ("host_syncs", "matches", "updates")
 
 
-def localize_steps(dev, cfg):
+def localize_steps(dev, cfg, eager=False):
     """(steps, counters) of localization on the final map of a frontend run
     over bench.py's log (built before the trace), along its localization
     log, as run_localization runs it."""
@@ -122,14 +153,7 @@ def localize_steps(dev, cfg):
     mapped, _, _ = run_frontend(log, cfg, dev)
     loc = bench_configs.localization_log(cfg.sensor)
     cfg, state = localization_init(cfg, mapped.logodds, loc["odom"][0], dev)
-    odom = torch.as_tensor(loc["odom"], device=dev)
-    ranges = torch.as_tensor(loc["ranges"], device=dev)
-
-    def steps(lo, hi):
-        nonlocal state
-        for k in range(lo, hi):
-            state, _ = frontend_step(state, odom[k], ranges[k], cfg)
-
+    steps = _step_runner(dev, cfg, state, loc, eager)
     return steps, frontend_step, ("host_syncs", "matches", "updates")
 
 
@@ -261,6 +285,7 @@ def main():
     ap.add_argument("--warm", type=int)
     ap.add_argument("--scans", type=int)
     ap.add_argument("--seeds", type=int, default=0)
+    ap.add_argument("--eager", action="store_true")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -270,13 +295,15 @@ def main():
     warm = warm if args.warm is None else args.warm
     n = n if args.scans is None else args.scans
     if args.pipeline == "frontend":
-        steps, step, counters = frontend_steps(dev, bench_configs.bench_config())
+        steps, step, counters = frontend_steps(
+            dev, bench_configs.bench_config(), args.eager)
     elif args.pipeline == "ray":
         steps, step, counters = frontend_steps(
             dev, bench_configs.ray_bench_config()
         )
     elif args.pipeline == "localize":
-        steps, step, counters = localize_steps(dev, bench_configs.bench_config())
+        steps, step, counters = localize_steps(
+            dev, bench_configs.bench_config(), args.eager)
     elif args.pipeline == "tiled":
         steps, step, counters = tiled_steps(dev)
     elif args.pipeline == "fullslam":

@@ -29,6 +29,9 @@
 // in rank order from their shared memory (a cluster launch costs ~1.4 us
 // more, so the coarse pass does without). The sums are the same bits from
 // call to call (no atomics), in another order than the plain version's.
+// With a gate (slam2d_score_offsets_gated, the frontend's step), every block
+// returns at once when the device byte *gate is 0, leaving `out` as it
+// was; the caller's select discards it.
 // The beam rows, columns and weights of a block's beams are staged in
 // shared memory once. The TPU kernel's patch bookkeeping (8-row aligned
 // reads, beams dropped whole when their patch leaves the window) is a
@@ -59,9 +62,11 @@ __global__ void score_kernel(const float* __restrict__ S,
                              const float* __restrict__ pos_row,
                              const float* __restrict__ pos_col,
                              const unsigned char* __restrict__ valid,
-                             float* __restrict__ out, int H, int W, int B,
-                             int R, int C, int bilinear, int per_group,
-                             int slices, int per_slice) {
+                             float* __restrict__ out,
+                             const unsigned char* __restrict__ gate, int H,
+                             int W, int B, int R, int C, int bilinear,
+                             int per_group, int slices, int per_slice) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole cluster
   extern __shared__ float smem[];
   int* brow = reinterpret_cast<int*>(smem);
   int* bcol = brow + per_group;
@@ -167,13 +172,10 @@ __global__ void score_kernel(const float* __restrict__ S,
 
 __global__ void empty_kernel() {}
 
-}  // namespace
-
-extern "C" int slam2d_score_offsets(const float* S, const float* pos_row,
-                                    const float* pos_col,
-                                    const unsigned char* valid, float* out,
-                                    int H, int W, int T, int B, int R, int C,
-                                    int bilinear, void* stream) {
+int launch(const float* S, const float* pos_row, const float* pos_col,
+           const unsigned char* valid, float* out, const unsigned char* gate,
+           int H, int W, int T, int B, int R, int C, int bilinear,
+           void* stream) {
   const int RC = R * C;
   if (RC < 1 || RC > MAX_THREADS || B < 1 || T > 65535)
     return (int)cudaErrorInvalidValue;
@@ -197,8 +199,8 @@ extern "C" int slam2d_score_offsets(const float* S, const float* pos_row,
   cudaStream_t st = (cudaStream_t)stream;
   if (groups == 1) {
     score_kernel<false><<<dim3(1, T), threads, smem, st>>>(
-        S, pos_row, pos_col, valid, out, H, W, B, R, C, bilinear, per_group,
-        slices, per_slice);
+        S, pos_row, pos_col, valid, out, gate, H, W, B, R, C, bilinear,
+        per_group, slices, per_slice);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -214,9 +216,29 @@ extern "C" int slam2d_score_offsets(const float* S, const float* pos_row,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, score_kernel<true>, S, pos_row, pos_col, valid, out, H, W, B, R,
-      C, bilinear, per_group, slices, per_slice);
+      &cfg, score_kernel<true>, S, pos_row, pos_col, valid, out, gate, H, W,
+      B, R, C, bilinear, per_group, slices, per_slice);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int slam2d_score_offsets(const float* S, const float* pos_row,
+                                    const float* pos_col,
+                                    const unsigned char* valid, float* out,
+                                    int H, int W, int T, int B, int R, int C,
+                                    int bilinear, void* stream) {
+  return launch(S, pos_row, pos_col, valid, out, nullptr, H, W, T, B, R, C,
+                bilinear, stream);
+}
+
+// As slam2d_score_offsets, when the device byte *gate is not 0
+extern "C" int slam2d_score_offsets_gated(
+    const float* S, const float* pos_row, const float* pos_col,
+    const unsigned char* valid, float* out, const unsigned char* gate, int H,
+    int W, int T, int B, int R, int C, int bilinear, void* stream) {
+  return launch(S, pos_row, pos_col, valid, out, gate, H, W, T, B, R, C,
+                bilinear, stream);
 }
 
 // One launch of an empty kernel: the floor under every launch of the port

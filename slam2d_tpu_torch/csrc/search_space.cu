@@ -39,6 +39,17 @@
 //   of one column a thread, each tap loaded once for them) and applies the
 //   clip and the free penalty in registers, the free test
 //   [sigmoid(l) < free_threshold] on the centre value from shared memory.
+// - In place on a window of the map (slam2d_search_space_window, the
+//   frontend's step): the window's top-left cell (r0, c0) and a gate are
+//   read from device memory. The grid covers the h x w window; a block
+//   writes only the cells that grid/window.py:write_window_blur_exact
+//   keeps (the halo ring of `margin` cells trimmed except on sides
+//   clamped against the map border) and returns at once if its tile holds
+//   none, or if the gate is 0. A kept cell lies at least margin >= n / 2
+//   cells inside the window or on a clamped side, so its blur reads only
+//   window cells or cells off the map, which are zeros here as in the
+//   blur of the extracted window: it gets the bits of extract -> kernel ->
+//   write_window_blur_exact, by the same operations in the same order.
 // Adding tap x 0.0 to a non-negative sum leaves it unchanged, so the
 // zero-filled halo gives the bits of the two-pass kernel it replaces, which
 // skipped the taps off the map. Both buffers have an odd row pitch. The
@@ -87,14 +98,36 @@ __device__ __forceinline__ float tap_of(const Taps& taps, const float* padded,
     return padded[k + CPT - 1];
 }
 
+// The outputs a launch writes: the h x w window of the H x W map at
+// origin[0..1] (device int32; null: cell (0, 0)), less a ring of `margin`
+// cells on each side not clamped against the map border, when the device
+// byte *gate (null: always) is not 0. The whole map: h = H, w = W.
+struct Region {
+  const int* origin;
+  const unsigned char* gate;
+  int h, w, margin;
+};
+
 // NT > 0: the tap count, known when compiling (the loops unroll, and the
 // taps are operands read from the parameters); NT = 0: any odd count, taps.n
 template <int NT>
 __global__ void __launch_bounds__(THREADS)
 search_space_kernel(const float* __restrict__ l, float* __restrict__ out,
-                    int H, int W, const __grid_constant__ Taps taps,
-                    float inv_occ_sat, float free_threshold,
-                    float free_penalty) {
+                    int H, int W, Region reg,
+                    const __grid_constant__ Taps taps, float inv_occ_sat,
+                    float free_threshold, float free_penalty) {
+  if (reg.gate != nullptr && *reg.gate == 0) return;
+  const int wr0 = reg.origin != nullptr ? reg.origin[0] : 0;
+  const int wc0 = reg.origin != nullptr ? reg.origin[1] : 0;
+  // the kept rectangle, in window coordinates
+  const int top = wr0 == 0 ? 0 : reg.margin;
+  const int bottom = wr0 == H - reg.h ? reg.h : reg.h - reg.margin;
+  const int left = wc0 == 0 ? 0 : reg.margin;
+  const int right = wc0 == W - reg.w ? reg.w : reg.w - reg.margin;
+  const int lr0 = blockIdx.y * TY;  // the tile, in window coordinates
+  const int lc0 = blockIdx.x * TX;
+  if (lr0 >= bottom || lr0 + TY <= top || lc0 >= right || lc0 + TX <= left)
+    return;
   extern __shared__ float smem[];
   // the taps with CPT - 1 zeros on each side: tap(k) = padded[k + CPT - 1]
   __shared__ float padded[NT > 0 ? 1 : MAX_TAPS + 2 * (CPT - 1)];
@@ -105,8 +138,8 @@ search_space_kernel(const float* __restrict__ l, float* __restrict__ out,
   const int ext_x = TX + 2 * hw;
   float* lt = smem;               // [ext_y, P] the log-odds tile and halo
   float* rows = smem + ext_y * P;  // [TY, P] row-blurred evidence
-  const int r0 = blockIdx.y * TY;
-  const int c0 = blockIdx.x * TX;
+  const int r0 = wr0 + lr0;  // the tile, in map coordinates
+  const int c0 = wc0 + lc0;
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   // whether tap k takes part: decided when compiling where NT > 0; with
@@ -159,7 +192,7 @@ search_space_kernel(const float* __restrict__ l, float* __restrict__ out,
   for (int t = tid; t < TX * GROUPS; t += THREADS) {
     const int c = t % TX;
     const int rb = (t / TX) * CPT;
-    if (c0 + c >= W || r0 + rb >= H) continue;
+    if (lc0 + c < left || lc0 + c >= right || lr0 + rb >= bottom) continue;
     const float* src = rows + rb * P + c;
     float acc[CPT];
 #pragma unroll
@@ -174,7 +207,8 @@ search_space_kernel(const float* __restrict__ l, float* __restrict__ out,
 #pragma unroll
     for (int m = 0; m < CPT; ++m) {
       const int r = r0 + rb + m;
-      if (r >= H) break;
+      if (lr0 + rb + m >= bottom) break;
+      if (lr0 + rb + m < top) continue;
       const float lv = lt[(rb + m + hw) * P + c + hw];
       const float p = 1.0f / (1.0f + expf(-lv));
       out[(size_t)r * W + c0 + c] =
@@ -184,9 +218,9 @@ search_space_kernel(const float* __restrict__ l, float* __restrict__ out,
 }
 
 template <int NT>
-int launch(const float* l, float* out, int H, int W, const Taps& taps,
-           float inv_occ_sat, float free_threshold, float free_penalty,
-           cudaStream_t stream) {
+int launch(const float* l, float* out, int H, int W, const Region& reg,
+           const Taps& taps, float inv_occ_sat, float free_threshold,
+           float free_penalty, cudaStream_t stream) {
   const size_t smem = smem_bytes(taps.n / 2);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -194,10 +228,26 @@ int launch(const float* l, float* out, int H, int W, const Taps& taps,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 blocks((W + TX - 1) / TX, (H + TY - 1) / TY);
+  const dim3 blocks((reg.w + TX - 1) / TX, (reg.h + TY - 1) / TY);
   search_space_kernel<NT><<<blocks, THREADS, smem, stream>>>(
-      l, out, H, W, taps, inv_occ_sat, free_threshold, free_penalty);
+      l, out, H, W, reg, taps, inv_occ_sat, free_threshold, free_penalty);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const float* logodds, float* out, int H, int W,
+             const Region& reg, const float* taps_host, int n_taps,
+             float inv_occ_sat, float free_threshold, float free_penalty,
+             void* stream) {
+  Taps taps{};
+  if (!load_taps(&taps, taps_host, n_taps) || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  // the frontend's blur at 0.05 m cells (bench.py's config)
+  if (n_taps == 13)
+    return launch<13>(logodds, out, H, W, reg, taps, inv_occ_sat,
+                      free_threshold, free_penalty, s);
+  return launch<0>(logodds, out, H, W, reg, taps, inv_occ_sat,
+                   free_threshold, free_penalty, s);
 }
 
 }  // namespace
@@ -206,14 +256,25 @@ extern "C" int slam2d_search_space(const float* logodds, float* out, int H,
                                    int W, const float* taps_host, int n_taps,
                                    float inv_occ_sat, float free_threshold,
                                    float free_penalty, void* stream) {
-  Taps taps{};
-  if (!load_taps(&taps, taps_host, n_taps) || H < 1 || W < 1)
+  const Region whole{nullptr, nullptr, H, W, 0};
+  return dispatch(logodds, out, H, W, whole, taps_host, n_taps, inv_occ_sat,
+                  free_threshold, free_penalty, stream);
+}
+
+// S of the h x w window of the H x W log-odds map at origin[0..1] (device
+// int32; null: cell (0, 0)), written in place into the kept rectangle of
+// the H x W search space `out` when the device byte *gate (null: always) is
+// not 0. A window smaller than the map needs margin >= n_taps / 2.
+extern "C" int slam2d_search_space_window(
+    const float* logodds, float* out, int H, int W, const int* origin,
+    const unsigned char* gate, int h, int w, int margin,
+    const float* taps_host, int n_taps, float inv_occ_sat,
+    float free_threshold, float free_penalty, void* stream) {
+  if (h < 1 || w < 1 || h > H || w > W || margin < 0 ||
+      ((h < H || w < W) && margin < n_taps / 2) || 2 * margin > h ||
+      2 * margin > w)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  // the frontend's blur at 0.05 m cells (bench.py's config)
-  if (n_taps == 13)
-    return launch<13>(logodds, out, H, W, taps, inv_occ_sat, free_threshold,
-                      free_penalty, s);
-  return launch<0>(logodds, out, H, W, taps, inv_occ_sat, free_threshold,
-                   free_penalty, s);
+  const Region reg{origin, gate, h, w, margin};
+  return dispatch(logodds, out, H, W, reg, taps_host, n_taps, inv_occ_sat,
+                  free_threshold, free_penalty, stream);
 }

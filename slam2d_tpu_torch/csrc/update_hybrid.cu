@@ -29,6 +29,14 @@
 //   d >= max_b rmin3[b] - res cannot be free (invalid beams carry rmin3 =
 //   -1), so it skips the bearing.
 // - Every window cell is still read, clipped and written.
+// - In place on a window of a larger map (slam2d_update_hybrid_window, the
+//   frontend's step): the window's top-left cell (r0, c0) and a gate are
+//   read from device memory, so the host never reads them. A gate of 0
+//   returns every block before it touches memory. The float origin is
+//   ox + (float)c0 * res, two roundings as grid/occupancy.py:
+//   window_origin_xy makes it, so a cell's arithmetic is that of the
+//   extracted window's. Writing in place is safe: a cell's new value is
+//   clip(g + upd) of its own old value alone.
 // The TPU kernel's angular beam clip and range early-out only skip work and
 // never change the result, so they are not carried over, nor is its padding
 // of the beam table to a multiple of 8. The arithmetic follows the TPU
@@ -54,13 +62,26 @@ struct Params {
   float l_free, l_occ, l_clamp, enable;
 };
 
+// grid and out may be one array (in place); `pitch` is their row length,
+// (H, W) the updated window's size; `origin` (the window's top-left cell in
+// the array) and `gate` may be null: no offset, no gate
 __global__ void __launch_bounds__(THREADS)
-    update_hybrid_kernel(const float* __restrict__ grid,
-                         float* __restrict__ out,
+    update_hybrid_kernel(const float* grid, float* out, int pitch,
+                         const int* __restrict__ origin,
+                         const unsigned char* __restrict__ gate,
                          const float* __restrict__ pose,
                          const float* __restrict__ ranges,
                          const float* __restrict__ angles, int H, int W,
                          int B, Params p) {
+  if (gate != nullptr && *gate == 0) return;
+  if (origin != nullptr) {
+    const int r0 = origin[0], c0 = origin[1];
+    p.ox = F_ADD(p.ox, F_MUL((float)c0, p.res));
+    p.oy = F_ADD(p.oy, F_MUL((float)r0, p.res));
+    const size_t base = (size_t)r0 * pitch + c0;
+    grid += base;
+    out += base;
+  }
   extern __shared__ float smem[];
   float* rng = smem;        // [B] the scan
   float* rmin3 = smem + B;  // [B]
@@ -83,7 +104,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int x = 0; x < CX; ++x) {
       const int row = tr0 + threadIdx.y + y * BY;
       const int col = tc0 + threadIdx.x + x * BX;
-      g[y][x] = row < tr1 && col < tc1 ? grid[(size_t)row * W + col] : 0.0f;
+      g[y][x] = row < tr1 && col < tc1 ? grid[(size_t)row * pitch + col] : 0.0f;
     }
   __syncthreads();
 
@@ -154,9 +175,21 @@ __global__ void __launch_bounds__(THREADS)
           F_MUL(F_ADD(F_MUL(p.l_free, free_cell ? 1.0f : 0.0f),
                       F_MUL(p.l_occ, (float)count)),
                 p.enable);
-      out[(size_t)row * W + col] =
+      out[(size_t)row * pitch + col] =
           clampf(F_ADD(g[y][x], upd), -p.l_clamp, p.l_clamp);
     }
+}
+
+int launch(const float* grid, float* out, int pitch, const int* origin,
+           const unsigned char* gate, const float* pose, const float* ranges,
+           const float* angles, int H, int W, int B, const Params& p,
+           void* stream) {
+  const dim3 block(BX, BY);
+  const dim3 blocks((W + TW - 1) / TW, (H + TH - 1) / TH);
+  const size_t smem = 2 * (size_t)B * sizeof(float);
+  update_hybrid_kernel<<<blocks, block, smem, (cudaStream_t)stream>>>(
+      grid, out, pitch, origin, gate, pose, ranges, angles, H, W, B, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -171,10 +204,22 @@ extern "C" int slam2d_update_hybrid(const float* grid, float* out,
                                     void* stream) {
   const Params p{ox,     oy,    res,   step,    angle_min, min_range,
                  max_range, l_free, l_occ, l_clamp, enable};
-  const dim3 block(BX, BY);
-  const dim3 blocks((W + TW - 1) / TW, (H + TH - 1) / TH);
-  const size_t smem = 2 * (size_t)B * sizeof(float);
-  update_hybrid_kernel<<<blocks, block, smem, (cudaStream_t)stream>>>(
-      grid, out, pose, ranges, angles, H, W, B, p);
-  return (int)cudaGetLastError();
+  return launch(grid, out, W, nullptr, nullptr, pose, ranges, angles, H, W, B,
+                p, stream);
+}
+
+// In place on the h x w window of the H x W map `map` whose top-left cell
+// is origin[0..1] (device int32; null: the map's own cell (0, 0)), when the
+// device byte *gate (null: always) is not 0; (ox, oy) is the map's origin.
+extern "C" int slam2d_update_hybrid_window(
+    float* map, const int* origin, const unsigned char* gate,
+    const float* pose, const float* ranges, const float* angles, int H, int W,
+    int h, int w, int B, float ox, float oy, float res, float step,
+    float angle_min, float min_range, float max_range, float l_free,
+    float l_occ, float l_clamp, float enable, void* stream) {
+  if (h < 1 || w < 1 || h > H || w > W) return (int)cudaErrorInvalidValue;
+  const Params p{ox,     oy,    res,   step,    angle_min, min_range,
+                 max_range, l_free, l_occ, l_clamp, enable};
+  return launch(map, map, W, origin, gate, pose, ranges, angles, h, w, B, p,
+                stream);
 }

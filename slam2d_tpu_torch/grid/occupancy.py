@@ -18,7 +18,12 @@ import torch
 
 from slam2d_tpu_torch.config import GridConfig, SensorConfig
 from slam2d_tpu_torch.core.numerics import inv_f32
-from slam2d_tpu_torch.ops.update import update_hybrid, update_ism, update_ray
+from slam2d_tpu_torch.ops.update import (
+    update_hybrid,
+    update_hybrid_window,
+    update_ism,
+    update_ray,
+)
 
 
 def make_grid(cfg: GridConfig, device):
@@ -159,6 +164,33 @@ def integrate_scan(
     return update_hybrid(
         logodds, pose, ranges, beam_angles(sensor, logodds.device),
         origin_xy=origin_xy, enable=enable, plain=plain, **consts,
+    )
+
+
+def integrate_scan_window(
+    logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig, *,
+    origin, size, gate, plain: bool = False,
+):
+    """`integrate_scan` in place on the (h, w) = `size` window of the
+    map `logodds` [H, W] at the int32 device origin `origin` (None: the
+    map's cell (0, 0)), when the bool device tensor `gate` is true: the
+    frontend step's update, with nothing read back to the host. The
+    window's cells get the bits of extract_window -> integrate_scan(...,
+    origin_rc) -> write_window; a gate of 0 leaves the map bit-identical.
+    Only the hybrid update (update_impl "pallas_hybrid", the frontend's
+    "auto") has this form (kernel 1 `hybrid`, ops/update.py:
+    update_hybrid_window). Returns `logodds`."""
+    impl = resolve_update_impl(cfg, sensor)
+    if impl != "pallas_hybrid":
+        raise NotImplementedError(
+            f"update_impl {impl!r} has no in-place gated form; only the "
+            "hybrid update does"
+        )
+    return update_hybrid_window(
+        logodds, pose, ranges, beam_angles(sensor, logodds.device),
+        origin=origin, size=size, gate=gate,
+        origin_xy=(cfg.origin_x, cfg.origin_y), plain=plain,
+        **update_constants(cfg, sensor),
     )
 
 

@@ -211,7 +211,7 @@ def score_cmx(S, pos_row, pos_col, valid, R: int, C: int, bilinear: bool,
 def score_offsets(
     S, prior_pose, pts_local, valid, dthetas, radius: int, cell_size: float,
     origin_xy, bilinear: bool = False, plain: bool = False,
-    impl: str = "gather", use_bf16: bool = True,
+    impl: str = "gather", use_bf16: bool = True, gate=None,
 ):
     """Score every (dtheta, drow, dcol) candidate around prior_pose, for
     drow, dcol in [-radius, radius] — the JAX package's score_offsets with
@@ -223,14 +223,17 @@ def score_offsets(
     `bilinear` the field is sampled at the fractional endpoint position.
     The gather scorer masks each tap outside S on its own; the correlation
     scorer drops a beam whose patch leaves S. Returns
-    [T, 2*radius+1, 2*radius+1] float32 scores.
+    [T, 2*radius+1, 2*radius+1] float32 scores. `gate` (a bool device
+    tensor) lets the gather scorer's kernel return at once when it is
+    false (ops/score.py); the scores are then meaningless.
     """
     pos_row, pos_col = endpoint_positions(
         prior_pose, pts_local, valid, dthetas, cell_size, origin_xy
     )
     if impl == "gather":
         return score_window(
-            S, pos_row, pos_col, valid, radius, bilinear, plain=plain
+            S, pos_row, pos_col, valid, radius, bilinear, plain=plain,
+            gate=gate,
         )
     n = 2 * radius + 1
     denom = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
@@ -304,16 +307,19 @@ def peak_uniqueness(
 def match_scan(
     logodds, ranges, prior_pose, gcfg: GridConfig, mcfg: MatcherConfig,
     sensor: SensorConfig, search_space=None, origin_xy=None,
-    plain: bool = False,
+    plain: bool = False, gate=None,
 ):
     """Coarse-to-fine correlative match of one scan against the grid.
 
     Returns (pose [3], score scalar) as tensors on the input's device. A
     Gaussian motion-model penalty regularizes the argmax toward the prior;
     if the best fine score is below mcfg.min_score the prior is returned.
-    `origin_xy` (host floats) is the world origin of `search_space` when
-    it is a window of the map. mcfg.score_impl picks the scorer
-    (`resolve_score_impl`).
+    `origin_xy` (host floats, or a float32 [2] tensor on the device) is
+    the world origin of `search_space` when it is a window of the map.
+    mcfg.score_impl picks the scorer (`resolve_score_impl`). With `gate`
+    (a bool device tensor; the frontend step's motion gate) the scorer's
+    kernels return at once when it is false, and the result is
+    meaningless: the caller selects the prior instead.
     """
     dev = prior_pose.device
     impl = resolve_score_impl(mcfg.score_impl)
@@ -352,7 +358,7 @@ def match_scan(
         cs = gcfg.resolution * f
         sc = score_offsets(
             Sc, prior_pose, pts_local, valid, dthetas, r_coarse, cs, origin,
-            plain=plain, impl=impl, use_bf16=mcfg.score_bf16,
+            plain=plain, impl=impl, use_bf16=mcfg.score_bf16, gate=gate,
         )
         off_m = torch.arange(
             -r_coarse, r_coarse + 1, dtype=torch.int32, device=dev
@@ -377,7 +383,7 @@ def match_scan(
     sf = score_offsets(
         S, prior2, pts_local, valid, dth_fine, r_pass, gcfg.resolution,
         origin, bilinear=True, plain=plain, impl=impl,
-        use_bf16=mcfg.score_bf16,
+        use_bf16=mcfg.score_bf16, gate=gate,
     )
     fine_m = torch.arange(
         -r_pass, r_pass + 1, dtype=torch.int32, device=dev

@@ -43,17 +43,28 @@ _SIGNATURES = {
     # angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable, stream
     "slam2d_update_hybrid": [_P, _P, _P, _P, _P, _I, _I, _I]
     + [_F] * 11 + [_P],
+    # map, origin, gate, pose, ranges, angles, H, W, h, w, B, ox, oy, res,
+    # step, angle_min, min_range, max_range, l_free, l_occ, l_clamp,
+    # enable, stream
+    "slam2d_update_hybrid_window": [_P] * 6 + [_I] * 5 + [_F] * 11 + [_P],
     # maps, is_bf16, poses, ranges, P, H, W, Hr, Wr, B, gox, goy, res,
     # inv_res, step, half_step, angle_min, min_range, max_range, occ_tol,
     # l_free, l_occ, l_clamp, enable, stream
     "slam2d_update_ism": [_P, _I, _P, _P] + [_I] * 6 + [_F] * 14 + [_P],
     # S, pos_row, pos_col, valid, out, H, W, T, B, R, C, bilinear, stream
     "slam2d_score_offsets": [_P] * 5 + [_I] * 7 + [_P],
+    # S, pos_row, pos_col, valid, out, gate, H, W, T, B, R, C, bilinear,
+    # stream
+    "slam2d_score_offsets_gated": [_P] * 6 + [_I] * 7 + [_P],
     # stream: one launch of an empty kernel (the floor under a launch)
     "slam2d_empty_launch": [_P],
     # logodds, out, H, W, taps (host array), n_taps, 1/occ_sat,
     # free_threshold, free_penalty, stream
     "slam2d_search_space": [_P, _P, _I, _I, _P, _I, _F, _F, _F, _P],
+    # logodds, out, H, W, origin, gate, h, w, margin, taps (host array),
+    # n_taps, 1/occ_sat, free_threshold, free_penalty, stream
+    "slam2d_search_space_window": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
+                                   _I, _F, _F, _F, _P],
     # maps, in_bf16, origins, out, out_bf16, P, Hm, Wm, win, taps (host
     # array), n_taps, 1/occ_sat, free_logit, free_penalty, stream
     "slam2d_window_field": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I]

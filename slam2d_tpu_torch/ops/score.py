@@ -94,29 +94,56 @@ def _check(S, pos_row, pos_col, valid, radius):
 
 def score_window(
     S, pos_row, pos_col, valid, radius: int, bilinear: bool,
-    plain: bool = False,
+    plain: bool = False, gate=None, out=None,
 ):
     """Scores [T, 2*radius+1, 2*radius+1] of the endpoint positions.
 
     S [H, W] float32; pos_row / pos_col [T, B] float32 fractional
     cell-center coordinates of the beam endpoints for each theta, zeroed
     for invalid beams; valid [B] bool. `plain=True` runs the plain
-    version on a CUDA tensor too, for checks of the kernel only."""
+    version on a CUDA tensor too, for checks of the kernel only.
+
+    `gate` (the frontend step's form), a one-element bool tensor on S's
+    device: where it is false the kernel returns at once and the scores
+    are `out` as it was (when `out` is None, a new tensor: uninitialised
+    for the kernel, zeros for the plain version), values that the
+    caller's select discards; nothing is read back to the host. The plain
+    version computes the scores and keeps `out` where the gate is false."""
     _check(S, pos_row, pos_col, valid, radius)
+    T, B = pos_row.shape
+    n = 2 * radius + 1
+    if gate is not None and (gate.dtype != torch.bool or gate.numel() != 1
+                             or gate.device != S.device):
+        raise ValueError("gate must be a one-element bool tensor on S's "
+                         "device")
+    if out is not None and (tuple(out.shape) != (T, n, n)
+                            or out.dtype != torch.float32
+                            or out.device != S.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous float32 [{T}, {n}, {n}] "
+                         "tensor on S's device")
     if plain or S.device.type == "cpu":
-        return score_window_plain(S, pos_row, pos_col, valid, radius, bilinear)
+        sc = score_window_plain(S, pos_row, pos_col, valid, radius, bilinear)
+        if gate is None and out is None:
+            return sc
+        if out is None:
+            out = torch.zeros_like(sc)
+        if gate is not None:
+            sc = torch.where(gate.reshape(()), sc, out)
+        return out.copy_(sc)
     if S.device.type != "cuda":
         raise ValueError(f"no score kernel for device {S.device}")
     H, W = S.shape
-    T, B = pos_row.shape
-    n = 2 * radius + 1
-    out = torch.empty((T, n, n), dtype=torch.float32, device=S.device)
+    if out is None:
+        out = torch.empty((T, n, n), dtype=torch.float32, device=S.device)
     lib = _build.load_library()
-    err = lib.slam2d_score_offsets(
-        S.data_ptr(), pos_row.data_ptr(), pos_col.data_ptr(), valid.data_ptr(),
-        out.data_ptr(), H, W, T, B, n, n, int(bilinear),
-        _build.stream_handle(S.device),
-    )
+    args = (S.data_ptr(), pos_row.data_ptr(), pos_col.data_ptr(),
+            valid.data_ptr(), out.data_ptr())
+    dims = (H, W, T, B, n, n, int(bilinear), _build.stream_handle(S.device))
+    if gate is None:
+        err = lib.slam2d_score_offsets(*args, *dims)
+    else:
+        err = lib.slam2d_score_offsets_gated(*args, gate.data_ptr(), *dims)
     _build.check(err, "slam2d_score_offsets")
     score_window.launches += 1
     return out

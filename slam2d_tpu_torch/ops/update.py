@@ -22,8 +22,11 @@ the ports of slam2d_tpu/ops/pallas_update.py:_update_kernel, variants
 - out = clip(g + (l_free * free + l_occ * occ) * enable, +-l_clamp),
   in float32, stored in the map's dtype.
 
-`update_hybrid`, `update_ism` and `update_ray` send a CUDA tensor to the
-kernel and a CPU tensor to their plain versions; anything else raises.
+`update_hybrid`, `update_hybrid_window`, `update_ism` and `update_ray`
+send a CUDA tensor to the kernel and a CPU tensor to their plain versions;
+anything else raises. `update_hybrid_window` is the frontend step's form
+of kernel 1 `hybrid`: in place on a window of the map whose origin and
+gate lie in device memory.
 """
 
 from __future__ import annotations
@@ -34,6 +37,12 @@ import numpy as np
 import torch
 
 from slam2d_tpu_torch.core.numerics import inv_f32
+from slam2d_tpu_torch.grid.window import (
+    check_window_operands,
+    put_window,
+    take_window,
+    window_origin_xy_t,
+)
 from slam2d_tpu_torch.ops import _build
 
 _MAX_BEAMS = 2048  # beam tables of this length fit the kernels' 48 KB smem
@@ -160,6 +169,75 @@ def update_hybrid(
 
 
 update_hybrid.launches = 0
+
+
+def update_hybrid_window_plain(
+    grid, pose, ranges, angles, *, origin, size, gate, origin_xy,
+    resolution, step, angle_min, min_range, max_range, l_free, l_occ,
+    l_clamp, enable=1.0,
+):
+    """Plain version of the window form, in place: the window gathered at
+    the device origin, `update_hybrid_plain` at its float origin (as
+    window_origin_xy rounds it), and the window written back selected by
+    the gate (a gate of 0 writes the old cells back: the same bits)."""
+    ox, oy = origin_xy
+    if origin is None:
+        g = grid[: size[0], : size[1]]
+    else:
+        g = take_window(grid, origin, size)
+        origin_xy = tuple(window_origin_xy_t(ox, oy, resolution, origin))
+    new = update_hybrid_plain(
+        g, pose, ranges, angles, origin_xy=origin_xy, resolution=resolution,
+        step=step, angle_min=angle_min, min_range=min_range,
+        max_range=max_range, l_free=l_free, l_occ=l_occ, l_clamp=l_clamp,
+        enable=enable,
+    )
+    if gate is not None:
+        new = torch.where(gate.reshape(()), new, g)
+    if origin is None:
+        grid[: size[0], : size[1]] = new
+        return grid
+    return put_window(grid, new, origin)
+
+
+def update_hybrid_window(
+    grid, pose, ranges, angles, *, origin, size, gate, origin_xy,
+    resolution, step, angle_min, min_range, max_range, l_free, l_occ,
+    l_clamp, enable=1.0, plain=False,
+):
+    """Kernel 1 `hybrid` in place on the (h, w) = `size` window of `grid`
+    [H, W] f32 whose top-left cell is the int32 device tensor `origin`
+    (r0, c0) (None: the map's cell (0, 0)), when the bool device tensor
+    `gate` is true (None: always); `origin_xy` is the float world origin
+    of the map's cell (0, 0). The window's cells get the bits of
+    extract_window -> update_hybrid at window_origin_xy -> write_window;
+    a gate of 0 leaves the map bit-identical. One launch; nothing is read
+    back to the host. Returns `grid`."""
+    _check(grid, pose, ranges, angles)
+    check_window_operands(grid, origin, gate, size)
+    kw = dict(
+        origin=origin, size=tuple(size), gate=gate, origin_xy=origin_xy,
+        resolution=resolution, step=step, angle_min=angle_min,
+        min_range=min_range, max_range=max_range, l_free=l_free,
+        l_occ=l_occ, l_clamp=l_clamp, enable=enable,
+    )
+    if plain or grid.device.type == "cpu":
+        return update_hybrid_window_plain(grid, pose, ranges, angles, **kw)
+    if grid.device.type != "cuda":
+        raise ValueError(f"no update kernel for device {grid.device}")
+    H, W = grid.shape
+    lib = _build.load_library()
+    err = lib.slam2d_update_hybrid_window(
+        grid.data_ptr(), None if origin is None else origin.data_ptr(),
+        None if gate is None else gate.data_ptr(), pose.data_ptr(),
+        ranges.data_ptr(), angles.data_ptr(), H, W, size[0], size[1],
+        ranges.shape[0], origin_xy[0], origin_xy[1], resolution, step,
+        angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable,
+        _build.stream_handle(grid.device),
+    )
+    _build.check(err, "slam2d_update_hybrid_window")
+    update_hybrid.launches += 1
+    return grid
 
 
 def _beam_tables(ranges, min_range, max_range):

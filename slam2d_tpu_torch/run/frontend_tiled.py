@@ -44,7 +44,16 @@ from slam2d_tpu_torch.grid.tiles import (
 )
 from slam2d_tpu_torch.grid.window import blur_halo_cells
 from slam2d_tpu_torch.match.correlative import build_search_space, match_scan
-from slam2d_tpu_torch.run.frontend import read_gate
+
+
+def read_gate(gate, center_rc, owner):
+    """One device-to-host read of a gate and a window center with it,
+    counted in `owner.host_syncs`."""
+    owner.host_syncs += 1
+    # one copy to the host: tolist() of a CUDA tensor copies per element
+    packed = torch.cat([gate.reshape(1).to(torch.int32), center_rc]).cpu()
+    g, r, c = packed.tolist()
+    return bool(g), (r, c)
 
 
 def tiled_window_cells(tcfg: TileConfig, sensor: SensorConfig, mcfg: MatcherConfig) -> int:

@@ -4,7 +4,8 @@ pose-graph backend, port of slam2d_tpu/run/full_slam.py.
 The host owns the control flow (keyframe admission, loop gating, when to
 optimize); the dense work runs on the tensors' device:
 
-- tracking: run/frontend.py's step, a chunk of scans at a time;
+- tracking: run/frontend.py's step, a chunk of scans at a time (on CUDA
+  one replay of the frontend's CUDA graph, `run_chunk`);
 - loop candidates: a wide-window correlative match of the new keyframe's
   scan against a submap rebuilt from the old keyframe's neighbourhood, in
   that keyframe's frame (kernels 1 `hybrid`, 3 and 2 at the submap's and
@@ -22,8 +23,10 @@ then chunk c-1's poses are read and processed (keyframe admission and
 loop attempts one chunk behind), then the pending attempts are resolved
 in one read; an accepted loop's solve is dispatched and finalized at the
 next chunk boundary (`defer_accept`), its correction left-applied to the
-rows not yet processed. The port's frontend reads the host twice a scan,
-so this order is kept for the function it computes, not for overlap.
+rows not yet processed. The frontend reads nothing back during a chunk
+(its gates are on the device), but a read of chunk c-1 waits for chunk
+c, enqueued before it: the order is kept for the function it computes,
+not for overlap.
 Device-to-host reads of this module go through `fetch` and are counted in
 `fetch.reads`.
 
@@ -67,8 +70,8 @@ from slam2d_tpu_torch.match.correlative import (
 from slam2d_tpu_torch.run.frontend import (
     FrontendState,
     _pad_log,
-    _run_chunk,
     frontend_init,
+    run_chunk,
 )
 from slam2d_tpu_torch.run.frontend_tiled import (
     _np_between,
@@ -1008,8 +1011,8 @@ def run_full_slam(
     odom_p, ranges_p = _pad_log(odom_np, ranges_np, K)
     for s0 in range(0, T, K):
         out = torch.empty((K, 4), dtype=torch.float32, device=device)
-        state, _ = _run_chunk(state, odom_p[s0 : s0 + K],
-                              ranges_p[s0 : s0 + K], cfg, out, plain)
+        state = run_chunk(state, odom_p[s0 : s0 + K],
+                          ranges_p[s0 : s0 + K], cfg, out, plain)
         # captured BEFORE resolve: an accept patches `state`, and these
         # pre-patch values then owe pend_T; the map is copied, since the
         # next chunk writes into it

@@ -224,8 +224,9 @@ def test_recovery_matches_jax():
     # tracking is back near ground truth after the last recovery
     k0 = tev[-1]["scan"] + 1
     assert np.median(np.hypot(*(tt[k0:, :2] - gt[k0:, :2]).T)) < 0.5
-    # one gate read a scan run, one score read a chunk, one read a
-    # relocalization (each triggered chunk runs one)
+    # the gates stay on the device, and host_syncs counts reads of CUDA
+    # tensors only: on the CPU none (on the card: one score read a chunk
+    # and one a relocalization, chip_smoke.py phase 14)
     K = jloc.CFG.chunk
     n_chunks = -(-len(tt) // K)
     attempts = 0
@@ -233,7 +234,7 @@ def test_recovery_matches_jax():
         sc = tsc[c * K : (c + 1) * K]
         m = sc[sc != -1.0]
         attempts += len(m) >= 3 and float(np.median(m)) < 0.25
-    assert syncs == n_chunks * K + n_chunks + attempts
+    assert syncs == 0
     assert attempts >= len(tev)
 
 

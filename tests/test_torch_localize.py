@@ -55,10 +55,16 @@ def test_localization_matches_jax(map_kind):
     _, jt, jsc, jev = jfe.run_localization(log, jloc.CFG, prebuilt)
     given = prebuilt if map_kind == "numpy" else torch.from_numpy(prebuilt)
     tfe.frontend_step.host_syncs = 0
+    tfe.frontend_step.matches = tfe.frontend_step.updates = 0
     ts, tt, tsc, tev = tfe.run_localization(log, to_port(jloc.CFG), given, CPU)
-    n_run = -(-len(tt) // jloc.CFG.chunk) * jloc.CFG.chunk
-    # one host read a scan: the match gate, no update gate
-    assert tfe.frontend_step.host_syncs == n_run
+    # the gates stay on the device: no host read (host_syncs counts reads
+    # of CUDA tensors; on the CPU the step branches on a CPU read, which
+    # drains no stream); the device counters count every matched scan (the
+    # padded tail repeats the last odometry, so it never matches) and no
+    # update
+    assert tfe.frontend_step.host_syncs == 0
+    assert tfe.frontend_step.matches == int((tsc != -1.0).sum()) > 0
+    assert tfe.frontend_step.updates == 0
     assert tt.shape == jt.shape and np.isfinite(tt).all()
     assert tev == jev == []
     np.testing.assert_array_equal(tsc == -1.0, jsc == -1.0)
@@ -125,9 +131,11 @@ def test_frame_cb_once_a_chunk_like_jax():
                                       frame_cb=cb_t)
     syncs = tfe.frontend_step.host_syncs
     _, traj_plain, _ = tfe.run_frontend(log, to_port(MAP_CFG), CPU)
-    # the callback changes nothing: the same trajectory and gate reads
+    # the callback changes nothing: the same trajectory, and no host read
+    # counted (its one map read a chunk is the caller's, and the gates
+    # stay on the device)
     np.testing.assert_array_equal(traj, traj_plain)
-    assert tfe.frontend_step.host_syncs == 2 * syncs
+    assert tfe.frontend_step.host_syncs == 2 * syncs == 0
     jfe.run_frontend(log, MAP_CFG, frame_cb=cb_j)
     K = MAP_CFG.chunk
     assert len(calls_t) == len(calls_j) == -(-OFFLINE_SCANS // K)

@@ -117,12 +117,13 @@ def test_ate_matches_jax():
 
 def _port_sources():
     files = sorted((ROOT / "slam2d_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_torch.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                    ROOT / "scripts" / "profile_torch.py"]
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No file of slam2d_tpu_torch/, nor chip_smoke.py nor
-    scripts/profile_torch.py, imports slam2d_tpu or jax."""
+    """No file of slam2d_tpu_torch/, nor chip_smoke.py, bench_torch.py
+    or scripts/profile_torch.py, imports slam2d_tpu or jax."""
     bad = []
     files = _port_sources()
     assert len(files) > 20
