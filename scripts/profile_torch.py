@@ -6,6 +6,7 @@
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
         [--warm 128] [--scans 192] [--seeds N]
     python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
+    python3 scripts/profile_torch.py schur [--warm 2] [--scans 3]
     (all: [--out profile_out])
 
 Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend;
@@ -15,7 +16,10 @@ tiled: the tiled frontend at the CLI's tile defaults over a lap of the
 corridor world, its host loop included; fullslam: full SLAM at the CLI's
 `--mode full` defaults over two laps of bench.py's world, run_full_slam
 over the warmup scans and then over the traced ones resumed from its
-checkpoint) or at bench_pf.py's default config and log with 100, 1000
+checkpoint; schur: `--scans` Schur solves (graph/schur.py, 4 blocks,
+the host's plan and tables included) of that run's final graph, after
+`--warm` untraced ones, with the plan, the tables and the iterations
+timed apart first) or at bench_pf.py's default config and log with 100, 1000
 or 16 particles (fastslam, fastslam1000, fastslam16; bf16 512^2 maps): a
 warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. The
@@ -76,6 +80,7 @@ DEFAULTS = {  # warm, scans
     "fastslam1000": (128, 192), "fastslam16": (128, 192),
     # the second lap, where the loops close (715 scans in all)
     "fullslam": (384, 331),
+    "schur": (2, 3),   # solves, not scans
 }
 PF_CONFIGS = {
     "fastslam": bench_configs.pf_bench_config,
@@ -229,6 +234,49 @@ def fullslam_steps(dev):
     return steps, frontend_step, ("host_syncs", "matches", "updates")
 
 
+def schur_steps(dev):
+    """(steps(lo, hi) making hi - lo Schur solves of full SLAM's final
+    graph, counters); first the plan, the tables and the iterations each
+    timed apart (median of 5, synced)."""
+    from slam2d_tpu_torch.graph import schur, se2_graph
+
+    cfg, gcfg = bench_configs.fullslam_bench_config()
+    log = bench_configs.fullslam_bench_log(cfg.sensor)
+    res = full_slam.run_full_slam(log, cfg, gcfg, device=dev)
+    host = se2_graph.HostGraph.from_arrays(gcfg, res.ckpt["graph"])
+    g = host.to_device(dev)
+
+    def ms(fn):
+        out = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    plan = schur.build_plan(host, 4)
+    tables = schur.schur_tables(plan, dev)
+    print(json.dumps(dict(
+        card=bench_configs.card(), nodes=host.n_nodes, edges=host.n_edges,
+        separators=plan.n_sep, interior_slots=plan.int_ids.shape[1],
+        plan_ms=ms(lambda: schur.build_plan(host, 4)),
+        tables_ms=ms(lambda: schur.schur_tables(plan, dev)),
+        iterations_ms=ms(lambda: schur.optimize_schur(
+            g, gcfg, 4, plan=plan, tables=tables)),
+        solve_ms=ms(lambda: schur.optimize_schur(
+            g, gcfg, 4, plan=schur.build_plan(host, 4))),
+        dense_ms=ms(lambda: se2_graph.optimize(g, gcfg)),
+    )))
+
+    def steps(lo, hi):
+        for _ in range(lo, hi):
+            schur.optimize_schur(g, gcfg, 4, plan=schur.build_plan(host, 4))
+
+    return steps, steps, ()
+
+
 def fastslam_steps(dev, cfg, pf, seeds):
     """(steps(lo, hi) running FastSLAM over scans lo..hi-1, counters);
     with `seeds`, the whole-log sweep first."""
@@ -308,6 +356,8 @@ def main():
         steps, step, counters = tiled_steps(dev)
     elif args.pipeline == "fullslam":
         steps, step, counters = fullslam_steps(dev)
+    elif args.pipeline == "schur":
+        steps, step, counters = schur_steps(dev)
     else:
         cfg, pf = PF_CONFIGS[args.pipeline]()
         steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds)

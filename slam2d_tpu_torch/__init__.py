@@ -1,15 +1,16 @@
 """slam2d_tpu_torch — the scan-matching frontend (on a fixed grid and on
 the tiled, unbounded world), localization on a fixed map with global
 relocalization, FastSLAM, and full SLAM with loop closure and a pose
-graph on a bounded grid, of slam2d_tpu in PyTorch, with hand-written
-CUDA kernels for the NVIDIA H100 (sm_90a).
+graph (dense or block-Schur) on a bounded grid and on the tiled world, of
+slam2d_tpu in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
+(sm_90a).
 
 The JAX package `slam2d_tpu` is the reference this package is tested
 against; its layout is mirrored here (config, core/se2, data/synth,
-graph/se2_graph, grid/occupancy, grid/tiles, grid/window,
+graph/schur, graph/se2_graph, grid/occupancy, grid/tiles, grid/window,
 match/correlative, match/global_loc, metrics, pf/fastslam,
 pf/shared_refine, pf/shared_update, run/frontend, run/frontend_tiled,
-run/fastslam_run, run/full_slam) so
+run/fastslam_run, run/full_slam, run/full_slam_tiled) so
 each module's counterpart is easy to find. This package imports nothing
 of JAX and nothing of `slam2d_tpu`: it keeps its own copies of the
 configs, the log simulator and the trajectory metrics.
@@ -21,7 +22,8 @@ version in the same module. The entry points (`run_frontend`,
 `run_frontend_offline`, `run_localization`, `frontend_init`,
 `run_tiled_frontend`, `tiled_frontend_init`, `global_localize` given
 numpy arrays, `run_fastslam`, `fastslam_init`, `run_full_slam`,
-`graph_init`) run on the card unless the caller passes another device.
+`run_full_slam_tiled`, `graph_init`) run on the card unless the caller
+passes another device.
 """
 
 from slam2d_tpu_torch.config import (  # noqa: F401

@@ -2,7 +2,7 @@
 
 A copy of the JAX package's slam2d_tpu/data/synth.py (SynthWorld,
 _waypoint_trajectory, simulate_log, corridor_world, corridor_loop_log,
-splice_odom): a known line-segment world is raycast along a known
+endurance_log, splice_odom): a known line-segment world is raycast along a known
 trajectory to give CARMEN-style records, namely ground-truth poses,
 drifting noisy odometry and noisy range scans. The same seed gives the
 same arrays in both packages.
@@ -186,6 +186,40 @@ def corridor_loop_log(
         ]
     )
     return world, simulate_log(world, wp, sensor, step=step, seed=seed, **noise)
+
+
+def endurance_log(
+    sensor: SensorConfig | None = None,
+    span: float = 28.0,
+    laps: int = 3,
+    step: float = 0.03,
+    seed: int = 0,
+    **noise,
+):
+    """An endurance log matched to the Intel Research Lab log's statistics
+    (the real logs are not on disk): `laps` laps of the ring corridor at
+    ~3 cm a scan, 180 beams, every scan after the first lap revisiting
+    mapped territory. Each lap runs at a small lane offset drawn with
+    seed + 1000 (revisits are near, not identical). laps=4 at step=0.03
+    over the 28 m ring gives 13,337 scans. Returns (world, log) like
+    corridor_loop_log."""
+    sensor = sensor or SensorConfig()
+    world = corridor_world(span)
+    m = 1.5
+    rng = np.random.default_rng(seed + 1000)
+    wp = []
+    for lap in range(laps):
+        off = float(rng.uniform(-0.25, 0.25))
+        wp += [
+            [m + off, m + off],
+            [m + off, span - m - off],
+            [span - m - off, span - m - off],
+            [span - m - off, m + off],
+        ]
+    wp.append([m + 0.5, m])
+    return world, simulate_log(
+        world, np.asarray(wp), sensor, step=step, seed=seed, **noise
+    )
 
 
 def splice_odom(a_odom: np.ndarray, b_odom: np.ndarray) -> np.ndarray:

@@ -2,10 +2,12 @@
 (the frontend) and bench_pf.py (FastSLAM at its defaults, with 100, 1000
 or 16 particles), a localization log and a kidnap log in bench.py's
 world, the tiled frontend at the CLI's tile defaults on a lap of the
-corridor world, and full SLAM at the CLI's `--mode full` defaults on two
-laps of bench.py's world, for the scripts that drive the port on a GPU
-(chip_smoke.py, scripts/profile_torch.py), and the card's name and power
-limit as nvidia-smi reports them.
+corridor world, full SLAM at the CLI's `--mode full` defaults on two
+laps of bench.py's world, and full SLAM on the tiled world at the CLI's
+tile defaults on a Killian-scale lap of the corridor world, for the
+scripts that drive the port on a GPU (chip_smoke.py,
+scripts/profile_torch.py), and the card's name and power limit as
+nvidia-smi reports them.
 """
 
 from __future__ import annotations
@@ -172,16 +174,56 @@ def fullslam_bench_config():
     )
 
 
-def fullslam_bench_log(sensor):
+def fullslam_bench_log(sensor, seed: int = 3):
     """scripts/bench_fullslam.py's log: two laps of bench.py's box-rooms
     tour (0.15 m steps, odometry noise 0.02 m / 0.006 rad, seed 3), the
-    second lap re-entering the first's territory throughout: 715 scans."""
+    second lap re-entering the first's territory throughout: 715 scans.
+    Another `seed` draws other noise along the same route."""
     lap = _ROUTE[:-1] + [[3.0, 10.0]]
     wp = np.array(lap + [[3.0, 3.5]] + lap[1:] + [[3.0, 4.0]])
     return simulate_log(
         SynthWorld.box_rooms(20.0), wp, sensor, step=0.15,
-        odom_noise_xy=0.02, odom_noise_theta=0.006, seed=3,
+        odom_noise_xy=0.02, odom_noise_theta=0.006, seed=seed,
     )
+
+
+def fullslam_tiled_bench_config():
+    """(cfg, tcfg, graph_cfg): full SLAM on the tiled world at the CLI's
+    tile defaults (tiled_bench_config: 512^2 tiles, 64 slots, 0.05 m,
+    bench.py's sensor, matcher and chunk 64) with fullslam_bench_config's
+    GraphConfig."""
+    cfg, tcfg = tiled_bench_config()
+    return cfg, tcfg, fullslam_bench_config()[1]
+
+
+def fullslam_tiled_killian_config():
+    """(cfg, tcfg, graph_cfg) of tests/test_killian_scale.py: 256^2 tiles
+    at 0.1 m (48 slots), bench.py's sensor, the test's matcher (n_theta
+    13, search_xy 0.3 m) and chunk 32, keyframes every 1 m, loop radius
+    3 m, gap 20, accept score 0.35. On fullslam_tiled_bench_log it closes
+    the lap (the JAX package's test holds kf ATE below 2 m)."""
+    cfg = FrontendConfig(
+        sensor=SensorConfig(n_beams=180, max_range=12.0),
+        grid=GridConfig(resolution=0.1, ray_samples=128),
+        matcher=MatcherConfig(search_xy=0.3, search_theta=0.15, n_theta=13),
+        chunk=32,
+        bootstrap_dist=2.0,
+    )
+    gcfg = GraphConfig(
+        max_nodes=512, max_edges=2048, keyframe_dist=1.0, loop_min_gap=20,
+        loop_radius=3.0, loop_score_accept=0.35, gn_iters=10,
+    )
+    return cfg, TileConfig(tile=256, n_slots=48, resolution=0.1), gcfg
+
+
+def fullslam_tiled_bench_log(sensor):
+    """tests/test_killian_scale.py's lap: the 60 m ring corridor at 0.25 m
+    steps, odometry noise 0.02 m / 0.004 rad, seed 3 (911 scans, ~230 m
+    of travel, odometry drifting more than 5 m)."""
+    _, log = corridor_loop_log(sensor, span=60.0, step=0.25,
+                               odom_noise_xy=0.02, odom_noise_theta=0.004,
+                               seed=3)
+    return log
 
 
 def card() -> str:

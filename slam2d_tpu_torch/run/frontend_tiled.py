@@ -185,6 +185,29 @@ tiled_frontend_step.matches = 0
 tiled_frontend_step.updates = 0
 
 
+def run_tiled_chunk(state: TiledFrontendState, table: TileTable, odom,
+                    ranges, cfg: FrontendConfig, tcfg: TileConfig, out,
+                    plain: bool = False) -> TiledFrontendState:
+    """One chunk of the tiled frontend, the port's counterpart of the JAX
+    package's `make_tiled_chunk_fn`: `odom` [K, 3] and `ranges` [K, B]
+    (numpy arrays or tensors; copied to the state's device in one copy
+    each) stepped in order with tiled_frontend_step, each scan's pose and
+    score written into row k of `out` [K, 4] (a tensor on the device).
+    The tiles the chunk needs must be active in `table` (the pools' host
+    TileTable). Returns the state after the chunk; its tiles are written
+    in place."""
+    device = state.pose.device
+    o_t = torch.as_tensor(odom, dtype=torch.float32, device=device)
+    r_t = torch.as_tensor(ranges, dtype=torch.float32, device=device)
+    for k in range(o_t.shape[0]):
+        state, (pose, score) = tiled_frontend_step(
+            state, o_t[k], r_t[k], cfg, tcfg, table, plain=plain
+        )
+        out[k, :3] = pose
+        out[k, 3] = score
+    return state
+
+
 def run_tiled_frontend(
     log: dict, cfg: FrontendConfig, tcfg: TileConfig, device="cuda",
     state: TiledFrontendState | None = None, drift_margin: float = 2.0,
@@ -251,14 +274,8 @@ def run_tiled_frontend(
             grid=grid, sgrid=state.sgrid._replace(coords=grid.coords)
         )
 
-        o_t = torch.as_tensor(o, device=device)
-        r_t = torch.as_tensor(r, device=device)
-        for k in range(K):
-            state, (pose, score) = tiled_frontend_step(
-                state, o_t[k], r_t[k], cfg, tcfg, table, plain=plain
-            )
-            out[s + k, :3] = pose
-            out[s + k, 3] = score
+        state = run_tiled_chunk(state, table, o, r, cfg, tcfg,
+                                out[s : s + K], plain)
         tiled_frontend_step.host_syncs += 1
         est = state.pose.cpu().numpy()
         base = o[-1]

@@ -10,7 +10,8 @@ optimize); the dense work runs on the tensors' device:
   scan against a submap rebuilt from the old keyframe's neighbourhood, in
   that keyframe's frame (kernels 1 `hybrid`, 3 and 2 at the submap's and
   the loop matcher's shapes);
-- the graph solve: graph/se2_graph.py (dense Gauss-Newton);
+- the graph solve: graph/se2_graph.py (dense Gauss-Newton) or
+  graph/schur.py (block Schur elimination);
 - the map rebuild after a correction: every keyframe scan integrated again
   at its corrected pose, replayed from a cached prefix where the poses did
   not move.
@@ -33,9 +34,9 @@ Device-to-host reads of this module go through `fetch` and are counted in
 The frontend writes its map in place (grid/window.py), so every map this
 module keeps beside the live one is a copy: the rebuilder's cached prefix
 (copied when cached and when replayed from), the map handed to `frame_cb`
-and the checkpoint's frontend state. Only the solvers of graph/se2_graph
-are ported: the JAX package's "schur", "schur_sharded", "sparse" and
-"hier" optimizers raise NotImplementedError.
+and the checkpoint's frontend state. The dense and the Schur solvers are
+ported: the JAX package's "schur_sharded", "sparse" and "hier"
+optimizers raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from slam2d_tpu_torch.config import (
 )
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.core.numerics import inv_f32
-from slam2d_tpu_torch.graph import se2_graph
+from slam2d_tpu_torch.graph import schur, se2_graph
 from slam2d_tpu_torch.grid.occupancy import integrate_scan, make_grid
 from slam2d_tpu_torch.grid.window import (
     extract_window,
@@ -85,23 +86,22 @@ from slam2d_tpu_torch.run.frontend_tiled import (
 # it the JAX package runs its hierarchical solver, which is not ported
 DENSE_MAX_KEYFRAMES = 1024
 _NOT_PORTED = {
-    "schur": "graph/schur.py",
-    "schur_sharded": "graph/schur.py and multi-device (ROADMAP queue 1 "
-                     "item 10)",
-    "sparse": "graph/sparse.py",
-    "hier": "graph/sparse.py",
+    "schur_sharded": "graph/schur.py's optimize_schur_sharded and "
+                     "multi-device (ROADMAP queue 1 item 10)",
+    "sparse": "graph/sparse.py (ROADMAP queue 1 item 6)",
+    "hier": "graph/sparse.py (ROADMAP queue 1 item 6)",
 }
+SCHUR_BLOCKS = 4   # the JAX package's n_blocks for optimizer="schur"
 
 
 def _check_optimizer(optimizer: str) -> None:
     if optimizer in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer={optimizer!r} needs {_NOT_PORTED[optimizer]}, which "
-            "is not ported yet (ROADMAP queue 1 item 8); the port runs "
-            "'dense', and 'auto' up to "
-            f"{DENSE_MAX_KEYFRAMES} keyframes"
+            "is not ported yet; the port runs 'dense', 'schur', and 'auto' "
+            f"up to {DENSE_MAX_KEYFRAMES} keyframes"
         )
-    if optimizer not in ("auto", "dense"):
+    if optimizer not in ("auto", "dense", "schur"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
@@ -680,8 +680,11 @@ class LoopCloser:
 
     def _dispatch_optimize(self, i, k_new, z, score):
         """Add the loop edge, copy the graph to the device and solve it.
-        Returns tensors (poses[:n_now], chi2, pruned edge flags); the only
-        host read is whether the chi^2 prune flagged an edge."""
+        Returns tensors (poses[:n_now], chi2, pruned edge flags). The dense
+        solver solves again with the pruned edges masked (its only host
+        read is whether the chi^2 prune flagged an edge); the Schur solver,
+        as the JAX package's, does not: the flags land in the HostGraph at
+        the finalize, and the next solve leaves the edges out."""
         gcfg = self.gcfg
         optimizer = self.optimizer
         if optimizer == "auto":
@@ -694,7 +697,14 @@ class LoopCloser:
         self.loop_records.append((i, k_new, score, z[0], z[1], z[2]))
         self.n_loops += 1
         dev_graph = self.graph.to_device(self.device)
-        dev_graph, chi = se2_graph.optimize(dev_graph, gcfg)
+        if optimizer == "schur":
+            # the plan from the host's edge list: no read of the device
+            dev_graph, chi = schur.optimize_schur(
+                dev_graph, gcfg, SCHUR_BLOCKS,
+                plan=schur.build_plan(self.graph, SCHUR_BLOCKS),
+            )
+        else:
+            dev_graph, chi = se2_graph.optimize(dev_graph, gcfg)
         prune_chi2 = float(gcfg.loop_prune_chi2)
         if prune_chi2 > 0.0:
             # two detectors: a loop edge's own whitened residual^2 at the
@@ -712,9 +722,9 @@ class LoopCloser:
             )
             prune = prune | (new_e & delta_bad)
             # solve again from the solved iterate only when something was
-            # pruned (with GNC a warm re-solve is not a no-op)
-            (any_pruned,) = fetch(prune.any())
-            if bool(any_pruned):
+            # pruned (with GNC a warm re-solve is not a no-op); never
+            # under "schur"
+            if optimizer != "schur" and bool(fetch(prune.any())[0]):
                 g2, chi = se2_graph.optimize(
                     dev_graph._replace(edge_mask=dev_graph.edge_mask & ~prune),
                     gcfg,
@@ -818,6 +828,204 @@ def _owned(x, device, dtype=torch.float32):
     return torch.tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+class HostLoop:
+    """The host side of a full-SLAM run, shared by run_full_slam and
+    run_full_slam_tiled: the keyframe store and the pose graph (empty, or
+    copied from a checkpoint's host fields), keyframe admission and loop
+    attempts one chunk behind the tracking, the LoopCloser's resolve at
+    each chunk boundary with the correction owed to the rows not yet
+    processed, the final drain, the checkpoint's host fields and the
+    result. The runner supplies the tracking and `apply_correction(Tc)`
+    (the map rebuild and the frontend-state patch), sets `est` (and
+    `base`, for the tiled forecast) from its initial state, and hands
+    each chunk it has run to `step`: a dict of its first scan "s0", its
+    length "n", its poses "tr" [K, 3] and final pose "pose" (tensors),
+    and optionally "base" (its last odometry, kept as `base` when the
+    chunk is processed) and "logodds" (a map copy for `frame_cb`)."""
+
+    def __init__(self, cfg, graph_cfg, loop_matcher, submap_halfwidth,
+                 ranges_np, optimizer, odom_edge_info, loop_edge_info,
+                 scan_index_offset, apply_correction, resume=None,
+                 defer_accept=True, frame_cb=None, device="cuda",
+                 plain=False):
+        self.gcfg = graph_cfg
+        self.ranges_np = ranges_np
+        self.offset = scan_index_offset
+        self.odom_edge_info = odom_edge_info
+        self.frame_cb = frame_cb
+        n_loops, chi2, cache_anchor = 0, 0.0, -1
+        self.graph = se2_graph.HostGraph(graph_cfg)
+        self.kf_poses, self.kf_scans, self.kf_scan_idx = [], [], []
+        self.loop_records = []
+        self.cooldown = 0
+        self.last_kf_pose = None
+        if resume is not None:
+            self.graph = se2_graph.HostGraph.from_arrays(graph_cfg,
+                                                        resume["graph"])
+            kc = int(resume["kf_count"])
+            self.kf_poses = [np.array(resume["kf_poses"][k], np.float32)
+                             for k in range(kc)]
+            self.kf_scans = [np.array(resume["kf_scans"][k], np.float32)
+                             for k in range(kc)]
+            self.kf_scan_idx = [int(resume["kf_scan_idx"][k])
+                                for k in range(kc)]
+            n_loops = int(resume["n_loops"])
+            self.loop_records = [tuple(np.asarray(resume["loops"][k]))
+                                 for k in range(n_loops)]
+            chi2 = float(resume["chi2"])
+            self.cooldown = int(resume["cooldown"])
+            if kc > 0:
+                self.last_kf_pose = np.array(resume["last_kf_pose"],
+                                             np.float32)
+            cache_anchor = int(resume["loop_cache_anchor"])
+        self.traj_out = np.zeros((len(ranges_np), 3), np.float32)
+        self.closer = LoopCloser(
+            cfg, graph_cfg, loop_matcher, default_submap_grid(cfg),
+            submap_halfwidth, self.graph, self.kf_poses, self.kf_scans,
+            self.kf_scan_idx, ranges_np, self.traj_out, optimizer,
+            loop_edge_info, scan_index_offset, apply_correction,
+            self.loop_records, n_loops=n_loops, chi2=chi2,
+            cache_anchor=cache_anchor, defer_accept=defer_accept,
+            device=device, plain=plain,
+        )
+        self.emitted_upto = -1   # last traj_out row written (run-local)
+        self.est = None          # pose after the last processed chunk
+        self.base = None         # its odometry (the tiled forecast's)
+        self.pend = None         # run-but-unprocessed chunk outputs
+        self.pend_T = None       # left transform owed to pend's rows
+
+    def admit(self, pose, scan_i: int) -> int:
+        """Admit a keyframe at run-local scan `scan_i`; returns its index."""
+        self.kf_poses.append(pose.copy())
+        self.kf_scans.append(self.ranges_np[scan_i])
+        self.kf_scan_idx.append(scan_i + self.offset)  # absolute index
+        self.graph.add_node(pose)
+        k = len(self.kf_poses) - 1
+        if k > 0:
+            z = _np_between(self.kf_poses[k - 1], pose)
+            self.graph.add_edge(k - 1, k, z, np.eye(3) * self.odom_edge_info)
+        return k
+
+    def process_pending(self):
+        """Read the pending chunk's poses in one copy, owe them the
+        corrections accepted since it ran, emit them, and admit its
+        keyframes (issuing loop attempts outside the cooldown)."""
+        pend = self.pend
+        if pend is None:
+            return
+        tr, est_new = fetch(pend["tr"], pend["pose"])
+        n_here = pend["n"]
+        tr = tr[:n_here]
+        self.est = np.asarray(est_new, np.float32)
+        if "base" in pend:
+            self.base = pend["base"]
+        if self.pend_T is not None:
+            tr = _np_compose_batch(self.pend_T, tr)
+            self.est = np.asarray(_np_compose(self.pend_T, self.est),
+                                  np.float32)
+            self.pend_T = None
+        s0 = pend["s0"]
+        self.traj_out[s0 : s0 + n_here] = tr
+        self.emitted_upto = s0 + n_here - 1
+        if self.frame_cb is not None:
+            self.frame_cb(pend["logodds"], tr)
+        gcfg = self.gcfg
+        for t in range(n_here):
+            scan_i = s0 + t
+            pose = tr[t]
+            if self.last_kf_pose is None:
+                self.last_kf_pose = pose
+                self.admit(pose, scan_i)
+                continue
+            last = self.last_kf_pose
+            moved = np.hypot(*(pose[:2] - last[:2]))
+            rot = abs((pose[2] - last[2] + np.pi) % (2 * np.pi) - np.pi)
+            if moved >= gcfg.keyframe_dist or rot >= gcfg.keyframe_angle:
+                if len(self.kf_poses) >= gcfg.max_nodes - 1:
+                    continue
+                self.last_kf_pose = pose
+                k_new = self.admit(pose, scan_i)
+                if self.cooldown > 0:
+                    self.cooldown -= 1
+                else:
+                    self.closer.issue(k_new, scan_i)
+        self.pend = None
+
+    def _resolve(self):
+        cd, self.est, nl, T_acc = self.closer.resolve(self.est,
+                                                      self.emitted_upto)
+        if cd is not None:
+            self.cooldown = cd
+        if nl is not None:
+            self.last_kf_pose = nl
+        return T_acc
+
+    def step(self, cand: dict):
+        """A chunk has run (`cand`, captured before any accept patches the
+        state): process the previous one, resolve the pending attempts,
+        and owe this chunk the correction of every accept finalized
+        here."""
+        self.process_pending()
+        T_acc = self._resolve()
+        if T_acc is not None:
+            self.pend_T = T_acc if self.pend_T is None else np.asarray(
+                _np_compose(T_acc, self.pend_T), np.float32
+            )
+        self.pend = cand
+
+    def finish(self):
+        """Process the last chunk and drain: an accept can issue attempts
+        again, and a deferred accept still needs its finalize."""
+        self.process_pending()
+        while self.closer.pending or self.closer.pending_accept is not None:
+            self._resolve()
+
+    def checkpoint(self, ckpt: dict, rebuilder, frontend, device) -> dict:
+        """Fill `ckpt` (a template of the runner's schema) with the run's
+        state: `frontend`, the graph, the keyframes, loops and counters,
+        and `rebuilder`'s render poses."""
+        closer = self.closer
+        ckpt["frontend"] = frontend
+        ckpt["graph"] = self.graph.to_device(device)
+        nk = len(self.kf_poses)
+        if nk:
+            ckpt["kf_poses"][:nk] = np.stack(self.kf_poses)
+            ckpt["kf_scans"][:nk] = np.stack(self.kf_scans)
+            ckpt["kf_scan_idx"][:nk] = np.asarray(self.kf_scan_idx, np.int32)
+            ckpt["last_kf_pose"] = np.asarray(
+                self.last_kf_pose if self.last_kf_pose is not None
+                else self.kf_poses[-1], np.float32,
+            )
+        ckpt["kf_count"] = np.int32(nk)
+        if self.loop_records:
+            ckpt["loops"][:closer.n_loops] = np.asarray(self.loop_records,
+                                                        np.float32)
+        ckpt["n_loops"] = np.int32(closer.n_loops)
+        ckpt["chi2"] = np.float32(closer.chi2)
+        ckpt["cooldown"] = np.int32(self.cooldown)
+        ckpt["loop_cache_anchor"] = np.int32(closer.cache_anchor)
+        ckpt["map_poses"] = rebuilder.map_poses.copy()
+        ckpt["map_pose_count"] = np.int32(rebuilder.n_prev)
+        return ckpt
+
+    def result(self, grid, ckpt) -> FullSLAMResult:
+        closer = self.closer
+        return FullSLAMResult(
+            traj=self.traj_out,
+            kf_poses=(np.stack(self.kf_poses) if self.kf_poses
+                      else np.zeros((0, 3))),
+            kf_scan_idx=np.asarray(self.kf_scan_idx, np.int64),
+            n_loops=closer.n_loops,
+            grid=grid,
+            chi2=closer.chi2,
+            loops=np.asarray(self.loop_records, np.float32).reshape(-1, 6),
+            loop_attempts=np.asarray(
+                closer.attempt_records, np.float32
+            ).reshape(-1, 10),
+            ckpt=ckpt,
+        )
+
+
 def run_full_slam(
     log: dict,
     cfg: FrontendConfig,
@@ -842,10 +1050,11 @@ def run_full_slam(
     behind the tracking as in the JAX package, with a copy of the map at
     that chunk's end and the chunk's poses (numpy [n, 3]).
 
-    optimizer: "dense" (one Cholesky over all keyframes) or "auto" (dense
-    up to DENSE_MAX_KEYFRAMES keyframes; beyond, the JAX package's
-    hierarchical solver, which raises here). The JAX package's other
-    solvers raise NotImplementedError.
+    optimizer: "dense" (one Cholesky over all keyframes), "schur"
+    (keyframe blocks eliminated, graph/schur.py, 4 blocks) or "auto"
+    (dense up to DENSE_MAX_KEYFRAMES keyframes; beyond, the JAX
+    package's hierarchical solver, which raises here). The JAX package's
+    other solvers raise NotImplementedError.
 
     resume: a previous run's `ckpt` (or numpy arrays of
     fullslam_ckpt_template's schema) to continue from, with
@@ -860,8 +1069,6 @@ def run_full_slam(
     corrections applied (`corrections`: a rebuild and a whole-map search
     space each); a caller may reset them."""
     _check_optimizer(optimizer)
-    loop_matcher = loop_matcher or default_loop_matcher(graph_cfg)
-
     odom_np = np.asarray(log["odom"], np.float32)
     ranges_np = np.asarray(log["ranges"], np.float32)
     T = len(odom_np)
@@ -873,53 +1080,12 @@ def run_full_slam(
         eps_cells=0.25 if incremental_rebuild else 0.0,
         device=device, plain=plain,
     )
-    submap_cfg = default_submap_grid(cfg)
-
     if resume is not None:
         state = FrontendState(*(_owned(x, device) for x in resume["frontend"]))
-        graph = se2_graph.HostGraph.from_arrays(graph_cfg, resume["graph"])
-        kc = int(resume["kf_count"])
-        kf_poses = [np.array(resume["kf_poses"][k], np.float32)
-                    for k in range(kc)]
-        kf_scans = [np.array(resume["kf_scans"][k], np.float32)
-                    for k in range(kc)]
-        kf_scan_idx = [int(resume["kf_scan_idx"][k]) for k in range(kc)]
-        nl = int(resume["n_loops"])
-        loop_records = [tuple(np.asarray(resume["loops"][k]))
-                        for k in range(nl)]
-        n_loops = nl
-        chi2 = float(resume["chi2"])
-        init_cooldown = int(resume["cooldown"])
-        init_last_kf = (
-            np.array(resume["last_kf_pose"], np.float32) if kc > 0 else None
-        )
         rebuild.restore(resume["map_poses"], resume["map_pose_count"])
-        init_cache_anchor = int(resume["loop_cache_anchor"])
     else:
         state = frontend_init(cfg, device, start_pose=odom_np[0],
                               start_odom=odom_np[0], plain=plain)
-        graph = se2_graph.HostGraph(graph_cfg)
-        kf_poses = []
-        kf_scans = []
-        kf_scan_idx = []
-        loop_records = []
-        n_loops = 0
-        chi2 = 0.0
-        init_cooldown = 0
-        init_last_kf = None
-        init_cache_anchor = -1
-    traj_out = np.zeros((T, 3), np.float32)
-
-    def admit_keyframe(pose, scan_i):
-        kf_poses.append(pose.copy())
-        kf_scans.append(ranges_np[scan_i])
-        kf_scan_idx.append(scan_i + scan_index_offset)  # absolute index
-        graph.add_node(pose)
-        k = len(kf_poses) - 1
-        if k > 0:
-            z = _np_between(kf_poses[k - 1], pose)
-            graph.add_edge(k - 1, k, z, np.eye(3) * odom_edge_info)
-        return k
 
     def apply_correction(corr_np):
         # rebuild the map from every (corrected) keyframe and patch the
@@ -932,9 +1098,9 @@ def run_full_slam(
         poses_buf = np.zeros((Kmax, 3), np.float32)
         scans_buf = np.zeros((Kmax, ranges_np.shape[1]), np.float32)
         mask_buf = np.zeros(Kmax, np.float32)
-        nk = len(kf_poses)
-        poses_buf[:nk] = np.stack(kf_poses)
-        scans_buf[:nk] = np.stack(kf_scans)
+        nk = len(host.kf_poses)
+        poses_buf[:nk] = np.stack(host.kf_poses)
+        scans_buf[:nk] = np.stack(host.kf_scans)
         mask_buf[:nk] = 1.0
         new_grid = rebuild(poses_buf, scans_buf, mask_buf, n_active=nk)
         new_pose = se2.compose(Tc, state.pose)
@@ -947,136 +1113,32 @@ def run_full_slam(
             last_map_pose=new_pose.clone(),
         )
 
-    closer = LoopCloser(
-        cfg, graph_cfg, loop_matcher, submap_cfg, submap_halfwidth,
-        graph, kf_poses, kf_scans, kf_scan_idx, ranges_np, traj_out,
-        optimizer, loop_edge_info, scan_index_offset, apply_correction,
-        loop_records, n_loops=n_loops, chi2=chi2,
-        cache_anchor=init_cache_anchor, defer_accept=defer_accept,
-        device=device, plain=plain,
+    host = HostLoop(
+        cfg, graph_cfg, loop_matcher or default_loop_matcher(graph_cfg),
+        submap_halfwidth, ranges_np, optimizer, odom_edge_info,
+        loop_edge_info, scan_index_offset, apply_correction, resume,
+        defer_accept, frame_cb, device, plain,
     )
-
-    # ---- the host loop over chunks: run chunk c, then process chunk c-1
-    # (its poses read in one copy), then resolve the pending attempts. An
-    # accept's correction lands on the live state as a left transform, and
-    # the same transform is owed to the rows not yet processed (pend_T).
-    emitted_upto = -1   # last traj_out row written (run-local index)
-    last_kf_pose = init_last_kf
-    cooldown = init_cooldown
-    (est,) = fetch(state.pose)
-    pend = None          # run-but-unprocessed chunk outputs
-    pend_T = None        # left transform owed to pend's rows
-
-    def process_pending():
-        nonlocal pend, pend_T, est, emitted_upto, last_kf_pose, cooldown
-        if pend is None:
-            return
-        tr, est_new = fetch(pend["tr"], pend["pose"])
-        n_here = pend["n"]
-        tr = tr[:n_here]
-        est = np.asarray(est_new, np.float32)
-        if pend_T is not None:
-            tr = _np_compose_batch(pend_T, tr)
-            est = np.asarray(_np_compose(pend_T, est), np.float32)
-            pend_T = None
-        s0 = pend["s0"]
-        traj_out[s0 : s0 + n_here] = tr
-        emitted_upto = s0 + n_here - 1
-        if frame_cb is not None:
-            frame_cb(pend["logodds"], tr)
-
-        # keyframe admission over this chunk
-        for t in range(n_here):
-            scan_i = s0 + t
-            pose = tr[t]
-            if last_kf_pose is None:
-                last_kf_pose = pose
-                admit_keyframe(pose, scan_i)
-                continue
-            moved = np.hypot(*(pose[:2] - last_kf_pose[:2]))
-            rot = abs(
-                (pose[2] - last_kf_pose[2] + np.pi) % (2 * np.pi) - np.pi
-            )
-            if moved >= graph_cfg.keyframe_dist or rot >= graph_cfg.keyframe_angle:
-                if len(kf_poses) >= graph_cfg.max_nodes - 1:
-                    continue
-                last_kf_pose = pose
-                k_new = admit_keyframe(pose, scan_i)
-                if cooldown > 0:
-                    cooldown -= 1
-                else:
-                    closer.issue(k_new, scan_i)
-        pend = None
-
+    (host.est,) = fetch(state.pose)
+    # the host loop over chunks: run chunk c, then process chunk c-1 and
+    # resolve the pending attempts (HostLoop.step)
     odom_p, ranges_p = _pad_log(odom_np, ranges_np, K)
     for s0 in range(0, T, K):
         out = torch.empty((K, 4), dtype=torch.float32, device=device)
         state = run_chunk(state, odom_p[s0 : s0 + K],
                           ranges_p[s0 : s0 + K], cfg, out, plain)
-        # captured BEFORE resolve: an accept patches `state`, and these
-        # pre-patch values then owe pend_T; the map is copied, since the
-        # next chunk writes into it
-        cand = {
+        # the map is copied, since the next chunk writes into it
+        host.step({
             "s0": s0, "n": min(K, T - s0), "tr": out[:, :3],
             "pose": state.pose,
             "logodds": state.logodds.clone() if frame_cb is not None else None,
-        }
-        process_pending()
-        cd, est, nl, T_acc = closer.resolve(est, emitted_upto)
-        if cd is not None:
-            cooldown = cd
-        if nl is not None:
-            last_kf_pose = nl
-        if T_acc is not None:
-            pend_T = T_acc if pend_T is None else np.asarray(
-                _np_compose(T_acc, pend_T), np.float32
-            )
-        pend = cand
-
-    process_pending()
-    # drain: an accept can issue attempts again, and a deferred accept
-    # still needs its finalize
-    while closer.pending or closer.pending_accept is not None:
-        cd, est, nl, _ = closer.resolve(est, emitted_upto)
-        if cd is not None:
-            cooldown = cd
-        if nl is not None:
-            last_kf_pose = nl
-    ckpt = fullslam_ckpt_template(cfg, graph_cfg)
-    ckpt["frontend"] = FrontendState(*(t.clone() for t in state))
-    ckpt["graph"] = graph.to_device(device)
-    nk = len(kf_poses)
-    if nk:
-        ckpt["kf_poses"][:nk] = np.stack(kf_poses)
-        ckpt["kf_scans"][:nk] = np.stack(kf_scans)
-        ckpt["kf_scan_idx"][:nk] = np.asarray(kf_scan_idx, np.int32)
-        ckpt["last_kf_pose"] = np.asarray(
-            last_kf_pose if last_kf_pose is not None else kf_poses[-1],
-            np.float32,
-        )
-    ckpt["kf_count"] = np.int32(nk)
-    if loop_records:
-        ckpt["loops"][:closer.n_loops] = np.asarray(loop_records, np.float32)
-    ckpt["n_loops"] = np.int32(closer.n_loops)
-    ckpt["chi2"] = np.float32(closer.chi2)
-    ckpt["cooldown"] = np.int32(cooldown)
-    ckpt["loop_cache_anchor"] = np.int32(closer.cache_anchor)
-    ckpt["map_poses"] = rebuild.map_poses.copy()
-    ckpt["map_pose_count"] = np.int32(rebuild.n_prev)
-
-    return FullSLAMResult(
-        traj=traj_out,
-        kf_poses=np.stack(kf_poses) if kf_poses else np.zeros((0, 3)),
-        kf_scan_idx=np.asarray(kf_scan_idx, np.int64),
-        n_loops=closer.n_loops,
-        grid=state.logodds,
-        chi2=closer.chi2,
-        loops=np.asarray(loop_records, np.float32).reshape(-1, 6),
-        loop_attempts=np.asarray(
-            closer.attempt_records, np.float32
-        ).reshape(-1, 10),
-        ckpt=ckpt,
+        })
+    host.finish()
+    ckpt = host.checkpoint(
+        fullslam_ckpt_template(cfg, graph_cfg), rebuild,
+        FrontendState(*(t.clone() for t in state)), device,
     )
+    return host.result(state.logodds, ckpt)
 
 
 run_full_slam.attempts = 0

@@ -293,8 +293,73 @@ def test_split_run_matches_single_run():
                                   res_a.ckpt["frontend"].logodds.numpy())
 
 
-@pytest.mark.parametrize("optimizer",
-                         ["schur", "schur_sharded", "sparse", "hier"])
+def test_run_full_slam_schur_matches_jax():
+    """optimizer="schur" (graph/schur.py, 4 blocks) against the JAX
+    package's run at the same config and log: the decisions equal, poses
+    and chi2 as the dense run's tolerances."""
+    ref = jfs.run_full_slam(_log(), CFG, GCFG, optimizer="schur")
+    out = tfs.run_full_slam(_log(), to_port(CFG), to_port(GCFG),
+                            optimizer="schur", device=CPU)
+    np.testing.assert_array_equal(out.kf_scan_idx, ref.kf_scan_idx)
+    assert out.n_loops == ref.n_loops >= 1
+    np.testing.assert_array_equal(out.loop_attempts[:, [0, 1, 6]],
+                                  ref.loop_attempts[:, [0, 1, 6]])
+    for a, b in ((out.kf_poses, ref.kf_poses), (out.traj, ref.traj)):
+        dxy, dth = pose_error(a, b)
+        assert dxy <= POSE_TOL and dth <= POSE_TOL
+    np.testing.assert_allclose(out.chi2, ref.chi2, rtol=1e-3)
+
+
+def _closers(optimizer):
+    """The JAX package's and the port's LoopCloser over tests/test_graph.py's
+    square loop graph (17 keyframes)."""
+    from test_graph import _square_loop_graph
+
+    g, _, _ = _square_loop_graph(drift=0.15)
+    n = int(g.n_nodes)
+    gcfg = dataclasses.replace(GCFG, max_nodes=64, max_edges=128)
+    kf = [np.array(p, np.float32) for p in np.asarray(g.poses[:n])]
+    out = []
+    for pkg, c, gc in ((jfs, CFG, gcfg), (tfs, to_port(CFG), to_port(gcfg))):
+        graph = pkg.se2_graph.HostGraph(gc)
+        for p in kf:
+            graph.add_node(p)
+        for e in range(int(g.n_edges)):
+            i, j = np.asarray(g.edges_ij[e])
+            graph.add_edge(int(i), int(j), np.asarray(g.edges_z[e]),
+                           np.asarray(g.edges_omega[e]))
+        kw = {} if pkg is jfs else {"device": CPU}
+        out.append(pkg.LoopCloser(
+            c, gc, pkg.default_loop_matcher(gc), pkg.default_submap_grid(c),
+            3, graph, [p.copy() for p in kf], [None] * n, list(range(n)),
+            np.zeros((n, 8), np.float32), np.zeros((n, 3), np.float32),
+            optimizer, 200.0, 0, lambda T: None, [], **kw,
+        ))
+    return out
+
+
+@pytest.mark.parametrize("optimizer", ["dense", "schur"])
+def test_loop_prune_as_jax(optimizer):
+    """A false loop edge (3 m off, as tests/test_robust_edges.py's) flagged
+    by the chi^2 prune: the same solved poses and flags as the JAX
+    package's; "dense" solves again with the edge masked (one host read),
+    "schur" does not (no read: the flags reach the HostGraph at the
+    finalize)."""
+    jc, tc = _closers(optimizer)
+    z = np.array([3.0, 0.0, 0.0], np.float32)
+    ref = jfs.jax.device_get(jc._dispatch_optimize(14, 1, z, 0.9))
+    reads = tfs.fetch.reads
+    out = tc._dispatch_optimize(14, 1, z, 0.9)
+    assert tfs.fetch.reads - reads == (optimizer == "dense")
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    assert out[2].numpy()[tc.graph.n_edges - 1]
+    dxy, dth = pose_error(out[0].numpy(), np.asarray(ref[0]))
+    assert dxy <= POSE_TOL and dth <= POSE_TOL
+    np.testing.assert_allclose(float(out[1]), float(ref[1]), rtol=1e-3,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("optimizer", ["schur_sharded", "sparse", "hier"])
 def test_unported_optimizers_raise(optimizer):
     with pytest.raises(NotImplementedError, match="not ported"):
         tfs.run_full_slam(_log(), to_port(CFG), to_port(GCFG),

@@ -15,6 +15,8 @@ Tolerances:
   within 0.03 m of JAX's (the filter amplifies last-bit differences).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -212,6 +214,50 @@ def test_shared_update_matches_jax(dtype):
     assert np.any([np.isclose(off, s, atol=atol) for s in steps], axis=0).all()
     changed = (out != before).sum(axis=(1, 2))
     assert (changed[:-2] > 500).all() and (changed[-2:] > 100).all()
+
+
+@pytest.mark.parametrize("scan", [200, 400, 600])
+def test_shared_update_matches_jax_at_bench_shapes(scan):
+    """bench_pf.py's shapes: bf16 512^2 maps at 0.1 m, 180 beams to 12 m
+    (a 256^2 update window), 16 theta slots, 8 particles about the pose
+    at one scan of its log, the ISM carve ("pallas"). At most 0.05% of
+    the cells differ, each by one l_free at bf16 precision."""
+    from slam2d_tpu_torch.run.bench_configs import (
+        pf_bench_config,
+        pf_bench_log,
+    )
+    from torch_parity import to_jax
+
+    pcfg, _ = pf_bench_config()
+    pcfg = dataclasses.replace(
+        pcfg, grid=dataclasses.replace(pcfg.grid, update_impl="pallas"))
+    cfg = to_jax(pcfg)
+    P = 8
+    pf = PFConfig(n_particles=P, map_dtype="bfloat16", update_mode="shared")
+    assert pf.update_theta_slots == 16
+    log = pf_bench_log(pcfg.sensor)
+    rng = np.random.default_rng(scan)
+    poses = (log["gt_poses"][scan] + np.concatenate(
+        [rng.normal(0, 0.2, (P, 2)), rng.normal(0, 0.05, (P, 1))], axis=1
+    )).astype(np.float32)
+    ranges = log["ranges"][scan]
+    maps = rng.uniform(-3, 3, (P, 512, 512)).astype(np.float32)
+    jm = jnp.asarray(maps).astype(jnp.bfloat16)
+    ref = np.asarray(jax.jit(jax_shared_update, static_argnums=(3, 4))(
+        jm, jnp.asarray(poses), jnp.asarray(ranges), cfg, pf,
+    ).astype(jnp.float32))
+    tm = torch.from_numpy(np.array(jm.astype(jnp.float32))).to(
+        torch.bfloat16)
+    out = tfs._update_all(tm, torch.from_numpy(poses),
+                          torch.from_numpy(ranges), pcfg, to_port(pf))
+    out = out.float().numpy()
+    diff = np.abs(out - ref)
+    off = diff[diff != 0]
+    print(f"scan {scan}: {off.size} of {diff.size} cells differ, by "
+          f"{sorted(set(off.tolist()))}")
+    assert off.size <= 0.0005 * diff.size
+    assert np.isclose(off, 0.4, atol=0.07).all()    # bf16 ulp at |l| <= 10
+    assert (out != maps).sum() > P * 10000            # the scan landed
 
 
 def test_slot_grid_matches_jax():

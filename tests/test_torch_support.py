@@ -81,6 +81,22 @@ def test_corridor_world_and_loop_log_match_jax(span, step, seed):
         np.testing.assert_array_equal(out[k], ref[k])
 
 
+@pytest.mark.parametrize("laps, step, seed", [(1, 0.3, 0), (2, 0.5, 4)])
+def test_endurance_log_matches_jax(laps, step, seed):
+    """endurance_log's lane offsets (drawn with seed + 1000) and log, at a
+    coarse step so that the test stays fast."""
+    sensor = jcfg.SensorConfig(n_beams=90, max_range=10.0)
+    jw, ref = jsynth.endurance_log(sensor, laps=laps, step=step, seed=seed,
+                                   odom_noise_xy=0.01)
+    tw, out = tsynth.endurance_log(to_port(sensor), laps=laps, step=step,
+                                   seed=seed, odom_noise_xy=0.01)
+    np.testing.assert_array_equal(tw.segments, jw.segments)
+    assert out.keys() == ref.keys()
+    for k in ref:
+        assert out[k].dtype == ref[k].dtype == np.float32
+        np.testing.assert_array_equal(out[k], ref[k])
+
+
 def test_splice_odom_and_se2_helpers_match_jax():
     from slam2d_tpu.run import frontend_tiled as jft
     from slam2d_tpu_torch.run import frontend_tiled as tft
@@ -118,12 +134,14 @@ def test_ate_matches_jax():
 def _port_sources():
     files = sorted((ROOT / "slam2d_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
-                    ROOT / "scripts" / "profile_torch.py"]
+                    ROOT / "scripts" / "profile_torch.py",
+                    ROOT / "scripts" / "bench_endurance_torch.py"]
 
 
 def test_port_imports_nothing_of_the_jax_package():
-    """No file of slam2d_tpu_torch/, nor chip_smoke.py, bench_torch.py
-    or scripts/profile_torch.py, imports slam2d_tpu or jax."""
+    """No file of slam2d_tpu_torch/, nor chip_smoke.py, bench_torch.py,
+    scripts/profile_torch.py or scripts/bench_endurance_torch.py, imports
+    slam2d_tpu or jax."""
     bad = []
     files = _port_sources()
     assert len(files) > 20
