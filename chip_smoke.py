@@ -187,7 +187,40 @@ Phases, each of which raises on failure:
    most JAX's + 0.1 m); then optimize_schur with 2 and 4 blocks on phase
    15's final graph against the dense optimize: poses within 5e-3 m /
    rad, each solve's ms (synced, median of 5), the host's plan and
-   tables timed apart from the iterations.
+   tables timed apart from the iterations;
+18. the frontend with the sampled-ray update (update_impl="sparse", the
+   JAX package's CPU "auto") at bench.py's config and log, as
+   run_frontend runs it on CUDA (one graph replay a chunk, the update in
+   place with its gate on the device, grid/occupancy.py:raycast_window),
+   twice: finite trajectory, ATE below odometry's, no host read during
+   the scans, the same bits twice, kernel 3 one launch a scan run + 1 and
+   kernel 2 two, kernel 1 none; scans/s; the first 256 scans through the
+   plain versions (phase 5's tolerances);
+19. full SLAM with the sampled-ray update and optimizer="hier" at
+   fullslam_bench_config with hier_dense_max 64 over phase 15's log:
+   phase 15's checks (kernel 1 launches none), the V-cycle and the PCG
+   polish run by every solve (graph/sparse.py's stages printed),
+   tridiag_factor launched once a polish's Gauss-Newton iteration, held
+   to the JAX package's run of the same config (keyframe ATE at most
+   JAX's + 0.1 m, scripts/fullslam_reference_sparse_hier.json); then the
+   solvers alone: optimize_hier on tests/test_sparse_graph.py's serpentine
+   graph at 4096 and 16384 nodes (error 5x below odometry's and chi2 < 1,
+   the JAX test's bounds, and at most 2x the JAX package's own error,
+   scripts/hier_reference.json; ms a solve, peak device memory) and
+   optimize_cg on phase 15's final graph against the dense solve (1e-3);
+20. the frontend with a 270-degree scanner (1081 beams, 30 m: a Hokuyo
+   UTM-30LX's geometry; bench_configs.wide_fov_config) over bench.py's
+   route, update_impl="auto" resolving to the sampled-ray update:
+   phase 18's checks (the 30 m update window is wider than the map: the
+   update and kernel 3 run on the whole map).
+Phase 3 also holds kernel 2 at a 1081-beam scan and kernel 3 in place on
+the whole 1024^2 map (phase 20's shapes), and the block-Thomas factor
+(csrc/tridiag_factor.cu, the sparse solvers' sequential recurrence; it
+replaces a lax.scan, no Pallas kernel) against its plain K-step loop on
+the serpentine's chain matrix at 4096 and 16384 blocks; after phase 19
+the factor is held the same way at its main path's input, the chain
+matrix of phase 19's final 512-slot graph, and its row's times and bound
+are those of that input.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -207,8 +240,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from slam2d_tpu_torch.config import GridConfig, MatcherConfig, SensorConfig
-from slam2d_tpu_torch.graph import schur, se2_graph
+from slam2d_tpu_torch.config import (
+    GraphConfig,
+    GridConfig,
+    MatcherConfig,
+    SensorConfig,
+)
+from slam2d_tpu_torch.graph import schur, se2_graph, sparse
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.tiles import (
     FREE_SLOT,
@@ -248,6 +286,7 @@ from slam2d_tpu_torch.ops.gather import gather_rows
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space, search_space_window
 from slam2d_tpu_torch.ops.stack import shift_stack
+from slam2d_tpu_torch.ops.tridiag import tridiag_factor
 from slam2d_tpu_torch.ops.update import (
     ism_occ_tol,
     update_hybrid,
@@ -272,9 +311,11 @@ from slam2d_tpu_torch.run.bench_configs import (
     pf_bench_config,
     pf_bench_log,
     pf_per_particle_bench_config,
+    hier_bench_graph,
     ray_bench_config,
     tiled_bench_config,
     tiled_bench_log,
+    wide_fov_config,
 )
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
 from slam2d_tpu_torch.run.frontend import (
@@ -336,6 +377,18 @@ FULLSLAM_TILED_KILLIAN_REFERENCE = (
 FULLSLAM_SCHUR_REFERENCE = "scripts/fullslam_reference_schur.json"  # 17
 # the runs whose kf ATE fails the JAX + 0.1 m hold on the H100 (PERF.md
 # §6, PR 12; ROADMAP queue 3 item 5): each prints its failure and goes on
+FULLSLAM_SPARSE_HIER_REFERENCE = "scripts/fullslam_reference_sparse_hier.json"
+PHASE19_HIER_DENSE_MAX = 64  # phase 19: below the 512 slots, so every solve
+                             # runs the V-cycle (the JAX reference's too)
+HIER_REFERENCE = "scripts/hier_reference.json"  # phase 19: JAX's
+                             # optimize_hier on the serpentine
+HIER_ODOM_FACTOR = 5.0       # its bound: error 5x below odometry's
+HIER_ERR_JAX_FACTOR = 2.0    # phase 19: error at most 2x JAX's
+CG_DENSE_TOL = 1e-3          # phase 19: optimize_cg against the dense solve
+TRIDIAG_SIZES = (4096, 16384)  # phase 19's solver sizes
+TRIDIAG_RTOL = 1e-6          # tridiag_factor against its plain version, x
+                             # max |Cinv| (the same operations; a 3-term sum
+                             # may add in another order)
 JAX_HOLD_FAILS = {
     "full SLAM seed 4": "the run parts from JAX's at keyframe 19 and "
                         "ends 0.108 m above it",
@@ -2769,7 +2822,7 @@ def fullslam_kernel_checks(cfg, gcfg, log, device, tcfg=None, tag=""):
 
 
 def _reset_fullslam_counts():
-    for fn in _counters().values():
+    for fn in (*_counters().values(), tridiag_factor):
         fn.launches = 0
     for name in ("host_syncs", "matches", "updates"):
         setattr(frontend_step, name, 0)
@@ -2846,20 +2899,25 @@ def run_fullslam(cfg, gcfg, log, device, optimizer="auto",
             f"{label}: keyframe ATE {result['kf_ate_m']} not below "
             f"odometry's {result['kf_ate_odom_m']}")
     res_m = cfg.grid.resolution
+    sampled = occupancy.resolve_update_impl(cfg.grid, cfg.sensor) in (
+        "sparse", "sparse_mxu")
     # the frontend's gates are on the device: its kernels launch every
-    # scan run, returning at once where their gate is 0
+    # scan run, returning at once where their gate is 0; the sampled-ray
+    # update has no kernel
     expect = {
-        "update_hybrid": scans_run + counts["submap_scans"]
-        + counts["rebuilt_scans"],
+        "update_hybrid": 0 if sampled else scans_run
+        + counts["submap_scans"] + counts["rebuilt_scans"],
         "search_space": scans_run + 1 + counts["submaps"]
         + counts["corrections"],
         "score_offsets": _match_passes(cfg.matcher, res_m) * scans_run
         + (_match_passes(default_loop_matcher(gcfg), res_m) + 1)
         * counts["attempts"],
     }
-    if launches != expect or min(launches.values()) <= 0:
+    if launches != expect or min(v for k, v in launches.items()
+                                 if k != "update_hybrid" or not sampled) <= 0:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
+    launches = {k: v for k, v in launches.items() if v}
     if counts["host_syncs"] != 0:
         raise AssertionError(f"{label}: the frontend read the host "
                              f"{counts['host_syncs']} times")
@@ -3307,6 +3365,325 @@ def schur_checks(cfg, gcfg, log, device, graph):
                              f"by {worst} > {FULLSLAM_POSE_TOL}")
     return launches, out
 
+def _tridiag_entry(D, O, label):
+    """tridiag_factor on D, O [K, 3, 3] against its plain version (the
+    K-step PyTorch loop), the same bits twice; timed as phase 3 times the
+    kernels, the plain version once (a long K-step loop takes seconds)."""
+    K = D.shape[0]
+    a = tridiag_factor(D, O)
+    b = tridiag_factor(D, O, plain=True)
+    scale = float(b.abs().max())
+    err = float((a - b).abs().max())
+    same = torch.equal(a, tridiag_factor(D, O))
+    print(f"tridiag_factor {label} K={K}: max |err| {err:.3g} (tolerance "
+          f"{TRIDIAG_RTOL} x max |Cinv| = {TRIDIAG_RTOL * scale:.3g}), "
+          f"same bits twice {same}")
+    if not err <= TRIDIAG_RTOL * scale:
+        raise AssertionError(f"tridiag_factor disagrees at {label} K={K}")
+    if not same:
+        raise AssertionError("tridiag_factor is not deterministic")
+    device_ms, by = _cuda_device_ms(lambda: tridiag_factor(D, O), n=10)
+    # D and O read once, Cinv written once; ~140 operations a block
+    bound = _bound(3 * K * 9 * 4, 140 * K)
+    return dict(
+        max_abs_err=err, max_abs=scale,
+        tolerance=f"atol {TRIDIAG_RTOL} x max |Cinv|",
+        same_bits_twice=same, shape=[K, 3, 3], input=label,
+        ms=_cuda_ms(lambda: tridiag_factor(D, O)),
+        plain_ms=_cuda_ms(lambda: tridiag_factor(D, O, plain=True),
+                          runs=1, warmup=0),
+        library_ms=None, device_ms=device_ms, device_by=by,
+        bound_share=bound["bound_ms"] / device_ms,
+        operands_fit_l2=bound["bytes"] <= L2_BYTES, **bound,
+    )
+
+
+def tridiag_checks(device):
+    """Phase 3's rows of the block-Thomas factor (ops/tridiag.py, no Pallas
+    counterpart: it replaces a lax.scan) on the chain matrix that
+    optimize_cg assembles for the serpentine graph at K = 4096 and 16384
+    (phase 19's solver-alone sizes, every node active). The row of its
+    main path, phase 19's full SLAM, is tridiag_path_check's. Returns
+    {"at_serpentine_K": entry}."""
+    out = {}
+    for K in TRIDIAG_SIZES:
+        arrays, _, _, ckw = hier_bench_graph(K)
+        gcfg = GraphConfig(**ckw)
+        g = se2_graph.PoseGraph(**{k: torch.as_tensor(v, device=device)
+                                   for k, v in arrays.items()})
+        plan = sparse.sparse_plan(g, gcfg, device, hier=False)
+        D, O, *_ = sparse._assemble_sparse(g.poses, g, None, gcfg.damping,
+                                           plan.levels[0])
+        out[f"at_serpentine_{K}"] = _tridiag_entry(D, O, "serpentine")
+    return out
+
+
+def tridiag_path_check(device, gcfg, graph):
+    """tridiag_factor at its main path's input: the chain matrix of phase
+    19's final 512-slot graph (`graph`, the checkpoint's arrays, at
+    `gcfg` with hier_dense_max 64), as the PCG polish assembles it in its
+    last Gauss-Newton iteration: the slots past the live nodes clamped
+    (identity diagonal, zero coupling). Returns the entry."""
+    host = se2_graph.HostGraph.from_arrays(gcfg, graph)
+    g = host.to_device(device)
+    plan = sparse.sparse_plan(host, gcfg, device, hier=True)
+    D, O, *_ = sparse._assemble_sparse(
+        g.poses, g, se2_graph._robust_of(gcfg, gcfg.gn_iters - 1),
+        gcfg.damping, plan.levels[0])
+    entry = _tridiag_entry(D, O, "phase 19 full SLAM's final graph")
+    entry["active_nodes"] = host.n_nodes
+    return entry
+
+
+def wide_fov_kernel_checks(cfg, log, device):
+    """Phase 3 at phase 20's new shapes: kernel 2's coarse and fine passes
+    with a 1081-beam scan (the 270-degree sensor) over bench.py's scan
+    window, and kernel 3's in-place form over the whole 1024^2 map (the
+    30 m update window is wider than the map: origin None, no halo trim),
+    gate 1 against its plain version. Returns {kernel: {"at_wide_fov":
+    entry}}."""
+    rng = np.random.default_rng(SEED + 20)
+    g, m, s = cfg.grid, cfg.matcher, cfg.sensor
+    win = scan_window_cells(g, s, m)
+    i = len(log["odom"]) // 2
+    pose = torch.as_tensor(np.asarray(log["gt_poses"][i], np.float32),
+                           device=device)
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    full = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (g.height, g.width)).astype(np.float32),
+        device=device)
+    S = correlative.build_search_space(full, m, g.resolution)
+    center = occupancy.world_to_cell(pose[:2], g).tolist()
+    Sw, org = extract_window(S, center, win)
+    origin = occupancy.window_origin_xy(g, org)
+    Sc = correlative.coarse_space(Sw, m.coarse_factor)
+    pts, valid = occupancy.scan_endpoints_local(ranges, s)
+    prior = pose + torch.as_tensor(
+        rng.uniform(-0.1, 0.1, 3).astype(np.float32), device=device)
+    dth = torch.as_tensor(correlative._theta_offsets(m), device=device)
+    r_fine = int(round(m.search_xy / g.resolution))
+    r_coarse = -(-r_fine // m.coarse_factor)
+    pos_c = correlative.endpoint_positions(
+        prior, pts, valid, dth, g.resolution * m.coarse_factor, origin)
+    pos_f = correlative.endpoint_positions(
+        prior, pts, valid, dth[4:9], g.resolution, origin)
+    passes = {
+        "coarse": (lambda plain: score_window(
+            Sc, *pos_c, valid, r_coarse, False, plain=plain),
+            Sc, pos_c, 2 * r_coarse + 1, False),
+        "fine": (lambda plain: score_window(
+            Sw, *pos_f, valid, m.coarse_factor, True, plain=plain),
+            Sw, pos_f, 2 * m.coarse_factor + 1, True),
+    }
+    score = {}
+    for name, (fn, S_, pos, n, bil) in passes.items():
+        out = fn(False)
+        err = float((out - fn(True)).abs().max())
+        same = torch.equal(out, fn(False))
+        print(f"score_offsets wide-FOV {name} {list(out.shape)} B="
+              f"{pos[0].shape[1]}: max |err| {err:.3g} (tolerance 1e-5), "
+              f"same bits twice {same}")
+        if err > 1e-5 or not same:
+            raise AssertionError(f"score_offsets at B={pos[0].shape[1]}")
+        score[name] = dict(max_abs_err=err, beams=pos[0].shape[1],
+                           shape=list(out.shape),
+                           **_times(lambda: fn(False), lambda: fn(True),
+                                    score_bound(S_, pos, valid, n, bil)))
+    score["fine"]["coarse"] = score.pop("coarse")
+
+    taps = correlative.gaussian_kernel_1d(
+        m.sigma_m / g.resolution, blur_halo_cells(m, g.resolution))
+    fkw = dict(occ_sat=m.occ_evidence_sat, free_threshold=m.free_threshold,
+               free_penalty=m.free_penalty)
+    gate = torch.ones((), dtype=torch.bool, device=device)
+    S0 = torch.zeros_like(full)
+
+    def field(plain):
+        S_ = S0.clone()
+        search_space_window(full, S_, taps, origin=None, size=tuple(
+            full.shape), margin=0, gate=gate, plain=plain, **fkw)
+        return S_
+
+    err, n_diff = _search_space_cells_ok(field(False), field(True),
+                                         "search_space wide-FOV full map")
+    n_taps = len(taps)
+    field_entry = dict(
+        max_abs_err=err, cells_differing=n_diff, shape=list(full.shape),
+        form="in place, origin None, gate on the device",
+        **_times(lambda: field(False), lambda: field(True),
+                 _bound(2 * full.numel() * 4,
+                        full.numel() * (4 * n_taps + 8))),
+    )
+    return {"score_offsets": {"at_wide_fov": score["fine"]},
+            "search_space": {"at_wide_fov": field_entry}}
+
+
+def run_sampled_ray_frontend(cfg, log, device, label):
+    """Phases 18 and 20: the frontend with the sampled-ray update
+    (update_impl "sparse", or "auto" past a field of view of pi), as
+    run_frontend runs it on CUDA: one CUDA graph replay a chunk, the update
+    in place with its gate on the device (no kernel of its own). Runs the
+    whole log twice through the graph: no host read during the scans, ATE
+    below odometry's, the same bits twice, kernel 3 one launch a scan run
+    + 1 and kernel 2 a match's passes a scan run, kernel 1 none; then the
+    first 256 scans through the plain versions (phase 5's tolerances).
+    Returns the launches of the first run."""
+    if occupancy.resolve_update_impl(cfg.grid, cfg.sensor) not in (
+            "sparse", "sparse_mxu"):
+        raise AssertionError(f"{label}: the update is not the sampled-ray one")
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    t0 = time.perf_counter()
+    run_frontend(warm, cfg, device)   # builds the chunk graph
+    capture_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    state, traj, scores, result = _timed_frontend(cfg, log, device, None)
+    kept = state.logodds.clone()
+    state2, traj2, scores2, again = _timed_frontend(cfg, log, device, None)
+    T, scans_run = len(traj), result["scans_run"]
+    if not np.isfinite(traj).all():
+        raise AssertionError(f"{label}: trajectory is not finite")
+    ate = ate_rmse(traj, log["gt_poses"], align=False)
+    ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
+    twice = bool(np.array_equal(traj, traj2)
+                 and np.array_equal(scores, scores2)
+                 and torch.equal(state2.logodds, kept))
+    part = {k: np.asarray(v)[:PARITY_SCANS] for k, v in log.items()}
+    _, traj_plain, _ = run_frontend(part, cfg, device, plain=True)
+    dxy, dth = _pose_errors(traj[:PARITY_SCANS], traj_plain)
+    result.update(
+        beams=cfg.sensor.n_beams, fov_rad=cfg.sensor.fov_rad,
+        max_range_m=cfg.sensor.max_range,
+        update_impl=occupancy.resolve_update_impl(cfg.grid, cfg.sensor),
+        ate_m=ate, ate_odom_m=ate_odom, capture_s=capture_s,
+        host_reads_per_scan=result["host_syncs"] / T,
+        graph_again_scans_per_sec=again["scans_per_sec"],
+        same_run_twice=twice, plain_scans=PARITY_SCANS,
+        plain_dxy_m=dxy, plain_dth_rad=dth,
+    )
+    print(f"{label}:", json.dumps(result))
+    if not ate < ate_odom:
+        raise AssertionError(f"{label}: ATE {ate} not below odometry's "
+                             f"{ate_odom}")
+    if result["host_syncs"] or again["host_syncs"]:
+        raise AssertionError(f"{label}: the frontend read the host")
+    if not twice:
+        raise AssertionError(f"{label}: two graph runs gave other bits")
+    if dxy > POSE_TOL_M or dth > POSE_TOL_RAD:
+        raise AssertionError(f"{label}: kernel and plain runs disagree")
+    passes = _match_passes(cfg.matcher, cfg.grid.resolution)
+    expect = {"update_hybrid": 0, "search_space": scans_run + 1,
+              "score_offsets": passes * scans_run}
+    for r in (result, again):
+        if r["launches"] != expect:
+            raise AssertionError(f"{label}: launches {r['launches']}, "
+                                 f"expected {expect}")
+    return {k: v for k, v in result["launches"].items() if v}
+
+
+def _xy_err(poses, gt) -> float:
+    p = np.asarray(poses, np.float64)
+    return float(np.sqrt(np.mean(np.sum((p[:, :2] - gt[:, :2]) ** 2, 1))))
+
+
+def sparse_solver_checks(device, fs_gcfg, fs_graph):
+    """Phase 19, the solvers alone: (a) optimize_hier on the serpentine at
+    K = 4096 and 16384 (tests/test_sparse_graph.py's graph, one rung
+    closure per ~34 nodes): finite, error at least 5x below odometry's,
+    chi2 < 1 (the JAX test's bounds) and at most 2x the JAX package's own
+    error on the same graph (scripts/hier_reference.json); ms a solve
+    (synced, the plan included and apart) and peak device memory; (b)
+    optimize_cg on phase 15's final graph against the dense solve: poses
+    within 1e-3 (tests/test_sparse_graph.py's). Returns the dict."""
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           HIER_REFERENCE)) as fh:
+        ref = json.load(fh)["sizes"]
+    out = {}
+    for K in TRIDIAG_SIZES:
+        arrays, gt, est, ckw = hier_bench_graph(K)
+        gcfg = GraphConfig(**ckw)
+        g = se2_graph.PoseGraph(**{k: torch.as_tensor(v, device=device)
+                                   for k, v in arrays.items()})
+        sparse.optimize_hier(g, gcfg)   # cuSOLVER and cuBLAS set up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        ms, plan_ms = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan = sparse.sparse_plan(g, gcfg, device, hier=True)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            g2, chi = sparse.optimize_hier(g, gcfg, plan=plan)
+            poses = g2.poses.cpu().numpy()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            plan_ms.append((t1 - t0) * 1e3)
+        err, err_odom = _xy_err(poses, gt), _xy_err(est, gt)
+        jax_err = ref[str(K)]["err_m"]
+        r = dict(nodes=K, loops=int(arrays["n_edges"]) - (K - 1),
+                 levels=[lv.K for lv in plan.levels], err_m=err,
+                 err_odom_m=err_odom, chi2=float(chi), jax_err_m=jax_err,
+                 jax_chi2=ref[str(K)]["chi2"],
+                 ms=statistics.median(ms), plan_ms=statistics.median(plan_ms),
+                 peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+                 dense_h_bytes=(3 * K) ** 2 * 4)
+        out[f"hier_{K}"] = r
+        print(f"optimize_hier K={K}:", json.dumps(r))
+        if not (np.isfinite(poses).all() and err < err_odom / HIER_ODOM_FACTOR
+                and float(chi) < 1.0):
+            raise AssertionError(f"optimize_hier K={K}: the JAX test's "
+                                 "bounds fail")
+        if not err <= HIER_ERR_JAX_FACTOR * jax_err:
+            raise AssertionError(
+                f"optimize_hier K={K}: error {err} above {HIER_ERR_JAX_FACTOR}"
+                f" x the JAX package's {jax_err}")
+
+    host = se2_graph.HostGraph.from_arrays(fs_gcfg, fs_graph)
+    n = host.n_nodes
+    g = host.to_device(device)
+    dense, _ = se2_graph.optimize(g, fs_gcfg)
+    cg, _ = sparse.optimize_cg(
+        g, fs_gcfg, plan=sparse.sparse_plan(host, fs_gcfg, device, hier=False))
+    dxy, dth = _pose_errors(cg.poses[:n].cpu().numpy(),
+                            dense.poses[:n].cpu().numpy())
+    out["cg_vs_dense"] = dict(nodes=n, edges=host.n_edges, dxy_m=dxy,
+                              dth_rad=dth, tolerance=CG_DENSE_TOL)
+    print("optimize_cg on phase 15's graph:", json.dumps(out["cg_vs_dense"]))
+    if max(dxy, dth) > CG_DENSE_TOL:
+        raise AssertionError(f"optimize_cg and the dense solve differ by "
+                             f"{max(dxy, dth)} > {CG_DENSE_TOL}")
+    return out
+
+
+def run_sparse_hier_fullslam(cfg, gcfg, log, device):
+    """Phase 19, full SLAM: run_full_slam at fullslam_bench_config with the
+    sampled-ray update and optimizer="hier" at hier_dense_max 64, so that
+    every solve runs the V-cycle (32 anchors solved dense, the rigid
+    prolongation, optimize_cg's PCG polish over the 512 slots):
+    run_fullslam's checks, the stages each solve ran, and the hold to the
+    JAX package's run of the same config (keyframe ATE at most JAX's +
+    0.1 m, scripts/fullslam_reference_sparse_hier.json). Returns
+    (launches, result dict, (graph config, final graph's arrays))."""
+    cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, update_impl="sparse"))
+    gcfg = dataclasses.replace(gcfg, hier_dense_max=PHASE19_HIER_DENSE_MAX)
+    stages = dict(sparse.optimize_hier.stages)
+    launches, res = run_fullslam(cfg, gcfg, log, device, optimizer="hier",
+                                 label="sparse-update full SLAM (hier)")
+    ran = {k: sparse.optimize_hier.stages[k] - v for k, v in stages.items()}
+    # the polish factors the chain matrix once a Gauss-Newton iteration
+    launches["tridiag_factor"] = tridiag_factor.launches
+    if tridiag_factor.launches != gcfg.gn_iters * ran["polish"]:
+        raise AssertionError(f"tridiag_factor launched {tridiag_factor.launches}"
+                             f" times for {ran['polish']} polishes")
+    out = dict(stages=ran, accepts=res.n_loops,
+               beside_jax=held_to_jax(res, log, FULLSLAM_SPARSE_HIER_REFERENCE,
+                                      "sparse-update full SLAM (hier)"))
+    print("sparse-update full SLAM (hier) stages:", json.dumps(ran))
+    if not ran["vcycle"] == ran["polish"] >= res.n_loops:
+        raise AssertionError(f"hier stages {ran} for {res.n_loops} accepts")
+    return launches, out, (gcfg, res.ckpt["graph"])
+
+
 def main(kernels_only: bool = False):
     """Every phase; with `kernels_only` (--kernels-only) phases 1-3 alone,
     for work on a kernel: the last line is then the checks' JSON, not the
@@ -3362,6 +3739,12 @@ def main(kernels_only: bool = False):
         at_fullslam[name].update(entries)
     for name, entries in at_fullslam.items():
         checks[name].update(entries)
+    wide_cfg = wide_fov_config()
+    wide_log = bench_log(wide_cfg.sensor)
+    for name, entries in wide_fov_kernel_checks(wide_cfg, wide_log,
+                                                device).items():
+        checks[name].update(entries)
+    checks["tridiag_factor"] = tridiag_checks(device)
     floor_ms, floor_by = launch_floor(device)
     print(f"launch floor, an empty kernel: {floor_ms:.4g} ms ({floor_by})")
     for name in ("update_hybrid", "update_ray", "score_offsets",
@@ -3417,6 +3800,20 @@ def main(kernels_only: bool = False):
         fullslam_tiled_bench_log(fs_cfg.sensor), device))
     by_path["17 Schur full SLAM"], _ = schur_checks(
         fs_cfg, fs_gcfg, fs_log, device, fs_res.ckpt["graph"])
+    sr_cfg = dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, update_impl="sparse"))
+    by_path["18 sampled-ray frontend"] = run_sampled_ray_frontend(
+        sr_cfg, log, device, "sampled-ray frontend")
+    by_path["19 sampled-ray full SLAM (hier)"], phase19, (gcfg19, graph19) = (
+        run_sparse_hier_fullslam(fs_cfg, fs_gcfg, fs_log, device))
+    # the factor's row at its main path's input, the serpentine's beside it
+    checks["tridiag_factor"] = {
+        **tridiag_path_check(device, gcfg19, graph19),
+        **checks["tridiag_factor"]}
+    phase19.update(sparse_solver_checks(device, fs_gcfg,
+                                        fs_res.ckpt["graph"]))
+    by_path["20 270-degree frontend"] = run_sampled_ray_frontend(
+        wide_cfg, wide_log, device, "270-degree frontend")
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",
@@ -3439,6 +3836,9 @@ def main(kernels_only: bool = False):
                         "slam2d_tpu/ops/pallas_stack.py:31"),
         "shared_apply": ("slam2d_tpu_torch/csrc/shared_apply.cu",
                          "slam2d_tpu/ops/pallas_apply.py:42"),
+        # a lax.scan of the JAX package, no Pallas kernel
+        "tridiag_factor": ("slam2d_tpu_torch/csrc/tridiag_factor.cu",
+                           "slam2d_tpu/graph/sparse.py:138"),
     }
     kernels = []
     for name, (src, rep) in sources.items():

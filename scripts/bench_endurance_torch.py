@@ -4,7 +4,7 @@ scripts/bench_endurance.py: full SLAM with the Schur pose-graph solver
 over the long synthetic endurance log (Intel-Research-Lab statistics: 4
 laps of a 28 m ring corridor at 3 cm a scan, 13,337 scans, 180 beams).
 
-    python3 scripts/bench_endurance_torch.py
+    python3 scripts/bench_endurance_torch.py [--update IMPL] [--optimizer NAME]
     python3 scripts/bench_endurance_torch.py --device cpu --scans 64   (tests)
 
 Config (bench_endurance.py's): a bounded 768^2 grid at 0.05 m, 256 ray
@@ -13,7 +13,10 @@ GraphConfig(max_nodes=1024, max_edges=4096, keyframe_dist=0.8,
 loop_min_gap=30, loop_radius=3.0, loop_score_accept=0.35,
 loop_max_correction_xy=2.5, gn_iters=10, robust_kind="dcs");
 run_full_slam(optimizer="schur"). The log is endurance_log(laps=4,
-step=0.03, seed=0); `--scans N` keeps its first N scans.
+step=0.03, seed=0); `--scans N` keeps its first N scans. `--update`
+sets GridConfig.update_impl (default "auto": the hybrid update; "sparse"
+is the sampled-ray update, the JAX package's CPU "auto"), `--optimizer`
+the solver (default "schur"; "dense", "sparse", "hier", "auto").
 
 Prints one JSON line: scans/s (the host clock and CUDA events), seconds,
 loops, keyframes, keyframe ATE unaligned and aligned (and odometry's at
@@ -28,6 +31,7 @@ TPU gave 0.444 m aligned, 0.76 m unaligned, 53 loops, 496 keyframes.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import resource
@@ -47,6 +51,7 @@ from slam2d_tpu_torch.config import (  # noqa: E402
     SensorConfig,
 )
 from slam2d_tpu_torch.data.synth import endurance_log  # noqa: E402
+from slam2d_tpu_torch.grid.occupancy import resolve_update_impl  # noqa: E402
 from slam2d_tpu_torch.metrics import ate_rmse  # noqa: E402
 from slam2d_tpu_torch.run import bench_configs  # noqa: E402
 from slam2d_tpu_torch.run.full_slam import fetch, run_full_slam  # noqa: E402
@@ -82,12 +87,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scans", type=int, default=None,
                     help="keep the log's first N scans")
+    ap.add_argument("--update", default="auto",
+                    help="GridConfig.update_impl (default auto: hybrid)")
+    ap.add_argument("--optimizer", default="schur")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     cuda = device.type == "cuda"
     if cuda and not torch.cuda.is_available():
         raise SystemExit("bench_endurance_torch.py: no CUDA device")
     cfg, gcfg = endurance_config()
+    cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+        cfg.grid, update_impl=args.update))
     _, log = endurance_log(cfg.sensor, span=SPAN, laps=4, step=0.03, seed=0)
     if args.scans is not None:
         log = {k: v[: args.scans] for k, v in log.items()}
@@ -96,7 +106,7 @@ def main(argv=None) -> dict:
 
     # the kernels' build, cuSOLVER's set-up and the first chunk, untimed
     warm = {k: v[: cfg.chunk] for k, v in log.items()}
-    run_full_slam(warm, cfg, gcfg, optimizer="schur", device=device)
+    run_full_slam(warm, cfg, gcfg, optimizer=args.optimizer, device=device)
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(device)
@@ -105,7 +115,8 @@ def main(argv=None) -> dict:
         start.record()
     fetch.reads = 0
     t0 = time.perf_counter()
-    res = run_full_slam(log, cfg, gcfg, optimizer="schur", device=device)
+    res = run_full_slam(log, cfg, gcfg, optimizer=args.optimizer,
+                        device=device)
     if cuda:
         end.record()
         end.synchronize()
@@ -129,7 +140,8 @@ def main(argv=None) -> dict:
         device_memory_peak_bytes=(
             torch.cuda.max_memory_allocated(device) if cuda else None),
         device=bench_configs.card() if cuda else "cpu",
-        optimizer="schur", gate=GATE,
+        optimizer=args.optimizer,
+        update_impl=resolve_update_impl(cfg.grid, cfg.sensor), gate=GATE,
     )
     out["gate_pass"] = bool(
         out["kf_ate_aligned"] < GATE["aligned_m"]

@@ -3,16 +3,18 @@
 package and the PyTorch port, on the CPU.
 
     python3 scripts/corridor_draws.py draws --package jax|port
-        [--ulps=0,1,-1,...]
-    python3 scripts/corridor_draws.py chunks
+        [--ulps=0,1,-1,...] [--update pallas_hybrid|sparse]
+    python3 scripts/corridor_draws.py chunks [--update ...]
 
 The config and log are chip_smoke.py phase 16's at the CLI's tile
 defaults (bench_configs.fullslam_tiled_bench_config: 512^2 tiles at
 0.05 m; fullslam_tiled_bench_log, 911 scans), the frontend alone: with no
 loop attempt, full SLAM's trajectory there is the tiled frontend's. Both
-packages run the hybrid map update (the JAX kernel in interpret mode);
-the port runs on 2 CPU threads (its sums, so its draws, depend on the
-thread count).
+packages run the map update `--update` names: the hybrid one (default;
+the JAX kernel in interpret mode) or the sampled-ray one ("sparse", the
+JAX package's CPU "auto"); the port runs on 2 CPU threads (its sums, so
+its draws, depend on the thread count; so does the order of the
+sampled-ray update's scatter-add).
 
 - draws: run_tiled_frontend of one package once for each `--ulps` entry
   k, the sensor's first beam angle (so every beam's) moved by k float32
@@ -37,9 +39,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def _setup(ulps: int = 0):
+def _setup(ulps: int = 0, update: str = "pallas_hybrid"):
     """(JAX config, port config, JAX TileConfig, port TileConfig, log),
-    the first beam angle moved by `ulps` float32 ulps in both configs."""
+    the first beam angle moved by `ulps` float32 ulps and the map update
+    `update` in both configs."""
     import jax
     import torch
 
@@ -55,17 +58,17 @@ def _setup(ulps: int = 0):
     for _ in range(abs(ulps)):
         a = np.nextafter(a, np.float32(np.sign(ulps) * np.inf))
     cfg = dataclasses.replace(
-        cfg, grid=dataclasses.replace(cfg.grid, update_impl="pallas_hybrid"),
+        cfg, grid=dataclasses.replace(cfg.grid, update_impl=update),
         sensor=dataclasses.replace(
             cfg.sensor, angle_min=float(a) if ulps else cfg.sensor.angle_min))
     return _to_jax(cfg), cfg, TileConfig(**dataclasses.asdict(tcfg)), tcfg, log
 
 
-def draws(package: str, ulps: list[int]):
+def draws(package: str, ulps: list[int], update: str):
     from slam2d_tpu_torch.metrics import ate_rmse
 
     for k in ulps:
-        jcfg, cfg, jtcfg, tcfg, log = _setup(k)
+        jcfg, cfg, jtcfg, tcfg, log = _setup(k, update)
         if package == "jax":
             from slam2d_tpu.run.frontend_tiled import run_tiled_frontend
 
@@ -75,14 +78,14 @@ def draws(package: str, ulps: list[int]):
 
             _, traj, _ = run_tiled_frontend(log, cfg, tcfg, device="cpu")
         print(json.dumps(dict(
-            package=package, angle_min_ulps=k,
+            package=package, angle_min_ulps=k, update_impl=update,
             traj_ate_m=ate_rmse(np.asarray(traj), log["gt_poses"],
                                 align=False),
             ate_odom_m=ate_rmse(log["odom"], log["gt_poses"], align=False),
         )), flush=True)
 
 
-def chunks():
+def chunks(update: str):
     import jax
     import jax.numpy as jnp
     import torch
@@ -92,7 +95,7 @@ def chunks():
     from slam2d_tpu.run import frontend_tiled as jft
     from slam2d_tpu_torch.run import frontend_tiled as tft
 
-    jcfg, cfg, jtcfg, tcfg, log = _setup()
+    jcfg, cfg, jtcfg, tcfg, log = _setup(update=update)
     odom = np.asarray(log["odom"], np.float32)
     ranges = np.asarray(log["ranges"], np.float32)
     T, K = len(odom), cfg.chunk
@@ -140,11 +143,14 @@ def main():
     ap.add_argument("mode", choices=("draws", "chunks"))
     ap.add_argument("--package", choices=("jax", "port"), default="port")
     ap.add_argument("--ulps", default="0,1,-1,2,-2,3,-3,4,-4,5,-5,6,-6")
+    ap.add_argument("--update", choices=("pallas_hybrid", "sparse"),
+                    default="pallas_hybrid")
     args = ap.parse_args()
     if args.mode == "draws":
-        draws(args.package, [int(k) for k in args.ulps.split(",")])
+        draws(args.package, [int(k) for k in args.ulps.split(",")],
+              args.update)
     else:
-        chunks()
+        chunks(args.update)
 
 
 if __name__ == "__main__":

@@ -4,9 +4,10 @@ the references that chip_smoke.py's phases 15-17 hold the port to.
 
     python3 scripts/fullslam_reference.py [--run NAME] [--out PATH]
 
-Runs the JAX package on the CPU, with the map update the port runs
-("pallas_hybrid", the JAX kernel in interpret mode; the JAX package's
-"auto" would pick its sampled-ray update on the CPU), and writes the
+Runs the JAX package on the CPU, with the map update the port's run
+takes ("pallas_hybrid", the JAX kernel in interpret mode, or, for
+sparse_hier, "sparse"; the JAX package's "auto" would pick its
+sampled-ray update on the CPU), and writes the
 keyframe scan indices, every loop attempt, the accepted loops, chi2 and
 the ATEs as one JSON file. The runs (--run, each with its own default
 file under scripts/):
@@ -16,6 +17,10 @@ file under scripts/):
   (1024^2 at 0.05 m, 715 scans; ~4.5 min, ~1 GB);
 - schur (fullslam_reference_schur.json): the same with
   optimizer="schur" (phase 17);
+- sparse_hier (fullslam_reference_sparse_hier.json): the same with the
+  sampled-ray update (update_impl "sparse", the JAX package's XLA
+  scatter-add) and optimizer="hier" at GraphConfig.hier_dense_max=64,
+  so that every solve runs the V-cycle (phase 19);
 - seed4, seed5 (fullslam_reference_seed4.json, _seed5.json): the dense
   run over `fullslam_bench_log(seed=4 / 5)`, the same route with other
   noise (phase 15's extra runs);
@@ -53,6 +58,9 @@ RUNS = {
     "bench": ("fullslam_reference.json", dict(seed=3, optimizer="dense")),
     "schur": ("fullslam_reference_schur.json",
               dict(seed=3, optimizer="schur")),
+    "sparse_hier": ("fullslam_reference_sparse_hier.json",
+                    dict(seed=3, optimizer="hier", update="sparse",
+                         graph=dict(hier_dense_max=64))),
     "seed4": ("fullslam_reference_seed4.json", dict(seed=4, optimizer="dense")),
     "seed5": ("fullslam_reference_seed5.json", dict(seed=5, optimizer="dense")),
     "tiled": ("fullslam_tiled_reference.json",
@@ -99,21 +107,25 @@ def _one_run(run: str) -> dict:
             config += f"(seed={kw['seed']})"
         if kw["optimizer"] != "dense":
             config += f", optimizer {kw['optimizer']}"
+        if kw.get("graph"):
+            gcfg = dataclasses.replace(gcfg, **kw["graph"])
+            config += "".join(f", {k} {v}" for k, v in kw["graph"].items())
 
         def run_it(jcfg):
             return run_full_slam(log, jcfg, _to_jax(gcfg),
                                  optimizer=kw["optimizer"])
 
+    update = kw.get("update", "pallas_hybrid")
     jcfg = _to_jax(cfg)
     jcfg = dataclasses.replace(
-        jcfg, grid=dataclasses.replace(jcfg.grid, update_impl="pallas_hybrid"))
+        jcfg, grid=dataclasses.replace(jcfg.grid, update_impl=update))
     t0 = time.perf_counter()
     res = run_it(jcfg)
     seconds = time.perf_counter() - t0
     gt = log["gt_poses"]
     idx = np.asarray(res.kf_scan_idx)
     result = dict(
-        config=config + ", update_impl pallas_hybrid",
+        config=config + f", update_impl {update}",
         jax=dict(version=jax.__version__, backend=jax.default_backend()),
         scans=len(log["odom"]), seconds=seconds,
         kf_scan_idx=idx.tolist(),

@@ -7,6 +7,7 @@
         [--warm 128] [--scans 192] [--seeds N]
     python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
     python3 scripts/profile_torch.py schur [--warm 2] [--scans 3]
+    python3 scripts/profile_torch.py hier [--warm 1] [--scans 1]
     (all: [--out profile_out])
 
 Runs the port (slam2d_tpu_torch) at bench.py's config and log (frontend;
@@ -19,7 +20,11 @@ over the warmup scans and then over the traced ones resumed from its
 checkpoint; schur: `--scans` Schur solves (graph/schur.py, 4 blocks,
 the host's plan and tables included) of that run's final graph, after
 `--warm` untraced ones, with the plan, the tables and the iterations
-timed apart first) or at bench_pf.py's default config and log with 100, 1000
+timed apart first; hier: `--scans` optimize_hier solves of the 4096-node
+serpentine graph of tests/test_sparse_graph.py (chip_smoke.py phase 19's,
+bench_configs.hier_bench_graph), after `--warm` untraced
+ones, with the host's plan and a whole solve timed apart first) or at
+bench_pf.py's default config and log with 100, 1000
 or 16 particles (fastslam, fastslam1000, fastslam16; bf16 512^2 maps): a
 warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. The
@@ -81,6 +86,7 @@ DEFAULTS = {  # warm, scans
     # the second lap, where the loops close (715 scans in all)
     "fullslam": (384, 331),
     "schur": (2, 3),   # solves, not scans
+    "hier": (1, 1),    # solves, not scans
 }
 PF_CONFIGS = {
     "fastslam": bench_configs.pf_bench_config,
@@ -277,6 +283,52 @@ def schur_steps(dev):
     return steps, steps, ()
 
 
+def hier_steps(dev):
+    """(steps(lo, hi) making hi - lo optimize_hier solves of the 4096-node
+    serpentine, counters); first the plan and a whole solve timed apart
+    (median of 3, synced) and the stages a solve runs."""
+    from slam2d_tpu_torch.config import GraphConfig
+    from slam2d_tpu_torch.graph import se2_graph, sparse
+    from slam2d_tpu_torch.ops.tridiag import tridiag_factor
+
+    K = 4096
+    arrays, _, _, ckw = bench_configs.hier_bench_graph(K)
+    gcfg = GraphConfig(**ckw)
+    g = se2_graph.PoseGraph(**{k: torch.as_tensor(v, device=dev)
+                               for k, v in arrays.items()})
+    plan = sparse.sparse_plan(g, gcfg, dev, hier=True)
+
+    def ms(fn):
+        out = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    before = dict(sparse.optimize_hier.stages)
+    launches = tridiag_factor.launches
+    sparse.optimize_hier(g, gcfg, plan=plan)
+    stages = {k: sparse.optimize_hier.stages[k] - v
+              for k, v in before.items()}
+    print(json.dumps(dict(
+        card=bench_configs.card(), nodes=K, levels=[lv.K for lv in
+                                                    plan.levels],
+        stages_a_solve=stages,
+        tridiag_launches_a_solve=tridiag_factor.launches - launches,
+        plan_ms=ms(lambda: sparse.sparse_plan(g, gcfg, dev, hier=True)),
+        solve_ms=ms(lambda: sparse.optimize_hier(g, gcfg, plan=plan)),
+    )))
+
+    def steps(lo, hi):
+        for _ in range(lo, hi):
+            sparse.optimize_hier(g, gcfg, plan=plan)
+
+    return steps, steps, ()
+
+
 def fastslam_steps(dev, cfg, pf, seeds):
     """(steps(lo, hi) running FastSLAM over scans lo..hi-1, counters);
     with `seeds`, the whole-log sweep first."""
@@ -358,6 +410,8 @@ def main():
         steps, step, counters = fullslam_steps(dev)
     elif args.pipeline == "schur":
         steps, step, counters = schur_steps(dev)
+    elif args.pipeline == "hier":
+        steps, step, counters = hier_steps(dev)
     else:
         cfg, pf = PF_CONFIGS[args.pipeline]()
         steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds)

@@ -1,14 +1,16 @@
 """slam2d_tpu_torch — the scan-matching frontend (on a fixed grid and on
 the tiled, unbounded world), localization on a fixed map with global
 relocalization, FastSLAM, and full SLAM with loop closure and a pose
-graph (dense or block-Schur) on a bounded grid and on the tiled world, of
-slam2d_tpu in PyTorch, with hand-written CUDA kernels for the NVIDIA H100
-(sm_90a).
+graph (dense, block-Schur, matrix-free PCG or hierarchical) on a bounded
+grid and on the tiled world, with every map update of the JAX package
+(the kernels', the sampled-ray and the dense one, fields of view past
+pi), of slam2d_tpu in PyTorch, with hand-written CUDA kernels for the
+NVIDIA H100 (sm_90a).
 
 The JAX package `slam2d_tpu` is the reference this package is tested
 against; its layout is mirrored here (config, core/se2, data/synth,
-graph/schur, graph/se2_graph, grid/occupancy, grid/tiles, grid/window,
-match/correlative, match/global_loc, metrics, pf/fastslam,
+graph/schur, graph/se2_graph, graph/sparse, grid/occupancy, grid/tiles,
+grid/window, match/correlative, match/global_loc, metrics, pf/fastslam,
 pf/shared_refine, pf/shared_update, run/frontend, run/frontend_tiled,
 run/fastslam_run, run/full_slam, run/full_slam_tiled) so
 each module's counterpart is easy to find. This package imports nothing

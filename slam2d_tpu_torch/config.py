@@ -53,10 +53,13 @@ class GridConfig:
     # Free-space samples per beam of the sampled-ray update; the exact-ray
     # update ("pallas_ray") weighs its chords by max(res, range / samples).
     ray_samples: int = 192
-    # Scan-integration kernel: "auto" resolves per call site (the
+    # Scan-integration update: "auto" resolves per call site (the
     # frontend's hybrid update, the particle filter's inverse-sensor-model
-    # update); "pallas" (ISM), "pallas_hybrid" (ISM free carve + exact
-    # endpoint cells), "pallas_ray" (exact chords + exact endpoint cells).
+    # update; the sampled-ray update past a field of view of pi);
+    # "pallas" (ISM), "pallas_hybrid" (ISM free carve + exact endpoint
+    # cells), "pallas_ray" (exact chords + exact endpoint cells), "sparse"
+    # and "sparse_mxu" (sampled rays, scatter-added), "dense" (the
+    # elementwise inverse sensor model).
     update_impl: str = "auto"
 
     @property
@@ -205,8 +208,10 @@ class GraphConfig:
     # 10^(robust_gnc_iters - k). 0 = robust from the first iteration.
     robust_gnc_iters: int = 2
     damping: float = 1e-6             # Levenberg damping on H diagonal
-    # Settings of the JAX package's matrix-free and hierarchical solvers
-    # (graph/sparse.py), which the port does not have yet.
+    # Matrix-free and hierarchical solvers (graph/sparse.py): the loop-edge
+    # capacity of the preconditioner and the anchor graph, the anchor
+    # stride, PCG iterations a Gauss-Newton step, the capacity up to which
+    # the V-cycle solves dense, and the number of V-cycles.
     sparse_max_loops: int = 64
     sparse_coarse_stride: int = 16
     sparse_cg_iters: int = 48

@@ -40,6 +40,7 @@ import torch
 
 from slam2d_tpu_torch.config import GraphConfig
 from slam2d_tpu_torch.core import se2
+from slam2d_tpu_torch.core.numerics import highest_matmul_precision
 from slam2d_tpu_torch.graph.se2_graph import PoseGraph, _edge_blocks
 
 
@@ -377,14 +378,10 @@ def optimize_schur(g: PoseGraph, cfg: GraphConfig, n_blocks: int = 4,
     I = plan.int_ids.shape[1]
     poses = g.poses
     chi = torch.zeros((), dtype=torch.float32, device=poses.device)
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
+    with highest_matmul_precision():
         for it in range(cfg.gn_iters):
             poses, chi = _iteration_core_f32(
                 poses, g, pt, I, plan.n_sep, cfg,
                 np.float32(_host_delta_eff(cfg, it)),
             )
-    finally:
-        torch.set_float32_matmul_precision(prev)
     return g._replace(poses=poses), chi

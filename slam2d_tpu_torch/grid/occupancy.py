@@ -1,11 +1,26 @@
 """Log-odds occupancy grid as a fixed-shape [H, W] tensor.
 
-Port of slam2d_tpu/grid/occupancy.py for the frontend and the particle
-filter: rows = y, cols = x, world-anchored at GridConfig.origin. Scan
-integration runs the updates of ops/update.py: the two that the JAX
-package resolves "auto" to on its accelerator (the hybrid update for the
-frontend, the pure ISM update for the particle filter) and the exact-ray
-update ("pallas_ray").
+Port of slam2d_tpu/grid/occupancy.py: rows = y, cols = x,
+world-anchored at GridConfig.origin. Scan integration runs every update
+of the JAX package:
+
+- the kernels of ops/update.py: the two that the JAX package resolves
+  "auto" to on its accelerator (the hybrid update for the frontend, the
+  pure ISM update for the particle filter) and the exact-ray update
+  ("pallas_ray");
+- the sampled-ray update (`raycast_update`, "sparse"; "sparse_mxu" is
+  the same function, which the JAX package accumulates by a one-hot
+  matmul on its accelerator): `ray_samples` points a beam, added with
+  `index_put_(accumulate=True)` into the flattened map. The JAX package
+  resolves "auto" to it off its accelerator, and for a field of view
+  wider than pi everywhere;
+- the dense inverse sensor model (`raycast_update_dense`, "dense"),
+  elementwise PyTorch;
+- the endpoint marks alone (`endpoint_update`).
+
+The sampled-ray update reproduces the float32 arithmetic of the JAX
+package as XLA compiles it on the CPU: `x / c` as `x * fl32(1 / c)`, and
+the multiply-adds `pose + dir * d` contracted into one rounding (`_fma`).
 """
 
 from __future__ import annotations
@@ -57,6 +72,29 @@ def cell_center_world(rc, cfg: GridConfig):
     return torch.stack([x, y], dim=-1)
 
 
+def _f64(x):
+    if isinstance(x, torch.Tensor):
+        return x.double()
+    return float(np.float32(x))
+
+
+def _fma(a, b, c):
+    """fl32(a * b + c) with one rounding, as XLA contracts a float32
+    multiply-add on the CPU: the product of two float32 values is exact in
+    float64, so the sum rounds once to float64 and once to float32 (the
+    two agree but for a sum on a float32 midpoint). Python numbers count
+    as their float32 values."""
+    return (_f64(a) * _f64(b) + _f64(c)).float()
+
+
+@functools.cache
+def _sample_fracs(S: int, device):
+    """[S] float32 (k + 0.5) / S as XLA folds the JAX package's constant:
+    (k + 0.5) * fl32(1 / S)."""
+    return (torch.arange(S, dtype=torch.float32, device=device) + 0.5
+            ) * inv_f32(S)
+
+
 @functools.cache
 def beam_angles(sensor: SensorConfig, device):
     """[B] float32 beam angles: the float64 SensorConfig table cast once,
@@ -82,28 +120,260 @@ def window_origin_xy(cfg, origin_rc):
     )
 
 
+PALLAS_IMPLS = ("pallas", "pallas_ray", "pallas_hybrid")
+UPDATE_IMPLS = ("auto", "sparse", "sparse_mxu", "dense") + PALLAS_IMPLS
+
+
+def _cells(x, o, inv_res, off):
+    """floor((x - o) * fl32(1 / res)) - off as int32 (XLA's form of the
+    division by the cell size)."""
+    return torch.floor((x - o) * inv_res).to(torch.int32) - off
+
+
+def _beams(pose, ranges, sensor: SensorConfig):
+    """(dirx, diry, valid, hit, r_clip) [B] of a scan taken from `pose`:
+    the world bearings' cosines and sines, min_range < r (finite), hits
+    below max_range, the ranges clipped to it."""
+    angles = beam_angles(sensor, ranges.device) + pose[2]
+    r = ranges.to(torch.float32)
+    valid = (r > sensor.min_range) & torch.isfinite(r)
+    hit = valid & (r < sensor.max_range)
+    return (torch.cos(angles), torch.sin(angles), valid, hit,
+            torch.clamp(r, 0.0, sensor.max_range))
+
+
+def _endpoints(pose, beams, cfg: GridConfig, shape, ox, oy, roff, coff):
+    """(row, col, weight) [B] of the hits' endpoint cells, relative to
+    (roff, coff), l_occ where the cell lies inside `shape`, else 0 (the
+    cells not yet clipped)."""
+    dirx, diry, _, hit, r_clip = beams
+    H, W = shape
+    inv_res = inv_f32(cfg.resolution)
+    erow = _cells(_fma(diry, r_clip, pose[1]), oy, inv_res, roff)
+    ecol = _cells(_fma(dirx, r_clip, pose[0]), ox, inv_res, coff)
+    e_in = (erow >= 0) & (erow < H) & (ecol >= 0) & (ecol < W)
+    return erow, ecol, torch.where(hit & e_in, cfg.l_occ, 0.0)
+
+
+def _raycast_entries(pose, ranges, cfg: GridConfig, sensor: SensorConfig,
+                     shape, ox, oy, roff, coff):
+    """The sampled-ray update's (row, col, weight) entries before the gate:
+    [B * S] free samples then [B] endpoints, in the JAX package's order,
+    the cells relative to (roff, coff) and clipped into `shape`, a sample
+    outside it weighing 0 (XLA's scatter with mode="drop" on clipped
+    indices)."""
+    H, W = shape
+    res = cfg.resolution
+    inv_res = inv_f32(res)
+    beams = _beams(pose, ranges, sensor)
+    dirx, diry, valid, _, r_clip = beams
+
+    # free-space samples, stopping one cell short of the endpoint
+    S = cfg.ray_samples
+    r_free = torch.clamp_min(r_clip - res, 0.0)
+    d = r_free[:, None] * _sample_fracs(S, ranges.device)[None, :]
+    frow = _cells(_fma(diry[:, None], d, pose[1]), oy, inv_res, roff)
+    fcol = _cells(_fma(dirx[:, None], d, pose[0]), ox, inv_res, coff)
+    # a traversed cell accumulates about l_free whatever the oversampling:
+    # min(r_free / S / res, 1), which XLA folds into one multiplication by
+    # fl32(fl32(1 / S) * fl32(1 / res))
+    scale = torch.clamp_max(
+        r_free * float(np.float32(inv_f32(S)) * np.float32(inv_res)), 1.0)
+    free_w = (cfg.l_free * scale * valid)[:, None]
+    in_b = (frow >= 0) & (frow < H) & (fcol >= 0) & (fcol < W)
+    free_w = torch.where(in_b, free_w, 0.0)
+
+    erow, ecol, occ_w = _endpoints(pose, beams, cfg, shape, ox, oy, roff,
+                                   coff)
+    rows = torch.cat([frow.reshape(-1), erow]).clamp(0, H - 1)
+    cols = torch.cat([fcol.reshape(-1), ecol]).clamp(0, W - 1)
+    return rows, cols, torch.cat([free_w.reshape(-1), occ_w])
+
+
+def _origin(cfg: GridConfig, origin_xy, origin_rc):
+    """(ox, oy, roff, coff) of a sampled-ray or endpoint update: with
+    `origin_rc` the config grid's origin and the integer offset (cells are
+    the full grid's floor minus it), else the float origin `origin_xy`
+    (default the grid's) and no offset."""
+    if origin_rc is not None:
+        roff, coff = (v.to(torch.int32) if isinstance(v, torch.Tensor)
+                      else int(v) for v in origin_rc)
+        return cfg.origin_x, cfg.origin_y, roff, coff
+    ox, oy = (cfg.origin_x, cfg.origin_y) if origin_xy is None else origin_xy
+    return ox, oy, 0, 0
+
+
+def _scatter_add_clamp(logodds, rows, cols, w, l_clamp):
+    """clip(logodds + scatter-add(w at (rows, cols))) as a new tensor: the
+    entries added into the flattened map in index order (a serial loop on
+    the CPU; on CUDA a stable sort, each run of equal cells summed and
+    then added), then the clamp."""
+    H, W = logodds.shape
+    flat = logodds.reshape(-1).clone()
+    idx = rows.to(torch.int64) * W + cols.to(torch.int64)
+    flat.index_put_((idx,), w.to(logodds.dtype), accumulate=True)
+    return torch.clamp(flat, -l_clamp, l_clamp).reshape(H, W)
+
+
+def raycast_update(logodds, pose, ranges, cfg: GridConfig,
+                   sensor: SensorConfig, enable=1.0, origin_xy=None,
+                   origin_rc=None):
+    """The sampled-ray update of one scan taken from `pose` [3] with
+    `ranges` [B], into `logodds` [H, W] (the full grid or a window of it);
+    returns the updated map, a new tensor.
+
+    Every beam is sampled at cfg.ray_samples points (k + 0.5) / S of its
+    range less one cell, each adding l_free * min(spacing / res, 1); a hit
+    (min_range < r < max_range) adds l_occ at its endpoint cell; samples
+    outside the map add nothing; then the clamp to +-l_clamp. `enable` (0
+    or 1, a number or a tensor) multiplies every increment. `origin_xy`
+    is the world (x, y) of cell (0, 0) (default the grid's origin);
+    `origin_rc`, the window's integer top-left cell (ints or int tensors)
+    on the config grid's lattice, takes precedence: the cells are the full
+    grid's floor minus it, the bits of the full-grid update."""
+    ox, oy, roff, coff = _origin(cfg, origin_xy, origin_rc)
+    rows, cols, w = _raycast_entries(pose, ranges, cfg, sensor,
+                                     logodds.shape, ox, oy, roff, coff)
+    return _scatter_add_clamp(logodds, rows, cols, w * enable, cfg.l_clamp)
+
+
+def raycast_window(logodds, pose, ranges, cfg: GridConfig,
+                   sensor: SensorConfig, *, origin, size, gate):
+    """`raycast_update` in place on the (h, w) = `size` window of the map
+    `logodds` [H, W] at the int32 device origin `origin` (None: the map's
+    cell (0, 0)), when the bool device tensor `gate` is true: the window's
+    cells get the bits of extract_window -> raycast_update(...,
+    origin_rc) -> write_window, with nothing read to the host. The
+    entries are added into the map in place (a gate of 0 adds -0.0, the
+    additive identity, so the map keeps its bits), then the cells they
+    touch are clamped (the rest of the window holds clamped values
+    already). Returns `logodds`."""
+    H, W = logodds.shape
+    dev = logodds.device
+    if origin is None:
+        origin = torch.zeros(2, dtype=torch.int32, device=dev)
+    rows, cols, w = _raycast_entries(pose, ranges, cfg, sensor, size,
+                                     cfg.origin_x, cfg.origin_y,
+                                     origin[0], origin[1])
+    idx = ((rows + origin[0]).to(torch.int64) * W
+           + (cols + origin[1]).to(torch.int64))
+    flat = logodds.view(-1)
+    flat.index_put_((idx,), torch.where(gate, w, -0.0), accumulate=True)
+    v = flat[idx]
+    flat[idx] = torch.where(gate, torch.clamp(v, -cfg.l_clamp, cfg.l_clamp),
+                            v)
+    return logodds
+
+
+def endpoint_update(logodds, pose, ranges, cfg: GridConfig,
+                    sensor: SensorConfig, enable=1.0, origin_rc=None):
+    """The endpoint (occupied) marks of the sampled-ray update alone: l_occ
+    at each hit's endpoint cell (inside the map), then the clamp. Returns
+    a new tensor. `origin_rc` as in `raycast_update`; the float origin is
+    the grid's."""
+    H, W = logodds.shape
+    ox, oy, roff, coff = _origin(cfg, None, origin_rc)
+    erow, ecol, w = _endpoints(pose, _beams(pose, ranges, sensor), cfg,
+                               (H, W), ox, oy, roff, coff)
+    return _scatter_add_clamp(logodds, erow.clamp(0, H - 1),
+                              ecol.clamp(0, W - 1), w * enable, cfg.l_clamp)
+
+
+def raycast_update_dense(logodds, pose, ranges, cfg: GridConfig,
+                         sensor: SensorConfig, enable=1.0, origin_xy=None):
+    """The classic inverse sensor model evaluated at every cell of
+    `logodds` [H, W] (the full grid or a window at `origin_xy`),
+    elementwise: a cell's bearing from the pose, wrapped into [0, 2 pi)
+    from angle_min (so a 270- or 360-degree scan covers its rear sector),
+    picks the nearest beam and its neighbour on the cell's side; the cell
+    is free if it lies closer than both returns less a cell, occupied if
+    it lies within 0.75 cells of a hit's range and of its ray. A single
+    beam is its own ray, half a cell wide. Returns a new tensor of
+    `logodds`' dtype, accumulated in float32."""
+    H, W = logodds.shape
+    dev = logodds.device
+    ox, oy = (cfg.origin_x, cfg.origin_y) if origin_xy is None else origin_xy
+    res = cfg.resolution
+    B = sensor.n_beams
+    r = torch.clamp(ranges.to(torch.float32), 0.0, sensor.max_range)
+    beam_valid = (ranges > sensor.min_range) & torch.isfinite(ranges)
+    beam_hit = beam_valid & (ranges < sensor.max_range)
+
+    f32 = dict(dtype=torch.float32, device=dev)
+    # cell centres relative to the sensor (XLA contracts the multiply-add)
+    col = torch.arange(W, **f32)[None, :].expand(H, W)
+    row = torch.arange(H, **f32)[:, None].expand(H, W)
+    cx = _fma(col + 0.5, res, ox) - pose[0]
+    cy = _fma(row + 0.5, res, oy) - pose[1]
+    d = torch.hypot(cx, cy)
+    phi = torch.atan2(cy, cx) - pose[2]
+    # jnp.mod: fmod, then the divisor added where the signs differ
+    two_pi = float(np.float32(2 * math.pi))
+    phi = torch.fmod(phi - sensor.angle_min, two_pi)
+    phi = torch.where((phi != 0) & (phi < 0), phi + two_pi, phi)
+    if B > 1:
+        step = sensor.fov_rad / (B - 1)
+        k = torch.round(phi * inv_f32(step)).to(torch.int32)
+        in_fov = (k >= 0) & (k < B)
+        k = torch.clamp(k, 0, B - 1)
+    else:
+        # the signed wrap: the beam sits at relative bearing 0
+        phi = torch.where(phi > math.pi, phi - two_pi, phi)
+        step = 1.0
+        k = torch.zeros((H, W), dtype=torch.int32, device=dev)
+        in_fov = (phi.abs() < math.pi / 2) & (phi.abs() * d <= 0.75 * res)
+
+    # the nearest beam and its neighbour on the cell's side: at grazing
+    # incidence an endpoint cell's bearing can round to the other one
+    resid = phi - k.to(torch.float32) * step
+    k2 = torch.clamp(k + torch.where(resid >= 0, 1, -1), 0, B - 1)
+
+    def per_beam(kk):
+        kl = kk.to(torch.int64)
+        r_b, v_b, h_b = r[kl], beam_valid[kl], beam_hit[kl]
+        cross = torch.abs(phi - kk.to(torch.float32) * step) * d
+        occ_b = (h_b & (torch.abs(d - r_b) <= 0.75 * res)
+                 & (cross <= 0.75 * res))
+        return r_b, v_b, occ_b
+
+    r_k, v_k, occ_k = per_beam(k)
+    r_k2, v_k2, occ_k2 = per_beam(k2)
+    r_min = torch.where(v_k2, torch.minimum(r_k, r_k2), r_k)
+    free = in_fov & v_k & (d < r_min - res)
+    occ = in_fov & (occ_k | occ_k2)
+    upd = cfg.l_free * free.to(torch.float32) + cfg.l_occ * occ.to(
+        torch.float32)
+    out = logodds.to(torch.float32) + upd * enable
+    return torch.clamp(out, -cfg.l_clamp, cfg.l_clamp).to(logodds.dtype)
+
+
 def resolve_update_impl(
     cfg: GridConfig, sensor: SensorConfig, auto_ctx: str = "frontend"
 ) -> str:
     """GridConfig.update_impl with "auto" resolved as the JAX package
     resolves it on its accelerator: the pure inverse-sensor-model update
     ("pallas") for the particle filter (`auto_ctx="pf"`), the hybrid
-    update ("pallas_hybrid") for the frontend. These two and the
-    exact-ray update ("pallas_ray") are ported; every other impl (the
-    sampled-ray and XLA updates), and a field of view wider than pi
-    (which the kernels' unwrapped bearing test cannot cover), raises."""
+    update ("pallas_hybrid") for the frontend, and for a field of view
+    wider than pi the sampled-ray update ("sparse"; the JAX package's
+    "sparse_mxu" there is the same function accumulated by a one-hot
+    matmul). Every impl of the JAX package runs: "sparse", "sparse_mxu",
+    "dense" and the three kernels. A kernel named explicitly with a field
+    of view wider than pi raises: the kernels test an unwrapped bearing,
+    so beams past pi would never fire (the JAX package runs them so; a
+    quirk of the reference, ROADMAP queue 3)."""
     impl = cfg.update_impl
+    if impl not in UPDATE_IMPLS:
+        raise ValueError(f"unknown update_impl {impl!r}")
+    wide = sensor.fov_rad > math.pi + 1e-6
     if impl == "auto":
-        impl = "pallas" if auto_ctx == "pf" else "pallas_hybrid"
-    if impl not in ("pallas", "pallas_hybrid", "pallas_ray"):
+        if wide:
+            return "sparse"
+        return "pallas" if auto_ctx == "pf" else "pallas_hybrid"
+    if wide and impl in PALLAS_IMPLS:
         raise NotImplementedError(
-            f"update_impl={cfg.update_impl!r}: only the dense updates "
-            "('auto', 'pallas', 'pallas_hybrid', 'pallas_ray') are ported"
-        )
-    if sensor.fov_rad > math.pi + 1e-6:
-        raise NotImplementedError(
-            "field of view wider than pi needs the sparse update, which is "
-            "not ported"
+            f"update_impl={impl!r} with a field of view wider than pi: the "
+            "kernel's unwrapped bearing test never fires past pi (a quirk "
+            "of the reference, ROADMAP queue 3); use 'auto' or 'sparse'"
         )
     return impl
 
@@ -128,22 +398,32 @@ def integrate_scan(
     or a window of it) and return the updated map, a new tensor.
 
     `origin_rc` is the window's integer top-left cell (host ints) on the
-    config grid's lattice; like the JAX package's inverse-sensor-model
-    kernels it is turned into the equivalent float origin. `origin_xy`
-    gives that float origin directly; neither means the grid's own origin.
+    config grid's lattice. The sampled-ray update takes it as it is (the
+    full grid's floor minus the offset); for the others, as for the JAX
+    package's inverse-sensor-model updates, it is turned into the
+    equivalent float origin. `origin_xy` gives that float origin
+    directly; neither means the grid's own origin.
 
     `resolve_update_impl(cfg, sensor, auto_ctx)` picks the update: the
     hybrid one (wedge free carve + exact endpoint cells) and the exact-ray
     one (chord-length free evidence + exact endpoint cells) take float32
     maps; the ISM one (wedge free carve + the beams' arcs) float32 or
-    bfloat16 maps, accumulating in float32. `plain=True` runs the kernel's
+    bfloat16 maps, accumulating in float32; the sampled-ray update
+    ("sparse", "sparse_mxu") and the dense inverse sensor model
+    ("dense") are PyTorch, with no kernel. `plain=True` runs the kernel's
     plain version on a CUDA tensor too (for checks only).
     """
     impl = resolve_update_impl(cfg, sensor, auto_ctx)
+    if impl in ("sparse", "sparse_mxu"):
+        return raycast_update(logodds, pose, ranges, cfg, sensor, enable,
+                              origin_xy=origin_xy, origin_rc=origin_rc)
     if origin_rc is not None:
         origin_xy = window_origin_xy(cfg, origin_rc)
     elif origin_xy is None:
         origin_xy = (cfg.origin_x, cfg.origin_y)
+    if impl == "dense":
+        return raycast_update_dense(logodds, pose, ranges, cfg, sensor,
+                                    enable, origin_xy=origin_xy)
     consts = update_constants(cfg, sensor)
     if impl == "pallas":
         out = logodds.clone()
@@ -167,6 +447,9 @@ def integrate_scan(
     )
 
 
+WINDOW_IMPLS = ("pallas_hybrid", "sparse", "sparse_mxu")
+
+
 def integrate_scan_window(
     logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig, *,
     origin, size, gate, plain: bool = False,
@@ -177,14 +460,19 @@ def integrate_scan_window(
     frontend step's update, with nothing read back to the host. The
     window's cells get the bits of extract_window -> integrate_scan(...,
     origin_rc) -> write_window; a gate of 0 leaves the map bit-identical.
-    Only the hybrid update (update_impl "pallas_hybrid", the frontend's
-    "auto") has this form (kernel 1 `hybrid`, ops/update.py:
-    update_hybrid_window). Returns `logodds`."""
+    Two updates have this form: the hybrid one (update_impl
+    "pallas_hybrid", the frontend's "auto"; kernel 1 `hybrid`,
+    ops/update.py:update_hybrid_window) and the sampled-ray one ("sparse",
+    "sparse_mxu", and "auto" past a field of view of pi;
+    `raycast_window`). Returns `logodds`."""
     impl = resolve_update_impl(cfg, sensor)
+    if impl in ("sparse", "sparse_mxu"):
+        return raycast_window(logodds, pose, ranges, cfg, sensor,
+                              origin=origin, size=size, gate=gate)
     if impl != "pallas_hybrid":
         raise NotImplementedError(
-            f"update_impl {impl!r} has no in-place gated form; only the "
-            "hybrid update does"
+            f"update_impl {impl!r} has no in-place gated form; the hybrid "
+            "and the sampled-ray updates do"
         )
     return update_hybrid_window(
         logodds, pose, ranges, beam_angles(sensor, logodds.device),

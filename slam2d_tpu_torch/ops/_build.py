@@ -86,6 +86,8 @@ _SIGNATURES = {
     # max_range, 1/ray_samples, res/2, 1/res, angle_min, step, l_free,
     # l_occ, l_clamp, enable, stream
     "slam2d_update_ray": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P],
+    # D, O, Cinv, K, stream
+    "slam2d_tridiag_factor": [_P, _P, _P, _I, _P],
 }
 
 

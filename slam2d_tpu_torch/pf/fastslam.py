@@ -274,11 +274,14 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
             "diagnostics of the JAX package and are not ported"
         )
     g, s = cfg.grid, cfg.sensor
-    if resolve_update_impl(g, s, auto_ctx="pf") != "pallas":
+    impl = resolve_update_impl(g, s, auto_ctx="pf")
+    if impl != "pallas":
         raise NotImplementedError(
             "the particle filter's map update is ported for the "
             "inverse-sensor-model update only (update_impl 'auto' or "
-            f"'pallas'), got {g.update_impl!r}"
+            f"'pallas' up to a field of view of pi), got {g.update_impl!r} "
+            f"({impl!r}): its per-particle sampled-ray and dense updates "
+            "are ROADMAP queue 1 item 9's remainder"
         )
     H, W = logodds.shape[1:]
     win = update_window_cells(g, s)

@@ -32,7 +32,7 @@ import torch
 
 from slam2d_tpu_torch.config import FrontendConfig, MatcherConfig, PFConfig
 from slam2d_tpu_torch.core import se2
-from slam2d_tpu_torch.core.numerics import inv_f32
+from slam2d_tpu_torch.core.numerics import highest_matmul_precision, inv_f32
 from slam2d_tpu_torch.grid.occupancy import (
     cell_center_world,
     scan_endpoints_local,
@@ -101,12 +101,8 @@ def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,
 
 def _product_f32(a, b):
     """a @ b^T in full float32: TF32 off for the call."""
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
+    with highest_matmul_precision():
         return a @ b.T
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def shared_scores(grids, ranges, priors, cfg: FrontendConfig,

@@ -3,8 +3,10 @@
 or 16 particles), a localization log and a kidnap log in bench.py's
 world, the tiled frontend at the CLI's tile defaults on a lap of the
 corridor world, full SLAM at the CLI's `--mode full` defaults on two
-laps of bench.py's world, and full SLAM on the tiled world at the CLI's
-tile defaults on a Killian-scale lap of the corridor world, for the
+laps of bench.py's world, full SLAM on the tiled world at the CLI's
+tile defaults on a Killian-scale lap of the corridor world, a 270-degree
+scanner in bench.py's world, and the serpentine pose graph of
+tests/test_sparse_graph.py (the sparse solvers' stress graph), for the
 scripts that drive the port on a GPU (chip_smoke.py,
 scripts/profile_torch.py), and the card's name and power limit as
 nvidia-smi reports them.
@@ -224,6 +226,97 @@ def fullslam_tiled_bench_log(sensor):
                                odom_noise_xy=0.02, odom_noise_theta=0.004,
                                seed=3)
     return log
+
+
+def wide_fov_config():
+    """bench.py's frontend config (1024^2 at 0.05 m, its matcher and chunk
+    64) with a Hokuyo UTM-30LX's published geometry: 1081 beams over
+    270 degrees (0.25 degree steps), 0.1-30 m, over bench_log's route.
+    update_impl "auto" resolves to the sampled-ray update at a field of
+    view past pi."""
+    cfg = bench_config()
+    fov = 1.5 * np.pi
+    sensor = SensorConfig(n_beams=1081, fov_rad=fov, angle_min=-0.5 * fov,
+                          min_range=0.1, max_range=30.0)
+    return dataclasses.replace(cfg, sensor=sensor)
+
+
+def serpentine_graph_arrays(K: int, n_loops: int, seed: int = 0,
+                            drift: float = 0.02):
+    """tests/test_sparse_graph.py's `_serpentine_graph` in numpy: a K-node
+    serpentine corridor sweep (passes of 64 nodes joined by u-turn rungs),
+    odometry with `drift` noise, and n_loops rung closures between
+    adjacent passes. Returns (arrays, gt [K, 3], est [K, 3], GraphConfig
+    kwargs): `arrays` holds the PoseGraph fields (poses, node_mask,
+    n_nodes, edges_ij, edges_z, edges_omega, edge_mask, n_edges) as numpy
+    arrays and ints."""
+    rng = np.random.default_rng(seed)
+    cfg = dict(max_nodes=K, max_edges=K + n_loops + 8, gn_iters=6)
+    leg = 64
+    gt = np.zeros((K, 3))
+    true_d = np.zeros((K - 1, 3))
+    for k in range(1, K):
+        _, s = divmod(k, leg)
+        true_d[k - 1] = [0.0, 1.0, np.pi] if s == 0 else [1.0, 0.0, 0.0]
+        p = gt[k - 1]
+        c, si = np.cos(p[2]), np.sin(p[2])
+        d = true_d[k - 1]
+        gt[k] = [p[0] + c * d[0] - si * d[1], p[1] + si * d[0] + c * d[1],
+                 (p[2] + d[2] + np.pi) % (2 * np.pi) - np.pi]
+    est = np.zeros_like(gt)
+    est[0] = gt[0]
+    for k in range(1, K):
+        dn = true_d[k - 1] + rng.normal(0, drift, 3) * [1, 1, 0.3]
+        p = est[k - 1]
+        c, si = np.cos(p[2]), np.sin(p[2])
+        est[k] = [p[0] + c * dn[0] - si * dn[1], p[1] + si * dn[0] + c * dn[1],
+                  (p[2] + dn[2] + np.pi) % (2 * np.pi) - np.pi]
+
+    E = cfg["max_edges"]
+    edges_ij = np.zeros((E, 2), np.int32)
+    edges_z = np.zeros((E, 3), np.float32)
+    omegas = np.zeros((E, 3, 3), np.float32)
+    emask = np.zeros(E, bool)
+    edges_ij[: K - 1] = np.stack([np.arange(K - 1), np.arange(1, K)], 1)
+    edges_z[: K - 1] = true_d
+    omegas[: K - 1] = np.eye(3) * 100.0
+
+    def rel(a, b):
+        d = gt[b] - gt[a]
+        c, si = np.cos(gt[a][2]), np.sin(gt[a][2])
+        return np.array([c * d[0] + si * d[1], -si * d[0] + c * d[1],
+                         (gt[b][2] - gt[a][2] + np.pi) % (2 * np.pi) - np.pi])
+
+    n_pass = K // leg
+    for li in range(n_loops):
+        pass_i = 1 + (li % max(1, n_pass - 1))
+        s = int(rng.integers(4, leg - 4))
+        a = (pass_i - 1) * leg + s
+        b = pass_i * leg + (leg - 1 - s)
+        if b >= K:
+            continue
+        edges_ij[K - 1 + li] = (a, b)
+        edges_z[K - 1 + li] = rel(a, b)
+        omegas[K - 1 + li] = np.eye(3) * 400.0
+    emask[: K - 1 + n_loops] = True
+    arrays = dict(
+        poses=est.astype(np.float32), node_mask=np.ones(K, bool), n_nodes=K,
+        edges_ij=edges_ij, edges_z=edges_z, edges_omega=omegas,
+        edge_mask=emask, n_edges=K - 1 + n_loops,
+    )
+    return arrays, gt, est, cfg
+
+
+def hier_bench_graph(K: int):
+    """The serpentine of tests/test_sparse_graph.py's 4096-node case
+    scaled to K nodes: one rung closure per ~34 nodes (120 at 4096),
+    odometry drift 0.01, the solver's loop capacity 128. Returns
+    serpentine_graph_arrays' (arrays, gt, est, GraphConfig kwargs) with
+    sparse_max_loops set: chip_smoke.py phase 19's graph and
+    scripts/hier_reference.py's."""
+    arrays, gt, est, cfg = serpentine_graph_arrays(
+        K, int(round(K * 120 / 4096)), drift=0.01)
+    return arrays, gt, est, dict(cfg, sparse_max_loops=128)
 
 
 def card() -> str:

@@ -11,13 +11,16 @@ window origins are clamped there, the match's result is selected against
 the prior with `torch.where`, and the update's kernels (kernel 1 `hybrid`
 in place, kernel 3 on the kept cells) and the scorer (kernel 2) read the
 gate and the origin from device memory and return at once on a gate of
-0, which leaves the map and its search space bit-identical. On CUDA a
-whole chunk of scans is one CUDA graph (`ChunkGraph`), replayed once a
-chunk: the host reads nothing a scan. On the CPU the step branches on
-the gate's value instead (a CPU read drains no stream); both forms give
-the same bits (tests/test_torch_device_gates.py). The exact-ray and ISM
-updates have no gated in-place form: with them the update gate is read
-on the host, one read a scan, and the chunk runs eagerly.
+0, which leaves the map and its search space bit-identical. The
+sampled-ray update ("sparse", and "auto" past a field of view of pi)
+has the same form in PyTorch (grid/occupancy.py:raycast_window: its
+entries added in place, -0.0 on a gate of 0). On CUDA a whole chunk of
+scans is one CUDA graph (`ChunkGraph`), replayed once a chunk: the host
+reads nothing a scan. On the CPU the step branches on the gate's value
+instead (a CPU read drains no stream); both forms give the same bits
+(tests/test_torch_device_gates.py). The exact-ray, ISM and dense updates
+have no gated in-place form: with them the update gate is read on the
+host, one read a scan, and the chunk runs eagerly.
 
 `frontend_step` counts the host reads of CUDA tensors (`host_syncs`, a
 plain integer) and, on the device, the scans that were matched
@@ -37,6 +40,7 @@ import torch
 from slam2d_tpu_torch.config import FrontendConfig
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.grid.occupancy import (
+    WINDOW_IMPLS,
     integrate_scan,
     integrate_scan_window,
     make_grid,
@@ -174,8 +178,9 @@ def _match(state, ranges, prior, since_m, do_match, cfg, plain, run):
 
 
 def _update(state, ranges, pose, do_update, cfg, plain, run):
-    """The gated map update and search-space rebuild, in place (kernels 1
-    `hybrid` and 3 with the gate and the window origin on the device).
+    """The gated map update and search-space rebuild, in place (kernel 1
+    `hybrid` or the sampled-ray update, and kernel 3, with the gate and
+    the window origin on the device).
     `run` False (the CPU, gate false) skips the work."""
     if not run:
         return
@@ -201,8 +206,8 @@ def _update(state, ranges, pose, do_update, cfg, plain, run):
 
 
 def _update_host_gated(state, ranges, pose, do_update, cfg, plain):
-    """The update of the exact-ray and ISM updates, which have no gated
-    in-place form: the gate and the window center read on the host (one
+    """The update of the exact-ray, ISM and dense updates, which have no
+    gated in-place form: the gate and the window center read on the host (one
     read), then extract, update, write back and rebuild."""
     gcfg = cfg.grid
     uwin = update_window_cells(gcfg, cfg.sensor, cfg.matcher)
@@ -291,7 +296,7 @@ def _step(state: FrontendState, odom, ranges, cfg: FrontendConfig,
         rotated >= cfg.map_update_min_rot
     )
     counts += torch.stack([do_match, do_update])
-    if resolve_update_impl(gcfg, cfg.sensor) == "pallas_hybrid":
+    if resolve_update_impl(gcfg, cfg.sensor) in WINDOW_IMPLS:
         _update(state, ranges, pose, do_update, cfg, plain,
                 run=not host_branch or bool(do_update))
     else:
@@ -312,9 +317,10 @@ frontend_step.__doc__ = _step.__doc__
 
 def graph_capturable(cfg: FrontendConfig) -> bool:
     """Whether a chunk of `cfg`'s steps reads nothing on the host, and so
-    can be one CUDA graph: localization, or the hybrid update."""
+    can be one CUDA graph: localization, or an update with a gated
+    in-place form (the hybrid and the sampled-ray updates)."""
     return cfg.localize_only or (
-        resolve_update_impl(cfg.grid, cfg.sensor) == "pallas_hybrid"
+        resolve_update_impl(cfg.grid, cfg.sensor) in WINDOW_IMPLS
     )
 
 
@@ -340,7 +346,8 @@ class ChunkGraph:
         if not graph_capturable(cfg):
             raise NotImplementedError(
                 "this update_impl reads its gate on the host a scan: only "
-                "localization and the hybrid update replay as CUDA graphs")
+                "localization and the hybrid and sampled-ray updates replay "
+                "as CUDA graphs")
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")

@@ -10,8 +10,9 @@ optimize); the dense work runs on the tensors' device:
   scan against a submap rebuilt from the old keyframe's neighbourhood, in
   that keyframe's frame (kernels 1 `hybrid`, 3 and 2 at the submap's and
   the loop matcher's shapes);
-- the graph solve: graph/se2_graph.py (dense Gauss-Newton) or
-  graph/schur.py (block Schur elimination);
+- the graph solve: graph/se2_graph.py (dense Gauss-Newton),
+  graph/schur.py (block Schur elimination) or graph/sparse.py (the
+  matrix-free PCG solver and the hierarchical one);
 - the map rebuild after a correction: every keyframe scan integrated again
   at its corrected pose, replayed from a cached prefix where the poses did
   not move.
@@ -34,13 +35,14 @@ Device-to-host reads of this module go through `fetch` and are counted in
 The frontend writes its map in place (grid/window.py), so every map this
 module keeps beside the live one is a copy: the rebuilder's cached prefix
 (copied when cached and when replayed from), the map handed to `frame_cb`
-and the checkpoint's frontend state. The dense and the Schur solvers are
-ported: the JAX package's "schur_sharded", "sparse" and "hier"
-optimizers raise NotImplementedError.
+and the checkpoint's frontend state. Every single-device optimizer of
+the JAX package runs ("dense", "schur", "sparse", "hier" and "auto");
+"schur_sharded" raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import NamedTuple
@@ -56,7 +58,7 @@ from slam2d_tpu_torch.config import (
 )
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.core.numerics import inv_f32
-from slam2d_tpu_torch.graph import schur, se2_graph
+from slam2d_tpu_torch.graph import schur, se2_graph, sparse
 from slam2d_tpu_torch.grid.occupancy import integrate_scan, make_grid
 from slam2d_tpu_torch.grid.window import (
     extract_window,
@@ -83,13 +85,11 @@ from slam2d_tpu_torch.run.frontend_tiled import (
 )
 
 # keyframe counts up to which optimizer="auto" runs the dense solver; above
-# it the JAX package runs its hierarchical solver, which is not ported
+# it, as the JAX package, the hierarchical one (graph/sparse.py)
 DENSE_MAX_KEYFRAMES = 1024
 _NOT_PORTED = {
     "schur_sharded": "graph/schur.py's optimize_schur_sharded and "
                      "multi-device (ROADMAP queue 1 item 10)",
-    "sparse": "graph/sparse.py (ROADMAP queue 1 item 6)",
-    "hier": "graph/sparse.py (ROADMAP queue 1 item 6)",
 }
 SCHUR_BLOCKS = 4   # the JAX package's n_blocks for optimizer="schur"
 
@@ -98,10 +98,10 @@ def _check_optimizer(optimizer: str) -> None:
     if optimizer in _NOT_PORTED:
         raise NotImplementedError(
             f"optimizer={optimizer!r} needs {_NOT_PORTED[optimizer]}, which "
-            "is not ported yet; the port runs 'dense', 'schur', and 'auto' "
-            f"up to {DENSE_MAX_KEYFRAMES} keyframes"
+            "is not ported yet; the port runs 'dense', 'schur', 'sparse', "
+            "'hier' and 'auto'"
         )
-    if optimizer not in ("auto", "dense", "schur"):
+    if optimizer not in ("auto", "dense", "schur", "sparse", "hier"):
         raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
@@ -681,10 +681,10 @@ class LoopCloser:
     def _dispatch_optimize(self, i, k_new, z, score):
         """Add the loop edge, copy the graph to the device and solve it.
         Returns tensors (poses[:n_now], chi2, pruned edge flags). The dense
-        solver solves again with the pruned edges masked (its only host
-        read is whether the chi^2 prune flagged an edge); the Schur solver,
-        as the JAX package's, does not: the flags land in the HostGraph at
-        the finalize, and the next solve leaves the edges out."""
+        and sparse solvers solve again with the pruned edges masked (their
+        only host read is the chi^2 prune's flags); the Schur solver, as
+        the JAX package's, does not: the flags land in the HostGraph at the
+        finalize, and the next solve leaves the edges out."""
         gcfg = self.gcfg
         optimizer = self.optimizer
         if optimizer == "auto":
@@ -697,14 +697,7 @@ class LoopCloser:
         self.loop_records.append((i, k_new, score, z[0], z[1], z[2]))
         self.n_loops += 1
         dev_graph = self.graph.to_device(self.device)
-        if optimizer == "schur":
-            # the plan from the host's edge list: no read of the device
-            dev_graph, chi = schur.optimize_schur(
-                dev_graph, gcfg, SCHUR_BLOCKS,
-                plan=schur.build_plan(self.graph, SCHUR_BLOCKS),
-            )
-        else:
-            dev_graph, chi = se2_graph.optimize(dev_graph, gcfg)
+        dev_graph, chi = self._solve(optimizer, dev_graph, self.graph)
         prune_chi2 = float(gcfg.loop_prune_chi2)
         if prune_chi2 > 0.0:
             # two detectors: a loop edge's own whitened residual^2 at the
@@ -724,15 +717,36 @@ class LoopCloser:
             # solve again from the solved iterate only when something was
             # pruned (with GNC a warm re-solve is not a no-op); never
             # under "schur"
-            if optimizer != "schur" and bool(fetch(prune.any())[0]):
-                g2, chi = se2_graph.optimize(
-                    dev_graph._replace(edge_mask=dev_graph.edge_mask & ~prune),
-                    gcfg,
-                )
-                dev_graph = dev_graph._replace(poses=g2.poses)
+            if optimizer != "schur":
+                # the flags in one read (the sparse solvers plan the
+                # re-solve's topology from them on the host)
+                pruned = fetch(prune)[0]
+                if pruned.any():
+                    host = copy.copy(self.graph)
+                    host.edge_mask = self.graph.edge_mask & ~pruned
+                    g2, chi = self._solve(
+                        optimizer, dev_graph._replace(
+                            edge_mask=dev_graph.edge_mask & ~prune), host)
+                    dev_graph = dev_graph._replace(poses=g2.poses)
         else:
             prune = torch.zeros_like(dev_graph.edge_mask)
         return dev_graph.poses[: len(self.kf_poses)], chi, prune
+
+    def _solve(self, optimizer, dev_graph, host):
+        """One solve of `dev_graph` by `optimizer`, the Schur and the sparse
+        solvers planned from `host` (the HostGraph, or a shallow copy of it
+        with the solve's edge mask): no read of the device."""
+        gcfg = self.gcfg
+        if optimizer == "schur":
+            return schur.optimize_schur(
+                dev_graph, gcfg, SCHUR_BLOCKS,
+                plan=schur.build_plan(host, SCHUR_BLOCKS))
+        if optimizer in ("sparse", "hier"):
+            hier = optimizer == "hier"
+            plan = sparse.sparse_plan(host, gcfg, self.device, hier=hier)
+            solve = sparse.optimize_hier if hier else sparse.optimize_cg
+            return solve(dev_graph, gcfg, plan=plan)
+        return se2_graph.optimize(dev_graph, gcfg)
 
     def _accept_dispatch(self, i, k_new, z, score):
         """Deferred accept, first half: solve, and remember what the
@@ -1051,10 +1065,10 @@ def run_full_slam(
     that chunk's end and the chunk's poses (numpy [n, 3]).
 
     optimizer: "dense" (one Cholesky over all keyframes), "schur"
-    (keyframe blocks eliminated, graph/schur.py, 4 blocks) or "auto"
-    (dense up to DENSE_MAX_KEYFRAMES keyframes; beyond, the JAX
-    package's hierarchical solver, which raises here). The JAX package's
-    other solvers raise NotImplementedError.
+    (keyframe blocks eliminated, graph/schur.py, 4 blocks), "sparse"
+    (matrix-free PCG, graph/sparse.py:optimize_cg), "hier" (the V-cycle,
+    optimize_hier) or "auto" (dense up to DENSE_MAX_KEYFRAMES keyframes,
+    hier beyond); "schur_sharded" raises NotImplementedError.
 
     resume: a previous run's `ckpt` (or numpy arrays of
     fullslam_ckpt_template's schema) to continue from, with

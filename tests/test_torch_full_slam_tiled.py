@@ -20,6 +20,7 @@ that differ (measured 1.8e-7: the blur's summation order) and at most
 (tests/test_resume.py: 1e-3).
 """
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -87,17 +88,28 @@ def _jax_runs():
     """The JAX package's runs, both made before any of the port's: its
     Schur run at this config gives NaN poses when the process has first
     run JAX's dense one and then the port's (not alone after either)."""
-    return {opt: jfst.run_full_slam_tiled(_log(), CFG, JTCFG, GCFG,
+    return {opt: jfst.run_full_slam_tiled(_log(), CFG, JTCFG, _gcfg(opt),
                                           optimizer=opt)
-            for opt in ("dense", "schur")}
+            for opt in ("dense", "schur", "hier")}
+
+
+def _gcfg(optimizer):
+    """GCFG; for "hier" with tests/test_full_slam.py's hier settings and
+    hier_dense_max below the 128 slots, so that every solve runs the
+    V-cycle and the PCG polish (the tiled runner shares the bounded one's
+    dispatch)."""
+    if optimizer != "hier":
+        return GCFG
+    return dataclasses.replace(GCFG, sparse_max_loops=16,
+                               sparse_coarse_stride=8, hier_dense_max=64)
 
 
 @functools.cache
 def _runs(optimizer):
     ref = _jax_runs()[optimizer]
     out = tfst.run_full_slam_tiled(_log(), to_port(CFG), TTCFG,
-                                   to_port(GCFG), optimizer=optimizer,
-                                   device=CPU)
+                                   to_port(_gcfg(optimizer)),
+                                   optimizer=optimizer, device=CPU)
     return ref, out
 
 
@@ -107,7 +119,7 @@ def _stitched(tiles, coords):
     return ttiles.stitch_tiles(grid, TTCFG)[0]
 
 
-@pytest.mark.parametrize("optimizer", ["dense", "schur"])
+@pytest.mark.parametrize("optimizer", ["dense", "schur", "hier"])
 def test_run_full_slam_tiled_matches_jax(optimizer):
     ref, out = _runs(optimizer)
     log = _log()
@@ -298,7 +310,7 @@ def test_split_run_matches_single_run():
     np.testing.assert_array_equal(saved["frontend"].grid.tiles, keep)
 
 
-@pytest.mark.parametrize("optimizer", ["schur_sharded", "sparse", "hier"])
+@pytest.mark.parametrize("optimizer", ["schur_sharded"])
 def test_unported_optimizers_raise(optimizer):
     with pytest.raises(NotImplementedError, match="not ported"):
         tfst.run_full_slam_tiled(_log(), to_port(CFG), TTCFG, to_port(GCFG),

@@ -189,11 +189,15 @@ def test_occupancy_helpers_match_jax():
 @pytest.mark.parametrize(
     "gcfg,sensor",
     [
-        (dataclasses.replace(GCFG, update_impl="sparse"), SENSOR),
+        (dataclasses.replace(GCFG, update_impl="pallas_ray"),
+         SensorConfig(n_beams=270, fov_rad=1.5 * math.pi)),
         (GCFG, SensorConfig(n_beams=270, fov_rad=1.5 * math.pi)),
     ],
 )
 def test_unported_update_paths_raise(gcfg, sensor):
+    """A kernel named explicitly at a field of view wider than pi (the
+    sampled-ray and dense updates run since they were ported:
+    tests/test_torch_sparse_update.py)."""
     with pytest.raises(NotImplementedError):
         tocc.integrate_scan(
             torch.zeros(64, 64), torch.from_numpy(POSE),
