@@ -9,7 +9,8 @@ Phases, each of which raises on failure:
 
 1. the card: its name and power limit (nvidia-smi);
 2. the build of every kernel in slam2d_tpu_torch/csrc/ (nvcc, sm_90a, one
-   nvcc per source, all started together);
+   nvcc per source, all started together) and of the native CARMEN
+   parser (native/carmen_parser.cpp, c++) into slam2d_tpu_torch/_build/;
 3. each of the ten kernels against its plain PyTorch version on the card,
    at its main path's shapes (the frontend's, FastSLAM-100's,
    FastSLAM-1000's, FastSLAM-16's and the exact-ray frontend's), with
@@ -212,7 +213,29 @@ Phases, each of which raises on failure:
    UTM-30LX's geometry; bench_configs.wide_fov_config) over bench.py's
    route, update_impl="auto" resolving to the sampled-ray update:
    phase 18's checks (the 30 m update window is wider than the map: the
-   update and kernel 3 run on the whole map).
+   update and kernel 3 run on the whole map);
+21. the command line (slam2d_tpu_torch.run.cli.main, in this
+   process) at its defaults (1024^2 at 0.05 m, 180 beams, chunk 64) on
+   `--log synth` (1264 scans), every run's scans/s printed with the
+   card's name and power limit and its launches counted: (a) the
+   frontend with --gt-ate --out: ATE below odometry's, the trajectory
+   bit-equal to run_frontend's on the same log and config, phase 4's
+   launches, the ROS pair and grid.json written; (b) localization on
+   (a)'s map.yaml with --global-init --recover (the global-init pose
+   within 0.15 m / 0.1 rad of the true start) and on its
+   map_logodds.npy: ATE below odometry's; (c) full SLAM bounded and
+   --tiled, each with --save-state: at least one loop, keyframe ATE (from
+   the saved state) below odometry's; (d) FastSLAM with 100 particles
+   (the ISM update), then 16 with --update-impl sparse, pallas_hybrid and
+   pallas_ray (the particle forms of kernels 1 hybrid and ray), each with
+   --seed 0, 1 and 2: finite ATEs, their median at most 1 m; (e) the log written as .clf and .json by the port's
+   writers: the native parser reads the .clf (its arrays equal the
+   Python parser's), the frontend runs on both, the .clf run scored with
+   --relations against relative poses of the ground truth; (f) a split
+   run at scan 640 with --scan-range, --save-state and --resume-state,
+   frontend (1e-4) and full SLAM (the same keyframes and loops, the rows
+   after the cut within 1e-3), against (a) and (c); (g) the video hook:
+   one frame a chunk through VideoRecorder.add.
 Phase 3 also holds kernel 2 at a 1081-beam scan and kernel 3 in place on
 the whole 1024^2 map (phase 20's shapes), and the block-Thomas factor
 (csrc/tridiag_factor.cu, the sparse solvers' sequential recurrence; it
@@ -220,7 +243,11 @@ replaces a lax.scan, no Pallas kernel) against its plain K-step loop on
 the serpentine's chain matrix at 4096 and 16384 blocks; after phase 19
 the factor is held the same way at its main path's input, the chain
 matrix of phase 19's final 512-slot graph, and its row's times and bound
-are those of that input.
+are those of that input. And it holds the particle filter's forms of
+kernels 1 `hybrid` and `ray` (one launch over every particle's update
+window) against their plain loops over the particles, at FastSLAM-100's
+and FastSLAM-16's shapes (bf16 512^2 maps, 256^2 windows): `ray` bit for
+bit, `hybrid` to phase 3's map tolerance.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -246,6 +273,7 @@ from slam2d_tpu_torch.config import (
     MatcherConfig,
     SensorConfig,
 )
+from slam2d_tpu_torch.data import native
 from slam2d_tpu_torch.graph import schur, se2_graph, sparse
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.tiles import (
@@ -290,8 +318,10 @@ from slam2d_tpu_torch.ops.tridiag import tridiag_factor
 from slam2d_tpu_torch.ops.update import (
     ism_occ_tol,
     update_hybrid,
+    update_hybrid_particles,
     update_ism,
     update_ray,
+    update_ray_particles,
 )
 from slam2d_tpu_torch.pf import fastslam
 from slam2d_tpu_torch.pf.shared_refine import endpoint_splat
@@ -495,15 +525,19 @@ def _bound(n_bytes: float, n_ops: float) -> dict:
     )
 
 
-def _times(kernel, plain, bound: dict, library=None) -> dict:
+def _times(kernel, plain, bound: dict, library=None,
+           plain_runs: int = KERNEL_TIMING_RUNS) -> dict:
     """The timing fields of one kernel's entry: `ms`, `plain_ms` and
-    `library_ms` of lone calls (_cuda_ms), `device_ms` of back-to-back calls
-    (_cuda_device_ms) with how it was taken, its share of the bound, and
-    whether the operands fit the L2 cache (then the back-to-back calls
-    found them there: the number is no cold-cache time)."""
+    `library_ms` of lone calls (_cuda_ms; the plain version's median of
+    `plain_runs`), `device_ms` of back-to-back calls (_cuda_device_ms)
+    with how it was taken, its share of the bound, and whether the
+    operands fit the L2 cache (then the back-to-back calls found them
+    there: the number is no cold-cache time)."""
     device_ms, by = _cuda_device_ms(kernel)
     out = dict(
-        ms=_cuda_ms(kernel), plain_ms=_cuda_ms(plain),
+        ms=_cuda_ms(kernel),
+        plain_ms=_cuda_ms(plain, runs=plain_runs,
+                          warmup=3 if plain_runs >= KERNEL_TIMING_RUNS else 1),
         library_ms=None if library is None else _cuda_ms(library),
         device_ms=device_ms, device_by=by,
         bound_share=bound["bound_ms"] / device_ms,
@@ -2422,6 +2456,92 @@ def ray_check(cfg, log, device):
     )
 
 
+PARTICLE_PLAIN_RUNS = 3  # phase 3: lone calls timed for the plain loop of
+                         # the particle-batched kernel 1 forms (P windows)
+
+
+def particle_update_checks(cfg, pf, log, device, seed: int):
+    """Phase 3, the particle filter's forms of kernels 1 `hybrid` and `ray`
+    (ops/update.py:update_hybrid_particles, update_ray_particles): every
+    particle's update window of a [P, H, W] stack of pf.map_dtype maps in
+    one launch, with poses all over the map so that windows clamp at
+    every edge, against the plain version (a loop over the particles of
+    the single-window plain function): `ray` bit for bit, `hybrid` with
+    at most 0.05% of the cells off by one l_free or l_occ (its atan2f,
+    sinf and cosf). Returns {name: entry}."""
+    rng = np.random.default_rng(seed)
+    g, s = cfg.grid, cfg.sensor
+    P, res = pf.n_particles, g.resolution
+    mdt = getattr(torch, pf.map_dtype)
+    maps = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (P, g.height, g.width)).astype(np.float32),
+        device=device,
+    ).to(mdt)
+    ranges = torch.as_tensor(log["ranges"][len(log["odom"]) // 3],
+                             device=device)
+    uwin = update_window_cells(g, s)
+    xy = rng.uniform(0.0, g.width * res, (P, 2)) + (g.origin_x, g.origin_y)
+    poses = torch.as_tensor(
+        np.column_stack([xy, rng.uniform(-np.pi, np.pi, P)]).astype(np.float32),
+        device=device,
+    )
+    angles = occupancy.beam_angles(s, device)
+    consts = occupancy.update_constants(g, s)
+    kw = dict(region=(uwin, uwin), origin_xy=(g.origin_x, g.origin_y))
+
+    def hybrid(m, plain):
+        return update_hybrid_particles(m, poses, ranges, angles, plain=plain,
+                                       **kw, **consts)
+
+    def ray(m, plain):
+        return update_ray_particles(
+            m, poses, ranges, angles, resolution=res, min_range=s.min_range,
+            max_range=s.max_range, angle_min=s.angle_min,
+            step=consts["step"], l_free=g.l_free, l_occ=g.l_occ,
+            l_clamp=g.l_clamp, ray_samples=g.ray_samples, plain=plain, **kw)
+
+    B = ranges.numel()
+    cells = P * uwin * uwin
+    window_bytes = 2 * cells * maps.element_size() + 8 * B + 12 * P
+    r_free = torch.clamp(ranges.clamp(max=s.max_range) - res, min=0)
+    pairs = float((r_free / res * 1.5 + 2).sum()) * P
+    results = {}
+    for name, fn, bound in (
+        # every window read and written once in the map dtype, the scan,
+        # the angles and the poses; ~30 operations a cell
+        ("update_hybrid_particles", hybrid, _bound(window_bytes, 30 * cells)),
+        # the chord (16 operations) of every touched (cell, beam) pair,
+        # ~10 a cell (ray_check's count, for P windows)
+        ("update_ray_particles", ray,
+         _bound(window_bytes, 16 * pairs + 10 * cells)),
+    ):
+        a, b = fn(maps.clone(), False), fn(maps.clone(), True)
+        if name == "update_ray_particles":
+            n_diff = int((a != b).sum())
+            err = float((a.float() - b.float()).abs().max())
+            tol = "bit-exact"
+            if n_diff:
+                raise AssertionError(f"{name}: {n_diff} cells differ from "
+                                     "its plain version")
+        else:
+            n_diff, err = _map_cells_ok(a, b, g, name)
+            tol = "<=0.05% of window cells, each by one l_free or l_occ"
+        print(f"{name} [{P}, {uwin}x{uwin}] of {pf.map_dtype} "
+              f"[{g.height}x{g.width}] maps: {n_diff} cells differ "
+              f"(tolerance: {tol}; {int((a != maps).sum())} cells updated)")
+        scratch = maps.clone()
+        times = _times(lambda: fn(scratch, False), lambda: fn(scratch, True),
+                       bound, plain_runs=PARTICLE_PLAIN_RUNS)
+        results[name] = dict(
+            max_abs_err=err, cells_differing=n_diff, tolerance=tol,
+            shape=[P, uwin, uwin], map_dtype=pf.map_dtype, **times)
+        print(f"{name}: ms {times['ms']:.4g}, device_ms "
+              f"{times['device_ms']:.4g} ({times['device_by']}), plain_ms "
+              f"{times['plain_ms']:.4g}, bound_ms {times['bound_ms']:.4g} "
+              f"({times['bound_by']})")
+    return results
+
+
 def _pf_counters():
     return {
         "update_ism": update_ism,
@@ -3580,6 +3700,279 @@ def run_sampled_ray_frontend(cfg, log, device, label):
     return {k: v for k, v in result["launches"].items() if v}
 
 
+CLI_DIR = "chip_smoke_out"  # phase 21's outputs (git-ignored; removed
+                            # after a run whose holds all pass)
+CLI_SPLIT = 640           # phase 21 (f): the split scan, a multiple of 64
+CLI_LOADER_SCANS = 512    # phase 21 (e): the scans written as .clf / .json
+CLI_GLOBAL_TOL = (0.15, 0.1)  # phase 21 (b): global-init pose, m and rad
+CLI_FASTSLAM_MAX_ATE_M = 1.0  # phase 21 (d): the median over the seeds
+CLI_PF_SEEDS = (0, 1, 2)      # phase 21 (d): proposal seeds a config
+CLI_PF_RUNS = (           # phase 21 (d): (particles, update_impl)
+    (100, "auto"), (16, "sparse"), (16, "pallas_hybrid"), (16, "pallas_ray"),
+)
+CLI_VIDEO_SCANS = 320     # phase 21 (g): 5 chunks of 64
+
+
+def _all_counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    return {**_counters(), **_pf_counters(),
+            "update_ray": update_ray, "tridiag_factor": tridiag_factor,
+            "update_hybrid_particles": update_hybrid_particles,
+            "update_ray_particles": update_ray_particles}
+
+
+def _cli(argv, label, device):
+    """slam2d_tpu_torch.run.cli.main(argv) in this process on `device`,
+    with every kernel count set to 0 just before it: (its metrics line,
+    the kernels it launched)."""
+    import contextlib
+    import io
+
+    from slam2d_tpu_torch.run import cli
+
+    for fn in _all_counters().values():
+        fn.launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", str(device), *argv])
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    if rc != 0:
+        raise AssertionError(f"CLI {label}: returned {rc}")
+    metrics = json.loads(buf.getvalue().strip().splitlines()[-1])
+    launches = {k: fn.launches for k, fn in _all_counters().items()
+                if fn.launches}
+    print(f"CLI {label}: {json.dumps(metrics)}")
+    print(f"CLI {label}: {metrics['scans_per_sec']} scans/s on {card()}; "
+          f"launches {launches}")
+    return metrics, launches
+
+
+def _cli_config(argv):
+    """(log, FrontendConfig) the CLI builds from `argv`."""
+    from slam2d_tpu_torch.run import cli
+
+    return cli.load_run(cli.build_parser().parse_args(argv))
+
+
+def _saved_keyframes(ck_dir, template):
+    """(poses, scan indices) of the keyframes in a full SLAM checkpoint
+    that the CLI's --save-state wrote."""
+    from slam2d_tpu_torch.utils.checkpoint import load_state
+
+    ck = load_state(ck_dir, template)
+    n = int(ck["kf_count"])
+    return ck["kf_poses"][:n], ck["kf_scan_idx"][:n]
+
+
+def run_cli(device):
+    """Phase 21: the command line, slam2d_tpu_torch.run.cli.main,
+    in this process on the card, at its defaults (1024^2 at 0.05 m, 180
+    beams, chunk 64) on `--log synth`. Returns the launches of each run by
+    path name."""
+    from slam2d_tpu_torch.config import GraphConfig
+    from slam2d_tpu_torch.data import load_carmen_log
+    from slam2d_tpu_torch.data.carmen import (
+        load_carmen_log as load_carmen_py,
+        save_carmen_log,
+        save_json_log,
+    )
+    from slam2d_tpu_torch.grid.tiles import TileConfig
+    from slam2d_tpu_torch.run.full_slam import fullslam_ckpt_template
+    from slam2d_tpu_torch.run.full_slam_tiled import (
+        fullslam_tiled_ckpt_template,
+    )
+    from slam2d_tpu_torch.viz.video import VideoRecorder
+
+    import shutil
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    os.makedirs(CLI_DIR)
+    by_path = {}
+    synth = ["--log", "synth", "--gt-ate"]
+    log, cfg = _cli_config(synth)
+    gt, T = log["gt_poses"], len(log["odom"])
+
+    def d(name):
+        return os.path.join(CLI_DIR, name)
+
+    # (a) the frontend, against run_frontend called directly; its chunk
+    # graph captured first (a capture counts launches), as phase 4 does
+    run_frontend({k: v[: cfg.chunk] for k, v in log.items()}, cfg, device)
+    m, by_path["21a CLI frontend"] = _cli([*synth, "--out", d("front")],
+                                          "frontend", device)
+    if not m["ate_m"] < m["ate_odom_m"]:
+        raise AssertionError(f"CLI frontend: ATE {m['ate_m']} not below "
+                             f"odometry's {m['ate_odom_m']}")
+    traj = np.load(d("front/trajectory.npy"))
+    _, direct, _ = run_frontend(log, cfg, device)
+    if not np.array_equal(traj, direct):
+        raise AssertionError("CLI frontend: the trajectory differs from "
+                             "run_frontend's on the same log and config")
+    scans_run = -(-T // cfg.chunk) * cfg.chunk
+    expect = {"update_hybrid": scans_run, "search_space": scans_run + 1,
+              "score_offsets": 2 * scans_run}
+    # (a CPU rehearsal runs the plain versions: nothing to count)
+    if device.type == "cuda" and by_path["21a CLI frontend"] != expect:
+        raise AssertionError(f"CLI frontend: launches "
+                             f"{by_path['21a CLI frontend']}, expected "
+                             f"{expect}")
+    for f in ("map.pgm", "map.yaml", "grid.json", "map_logodds.npy",
+              "metrics.json", "metrics.jsonl"):
+        if not os.path.exists(d(f"front/{f}")):
+            raise AssertionError(f"CLI frontend: {f} not written")
+
+    # (b) localization on the map (a) wrote, as a ROS pair and as .npy
+    for tag, extra in (
+        ("yaml", ["--map", d("front/map.yaml"), "--global-init",
+                  "--recover"]),
+        ("npy", ["--map", d("front/map_logodds.npy")]),
+    ):
+        m, by_path[f"21b CLI localize {tag}"] = _cli(
+            [*synth, "--mode", "localize", *extra], f"localize {tag}", device)
+        if not m["ate_m"] < m["ate_odom_m"]:
+            raise AssertionError(f"CLI localize {tag}: ATE {m['ate_m']} not "
+                                 f"below odometry's {m['ate_odom_m']}")
+        if tag == "yaml":
+            dxy, dth = _pose_errors(np.asarray([m["global_init_pose"]]),
+                                    gt[:1])
+            print(f"CLI global init: {dxy:.4f} m, {dth:.4f} rad from the "
+                  "true start")
+            if dxy > CLI_GLOBAL_TOL[0] or dth > CLI_GLOBAL_TOL[1]:
+                raise AssertionError("CLI global init: pose off the true "
+                                     "start")
+
+    # (c) full SLAM, bounded and tiled, each with its state saved: at
+    # least one loop, keyframe ATE below odometry's at the same scans
+    gcfg = GraphConfig()
+    for tag, extra, template in (
+        ("bounded", [], fullslam_ckpt_template(cfg, gcfg)),
+        ("tiled", ["--tiled"], fullslam_tiled_ckpt_template(
+            cfg, TileConfig(resolution=cfg.grid.resolution), gcfg)),
+    ):
+        ck = d(f"full_{tag}_state")
+        m, by_path[f"21c CLI full {tag}"] = _cli(
+            [*synth, "--mode", "full", *extra, "--save-state", ck,
+             "--out", d(f"full_{tag}")], f"full {tag}", device)
+        kf, idx = _saved_keyframes(ck, template)
+        kf_ate = ate_rmse(kf, gt[idx], align=False)
+        kf_odom = ate_rmse(log["odom"][idx], gt[idx], align=False)
+        print(f"CLI full {tag}: {m['n_loops']} loops, {len(idx)} keyframes, "
+              f"kf ATE {kf_ate:.4f} against odometry's {kf_odom:.4f}")
+        if m["n_loops"] < 1 or not kf_ate < kf_odom:
+            raise AssertionError(f"CLI full {tag}: no loop, or kf ATE not "
+                                 "below odometry's")
+
+    # (d) FastSLAM: the ISM update at 100 particles, then the sampled-ray
+    # update and the particle forms of kernels 1 hybrid and ray at 16; one
+    # run a proposal seed, the median ATE held (a single draw of a
+    # 16-particle filter here spans 0.4-1.8 m in both packages)
+    for P, impl in CLI_PF_RUNS:
+        label = f"FastSLAM-{P} {impl}"
+        ates = []
+        for seed in CLI_PF_SEEDS:
+            m, launches = _cli(
+                [*synth, "--mode", "fastslam", "--particles", str(P),
+                 "--update-impl", impl, "--seed", str(seed)],
+                f"{label} seed {seed}", device)
+            by_path.setdefault(f"21d CLI {label}", launches)
+            ates.append(m["ate_m"])
+            want = {"pallas_hybrid": "update_hybrid_particles",
+                    "pallas_ray": "update_ray_particles",
+                    "auto": "update_ism"}.get(impl)
+            if (device.type == "cuda" and want is not None
+                    and not launches.get(want)):
+                raise AssertionError(f"CLI {label}: {want} was not launched")
+        median = float(np.median(ates))
+        print(f"CLI {label}: ATE by seed {ates}, median {median:.4f} "
+              f"(odometry {m['ate_odom_m']})")
+        if not (np.isfinite(ates).all() and median <= CLI_FASTSLAM_MAX_ATE_M):
+            raise AssertionError(f"CLI {label}: ATEs {ates}: not finite, or "
+                                 f"the median above {CLI_FASTSLAM_MAX_ATE_M}")
+
+    # (e) the loaders: the log written by the port's writers as .clf (the
+    # native parser reads it) and .json; the .clf run scored against a
+    # relations file built from the ground truth
+    part = {k: v[:CLI_LOADER_SCANS] for k, v in log.items()}
+    clf, js = d("synth.clf"), d("synth.json")
+    save_carmen_log(clf, part)
+    save_json_log(js, part)
+    nat = load_carmen_log(clf)
+    if load_carmen_log.last_parser != "native":
+        raise AssertionError("the native CARMEN parser did not run")
+    py = load_carmen_py(clf)
+    for k in ("odom", "ranges", "stamps"):
+        if not np.array_equal(nat[k], py[k]):
+            raise AssertionError(f"native parser: {k} differs from the "
+                                 "Python parser's")
+    rel = []
+    for a in range(0, CLI_LOADER_SCANS - 100, 50):
+        b = a + 100
+        c, sn = np.cos(gt[a, 2]), np.sin(gt[a, 2])
+        dd = gt[b, :2] - gt[a, :2]
+        rel.append(f"{a:.6f} {b:.6f} {c * dd[0] + sn * dd[1]:.9f} "
+                   f"{-sn * dd[0] + c * dd[1]:.9f} 0 0 0 "
+                   f"{gt[b, 2] - gt[a, 2]:.9f}\n")
+    with open(d("relations.txt"), "w") as f:
+        f.writelines(rel)
+    m, by_path["21e CLI frontend .clf"] = _cli(
+        ["--log", clf, "--relations", d("relations.txt")], "frontend .clf",
+        device)
+    print(f"CLI relations: {m['relations_used']} of "
+          f"{m['relations_total']} used, translation "
+          f"{m['relations_trans_rmse_m']} m, rotation "
+          f"{m['relations_rot_rmse_rad']} rad")
+    if m["relations_used"] != len(rel):
+        raise AssertionError("CLI relations: not every relation was used")
+    _, by_path["21e CLI frontend .json"] = _cli(["--log", js],
+                                               "frontend .json", device)
+
+    # (f) resume: a split run against the single one, for the frontend
+    # (1e-4, tests/test_resume.py's) and full SLAM (the keyframes and
+    # loops, the rows after the cut within 1e-3)
+    for mode, single in (("frontend", d("front")),
+                         ("full", d("full_bounded"))):
+        ck = d(f"split_{mode}_state")
+        _cli([*synth, "--mode", mode, "--scan-range", "0", str(CLI_SPLIT),
+              "--save-state", ck, "--out", d(f"split_{mode}_a")],
+             f"{mode} split, first part", device)
+        b, _ = _cli([*synth, "--mode", mode, "--scan-range", str(CLI_SPLIT),
+                     str(T), "--resume-state", ck, "--out",
+                     d(f"split_{mode}_b")], f"{mode} split, resumed", device)
+        one = np.load(os.path.join(single, "trajectory.npy"))
+        tb = np.load(d(f"split_{mode}_b/trajectory.npy"))
+        if mode == "frontend":
+            ta = np.load(d(f"split_{mode}_a/trajectory.npy"))
+            err = float(np.abs(np.concatenate([ta, tb]) - one).max())
+            ok = err <= 1e-4
+        else:
+            with open(os.path.join(single, "metrics.json")) as f:
+                ref = json.load(f)
+            err = float(np.abs(tb - one[CLI_SPLIT:]).max())
+            ok = (err <= 1e-3 and (b["n_keyframes"], b["n_loops"])
+                  == (ref["n_keyframes"], ref["n_loops"]))
+        print(f"CLI {mode} split at {CLI_SPLIT}: max |split - single| "
+              f"{err:.3g}")
+        if not ok:
+            raise AssertionError(f"CLI {mode}: the split run differs from "
+                                 "the single run")
+
+    # (g) the video hook: frames through VideoRecorder.add, one a chunk
+    # (numpy only; saving a GIF needs PIL, tested on the CPU)
+    rec = VideoRecorder(d("unsaved.gif"), cfg.grid)
+    rec.set_ground_truth(gt)
+    vlog = {k: v[:CLI_VIDEO_SCANS] for k, v in log.items()}
+    run_frontend(vlog, cfg, device, frame_cb=rec.add)
+    n_chunks = -(-CLI_VIDEO_SCANS // cfg.chunk)
+    shapes = {f.shape for f in rec.frames}
+    print(f"CLI video hook: {len(rec.frames)} frames of {shapes}")
+    if len(rec.frames) != n_chunks or any(
+            f.dtype != np.uint8 or f.ndim != 3 for f in rec.frames):
+        raise AssertionError("video hook: not one uint8 RGB frame a chunk")
+    shutil.rmtree(CLI_DIR)
+    return by_path
+
+
 def _xy_err(poses, gt) -> float:
     p = np.asarray(poses, np.float64)
     return float(np.sqrt(np.mean(np.sum((p[:, :2] - gt[:, :2]) ** 2, 1))))
@@ -3699,6 +4092,10 @@ def main(kernels_only: bool = False):
     lib_path = _build.library_path()
     _build.load_library()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path}")
+    t0 = time.perf_counter()
+    native.load_library()
+    print(f"CARMEN parser built in {time.perf_counter() - t0:.1f} s: "
+          f"{native.library_path()}")
 
     cfg = bench_config()
     log = bench_log(cfg.sensor)
@@ -3745,6 +4142,12 @@ def main(kernels_only: bool = False):
                                                 device).items():
         checks[name].update(entries)
     checks["tridiag_factor"] = tridiag_checks(device)
+    # the particle filter's forms of kernels 1 `hybrid` and `ray` at
+    # FastSLAM-100's shapes, and at FastSLAM-16's under "at_fastslam16"
+    checks.update(particle_update_checks(pf_cfg, pf, pf_log, device, SEED + 9))
+    for name, entry in particle_update_checks(cfg16, pf16, pf_log, device,
+                                              SEED + 10).items():
+        checks[name]["at_fastslam16"] = entry
     floor_ms, floor_by = launch_floor(device)
     print(f"launch floor, an empty kernel: {floor_ms:.4g} ms ({floor_by})")
     for name in ("update_hybrid", "update_ray", "score_offsets",
@@ -3814,6 +4217,7 @@ def main(kernels_only: bool = False):
                                         fs_res.ckpt["graph"]))
     by_path["20 270-degree frontend"] = run_sampled_ray_frontend(
         wide_cfg, wide_log, device, "270-degree frontend")
+    by_path.update(run_cli(device))
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",
@@ -3836,6 +4240,11 @@ def main(kernels_only: bool = False):
                         "slam2d_tpu/ops/pallas_stack.py:31"),
         "shared_apply": ("slam2d_tpu_torch/csrc/shared_apply.cu",
                          "slam2d_tpu/ops/pallas_apply.py:42"),
+        # kernel 1's particle filter forms: a grid axis over the particles
+        "update_hybrid_particles": ("slam2d_tpu_torch/csrc/update_hybrid.cu",
+                                    "slam2d_tpu/ops/pallas_update.py:97"),
+        "update_ray_particles": ("slam2d_tpu_torch/csrc/update_ray.cu",
+                                 "slam2d_tpu/ops/pallas_update.py:97"),
         # a lax.scan of the JAX package, no Pallas kernel
         "tridiag_factor": ("slam2d_tpu_torch/csrc/tridiag_factor.cu",
                            "slam2d_tpu/graph/sparse.py:138"),

@@ -37,6 +37,14 @@
 //   window_origin_xy makes it, so a cell's arithmetic is that of the
 //   extracted window's. Writing in place is safe: a cell's new value is
 //   clip(g + upd) of its own old value alone.
+// - Every particle's window at once (slam2d_update_hybrid_particles, the
+//   particle filter's update_impl="pallas_hybrid"): blockIdx.z is the
+//   particle; its pose and its map are that particle's, and its window's
+//   top-left cell is computed from its pose as update_ism.cu computes it
+//   (the pose's cell minus half the window, clamped into the map), so the
+//   cells get the bits of the single-map window form at that origin.
+//   Float32 or bfloat16 maps: the arithmetic is float32, a bfloat16 cell
+//   rounded once on the store.
 // The TPU kernel's angular beam clip and range early-out only skip work and
 // never change the result, so they are not carried over, nor is its padding
 // of the beam table to a multiple of 8. The arithmetic follows the TPU
@@ -64,18 +72,36 @@ struct Params {
 
 // grid and out may be one array (in place); `pitch` is their row length,
 // (H, W) the updated window's size; `origin` (the window's top-left cell in
-// the array) and `gate` may be null: no offset, no gate
+// the array) and `gate` may be null: no offset, no gate. With map_rows > 0
+// blockIdx.z picks a particle: its pose (pose + 3 z), its map of map_rows x
+// pitch cells, and its window's origin computed from its pose (`origin` is
+// then unused).
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-    update_hybrid_kernel(const float* grid, float* out, int pitch,
+    update_hybrid_kernel(const T* grid, T* out, int pitch,
                          const int* __restrict__ origin,
                          const unsigned char* __restrict__ gate,
                          const float* __restrict__ pose,
                          const float* __restrict__ ranges,
                          const float* __restrict__ angles, int H, int W,
-                         int B, Params p) {
+                         int B, Params p, int map_rows) {
   if (gate != nullptr && *gate == 0) return;
-  if (origin != nullptr) {
-    const int r0 = origin[0], c0 = origin[1];
+  const float inv_res = F_DIV(1.0f, p.res);  // x / res compiles as x * (1/res)
+  int r0 = 0, c0 = 0;
+  if (map_rows > 0) {
+    const size_t part = blockIdx.z;
+    pose += 3 * part;
+    grid += part * map_rows * pitch;
+    out += part * map_rows * pitch;
+    // world_to_cell of the pose, minus half the window, clamped
+    const int cr = (int)floorf(F_MUL(F_SUB(pose[1], p.oy), inv_res));
+    const int cc = (int)floorf(F_MUL(F_SUB(pose[0], p.ox), inv_res));
+    r0 = min(max(cr - H / 2, 0), map_rows - H);
+    c0 = min(max(cc - W / 2, 0), pitch - W);
+  } else if (origin != nullptr) {
+    r0 = origin[0], c0 = origin[1];
+  }
+  if (map_rows > 0 || origin != nullptr) {
     p.ox = F_ADD(p.ox, F_MUL((float)c0, p.res));
     p.oy = F_ADD(p.oy, F_MUL((float)r0, p.res));
     const size_t base = (size_t)r0 * pitch + c0;
@@ -95,7 +121,6 @@ __global__ void __launch_bounds__(THREADS)
   for (int b = tid; b < B; b += THREADS) rng[b] = ranges[b];
   if (tid == 0) rmax_bits = 0u;
   const float px = pose[0], py = pose[1], pth = pose[2];
-  const float inv_res = F_DIV(1.0f, p.res);  // x / res compiles as x * (1/res)
   // the tile's cells, in flight while the beams are sorted out
   float g[CY][CX];
 #pragma unroll
@@ -104,7 +129,9 @@ __global__ void __launch_bounds__(THREADS)
     for (int x = 0; x < CX; ++x) {
       const int row = tr0 + threadIdx.y + y * BY;
       const int col = tc0 + threadIdx.x + x * BX;
-      g[y][x] = row < tr1 && col < tc1 ? grid[(size_t)row * pitch + col] : 0.0f;
+      g[y][x] = row < tr1 && col < tc1
+                    ? load_f32(grid + (size_t)row * pitch + col)
+                    : 0.0f;
     }
   __syncthreads();
 
@@ -175,20 +202,22 @@ __global__ void __launch_bounds__(THREADS)
           F_MUL(F_ADD(F_MUL(p.l_free, free_cell ? 1.0f : 0.0f),
                       F_MUL(p.l_occ, (float)count)),
                 p.enable);
-      out[(size_t)row * pitch + col] =
-          clampf(F_ADD(g[y][x], upd), -p.l_clamp, p.l_clamp);
+      store_f32(out + (size_t)row * pitch + col,
+                clampf(F_ADD(g[y][x], upd), -p.l_clamp, p.l_clamp));
     }
 }
 
-int launch(const float* grid, float* out, int pitch, const int* origin,
+template <typename T>
+int launch(const T* grid, T* out, int pitch, const int* origin,
            const unsigned char* gate, const float* pose, const float* ranges,
            const float* angles, int H, int W, int B, const Params& p,
-           void* stream) {
+           void* stream, int particles = 1, int map_rows = 0) {
   const dim3 block(BX, BY);
-  const dim3 blocks((W + TW - 1) / TW, (H + TH - 1) / TH);
+  const dim3 blocks((W + TW - 1) / TW, (H + TH - 1) / TH, particles);
   const size_t smem = 2 * (size_t)B * sizeof(float);
-  update_hybrid_kernel<<<blocks, block, smem, (cudaStream_t)stream>>>(
-      grid, out, pitch, origin, gate, pose, ranges, angles, H, W, B, p);
+  update_hybrid_kernel<T><<<blocks, block, smem, (cudaStream_t)stream>>>(
+      grid, out, pitch, origin, gate, pose, ranges, angles, H, W, B, p,
+      map_rows);
   return (int)cudaGetLastError();
 }
 
@@ -222,4 +251,28 @@ extern "C" int slam2d_update_hybrid_window(
                  max_range, l_free, l_occ, l_clamp, enable};
   return launch(map, map, W, origin, gate, pose, ranges, angles, h, w, B, p,
                 stream);
+}
+
+// Every particle's window at once, in place: `maps` holds P maps of H x W
+// (float32, or bfloat16 when is_bf16), `poses` P poses; particle z's h x w
+// window is placed around poses[z] (its cell minus half the window,
+// clamped into the map); (ox, oy) is the maps' origin.
+extern "C" int slam2d_update_hybrid_particles(
+    void* maps, int is_bf16, const float* poses, const float* ranges,
+    const float* angles, int P, int H, int W, int h, int w, int B, float ox,
+    float oy, float res, float step, float angle_min, float min_range,
+    float max_range, float l_free, float l_occ, float l_clamp, float enable,
+    void* stream) {
+  if (h < 1 || w < 1 || h > H || w > W || P < 1 || P > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Params p{ox,     oy,    res,   step,    angle_min, min_range,
+                 max_range, l_free, l_occ, l_clamp, enable};
+  if (is_bf16) {
+    auto* m = (__nv_bfloat16*)maps;
+    return launch(m, m, W, nullptr, nullptr, poses, ranges, angles, h, w, B,
+                  p, stream, P, H);
+  }
+  auto* m = (float*)maps;
+  return launch(m, m, W, nullptr, nullptr, poses, ranges, angles, h, w, B, p,
+                stream, P, H);
 }

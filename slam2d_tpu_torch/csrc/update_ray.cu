@@ -35,6 +35,15 @@
 // written with the _rn intrinsics, so the kernel and its plain version agree
 // bit for bit.
 //
+// Every particle's window at once (slam2d_update_ray_particles, the
+// particle filter's update_impl="pallas_ray"): blockIdx.z is the particle;
+// its pose and its map are that particle's, and its window's top-left cell
+// is computed from its pose as update_ism.cu computes it (the pose's cell
+// minus half the window, clamped into the map), the window's float origin
+// ox + (float)c0 * res in two roundings, as grid/occupancy.py:
+// window_origin_xy makes it. Float32 or bfloat16 maps: the arithmetic is
+// float32, a bfloat16 cell rounded once on the store.
+//
 // What bounds it on the H100: at the frontend's 520^2 window the map is
 // read and written once (2.2 MB, ~0.6 us at 3.35 TB/s) while each cell of a
 // tile evaluates ~16 float operations for each beam of its chunks: it is
@@ -108,12 +117,33 @@ __device__ void chunk_bounds(float x0, float x1, float y0, float y1,
   else if (found > 1) *lo = 0, *hi = n_chunks;
 }
 
+// (H, W) is the updated window's size and `pitch` the maps' row length;
+// grid and out may be one array (in place). With map_rows > 0 blockIdx.z
+// picks a particle: its pose (pose + 3 z), its map of map_rows x pitch
+// cells, and its window placed around its pose.
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-update_ray_kernel(const float* __restrict__ grid, float* __restrict__ out,
+update_ray_kernel(const T* grid, T* out, int pitch,
                   const float* __restrict__ pose,
                   const float* __restrict__ ranges,
                   const float* __restrict__ angles, int H, int W, int B,
-                  int Bpad, Params p) {
+                  int Bpad, Params p, int map_rows) {
+  if (map_rows > 0) {
+    const size_t part = blockIdx.z;
+    pose += 3 * part;
+    grid += part * map_rows * pitch;
+    out += part * map_rows * pitch;
+    // world_to_cell of the pose, minus half the window, clamped
+    const int cr = (int)floorf(F_MUL(F_SUB(pose[1], p.oy), p.inv_res));
+    const int cc = (int)floorf(F_MUL(F_SUB(pose[0], p.ox), p.inv_res));
+    const int r0 = min(max(cr - H / 2, 0), map_rows - H);
+    const int c0 = min(max(cc - W / 2, 0), pitch - W);
+    p.ox = F_ADD(p.ox, F_MUL((float)c0, p.res));
+    p.oy = F_ADD(p.oy, F_MUL((float)r0, p.res));
+    const size_t base = (size_t)r0 * pitch + c0;
+    grid += base;
+    out += base;
+  }
   extern __shared__ float tab[];  // [9, Bpad]
   __shared__ float warp_rmax[THREADS / 32];
   __shared__ int chunks[2];
@@ -212,8 +242,26 @@ update_ray_kernel(const float* __restrict__ grid, float* __restrict__ out,
 
   const float upd = F_MUL(
       F_ADD(F_MUL(p.l_free, free_sum), F_MUL(p.l_occ, occ_sum)), p.enable);
-  const size_t i = (size_t)row * W + col;
-  out[i] = clampf(F_ADD(grid[i], upd), -p.l_clamp, p.l_clamp);
+  const size_t i = (size_t)row * pitch + col;
+  store_f32(out + i, clampf(F_ADD(load_f32(grid + i), upd), -p.l_clamp,
+                            p.l_clamp));
+}
+
+template <typename T>
+int launch(const T* grid, T* out, int pitch, const float* pose,
+           const float* ranges, const float* angles, int H, int W, int B,
+           const Params& p, void* stream, int particles = 1,
+           int map_rows = 0) {
+  if (H < 1 || W < 1 || B < 1 || B > 1360 || particles < 1 ||
+      particles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int Bpad = (B + UNROLL - 1) / UNROLL * UNROLL;
+  const dim3 block(TX, TY);
+  const dim3 blocks((W + TX - 1) / TX, (H + TY - 1) / TY, particles);
+  const size_t smem = 9 * (size_t)Bpad * sizeof(float);
+  update_ray_kernel<T><<<blocks, block, smem, (cudaStream_t)stream>>>(
+      grid, out, pitch, pose, ranges, angles, H, W, B, Bpad, p, map_rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -227,15 +275,31 @@ extern "C" int slam2d_update_ray(const float* grid, float* out,
                                  float inv_res, float angle_min, float step,
                                  float l_free, float l_occ, float l_clamp,
                                  float enable, void* stream) {
-  if (H < 1 || W < 1 || B < 1 || B > 1360) return (int)cudaErrorInvalidValue;
   const Params p{ox,      oy,        res,  min_range, max_range,
                  inv_samples, half_res, inv_res, angle_min, step,
                  l_free,  l_occ,     l_clamp, enable};
-  const int Bpad = (B + UNROLL - 1) / UNROLL * UNROLL;
-  const dim3 block(TX, TY);
-  const dim3 blocks((W + TX - 1) / TX, (H + TY - 1) / TY);
-  const size_t smem = 9 * (size_t)Bpad * sizeof(float);
-  update_ray_kernel<<<blocks, block, smem, (cudaStream_t)stream>>>(
-      grid, out, pose, ranges, angles, H, W, B, Bpad, p);
-  return (int)cudaGetLastError();
+  return launch(grid, out, W, pose, ranges, angles, H, W, B, p, stream);
+}
+
+// Every particle's window at once, in place: `maps` holds P maps of H x W
+// (float32, or bfloat16 when is_bf16), `poses` P poses; particle z's h x w
+// window is placed around poses[z] (its cell minus half the window,
+// clamped into the map); (ox, oy) is the maps' origin.
+extern "C" int slam2d_update_ray_particles(
+    void* maps, int is_bf16, const float* poses, const float* ranges,
+    const float* angles, int P, int H, int W, int h, int w, int B, float ox,
+    float oy, float res, float min_range, float max_range,
+    float inv_samples, float half_res, float inv_res, float angle_min,
+    float step, float l_free, float l_occ, float l_clamp, float enable,
+    void* stream) {
+  if (h > H || w > W) return (int)cudaErrorInvalidValue;
+  const Params p{ox,      oy,        res,  min_range, max_range,
+                 inv_samples, half_res, inv_res, angle_min, step,
+                 l_free,  l_occ,     l_clamp, enable};
+  if (is_bf16) {
+    auto* m = (__nv_bfloat16*)maps;
+    return launch(m, m, W, poses, ranges, angles, h, w, B, p, stream, P, H);
+  }
+  auto* m = (float*)maps;
+  return launch(m, m, W, poses, ranges, angles, h, w, B, p, stream, P, H);
 }

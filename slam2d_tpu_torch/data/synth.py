@@ -2,9 +2,9 @@
 
 A copy of the JAX package's slam2d_tpu/data/synth.py (SynthWorld,
 _waypoint_trajectory, simulate_log, corridor_world, corridor_loop_log,
-endurance_log, splice_odom): a known line-segment world is raycast along a known
-trajectory to give CARMEN-style records, namely ground-truth poses,
-drifting noisy odometry and noisy range scans. The same seed gives the
+endurance_log, splice_odom, default_log): a known line-segment world is
+raycast along a known trajectory to give CARMEN-style records, namely
+ground-truth poses, drifting noisy odometry and noisy range scans. The same seed gives the
 same arrays in both packages.
 """
 
@@ -235,3 +235,19 @@ def splice_odom(a_odom: np.ndarray, b_odom: np.ndarray) -> np.ndarray:
     return np.stack(
         [_np_compose(anchor, _np_between(b0, bk)) for bk in b_odom]
     ).astype(np.float32)
+
+
+def default_log(sensor: SensorConfig | None = None, step: float = 0.1,
+                seed: int = 0):
+    """A ~20x20 m loopy trajectory through the box-rooms world: (world,
+    log), the CLI's `--log synth`."""
+    sensor = sensor or SensorConfig()
+    world = SynthWorld.box_rooms(20.0)
+    wp = np.asarray(
+        [
+            [3.0, 3.0], [3.0, 8.0], [8.0, 8.0], [12.0, 3.5], [17.0, 3.5],
+            [17.0, 9.0], [12.0, 14.0], [16.0, 17.0], [9.0, 17.0],
+            [4.0, 16.0], [3.0, 10.0], [3.0, 3.5],
+        ]
+    )
+    return world, simulate_log(world, wp, sensor, step=step, seed=seed)

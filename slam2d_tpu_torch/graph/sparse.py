@@ -519,7 +519,9 @@ def optimize_hier(g: PoseGraph, cfg: GraphConfig,
         lv = levels[depth]
         if lv.K <= dense_max:
             optimize_hier.stages["dense"] += 1
-            return se2_graph.optimize(g_l, cfg_l)
+            # a departure from the JAX package: where the anchored factor
+            # fails, node 0's unknowns are eliminated (se2_graph._gn_iterate)
+            return se2_graph.optimize(g_l, cfg_l, gauge_fallback=True)
         optimize_hier.stages["vcycle"] += 1
         gc, ccfg = _coarse_graph(g_l, cfg_l, lv)
         gc2, chi_c = vcycle(gc, ccfg, depth + 1, top=False)

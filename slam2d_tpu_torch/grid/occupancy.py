@@ -38,6 +38,7 @@ from slam2d_tpu_torch.ops.update import (
     update_hybrid_window,
     update_ism,
     update_ray,
+    window_origins,
 )
 
 
@@ -131,10 +132,10 @@ def _cells(x, o, inv_res, off):
 
 
 def _beams(pose, ranges, sensor: SensorConfig):
-    """(dirx, diry, valid, hit, r_clip) [B] of a scan taken from `pose`:
-    the world bearings' cosines and sines, min_range < r (finite), hits
-    below max_range, the ranges clipped to it."""
-    angles = beam_angles(sensor, ranges.device) + pose[2]
+    """(dirx, diry, valid, hit, r_clip) of a scan taken from `pose` [..., 3]:
+    the world bearings' cosines and sines [..., B], and [B]: min_range < r
+    (finite), hits below max_range, the ranges clipped to it."""
+    angles = beam_angles(sensor, ranges.device) + pose[..., 2, None]
     r = ranges.to(torch.float32)
     valid = (r > sensor.min_range) & torch.isfinite(r)
     hit = valid & (r < sensor.max_range)
@@ -142,15 +143,26 @@ def _beams(pose, ranges, sensor: SensorConfig):
             torch.clamp(r, 0.0, sensor.max_range))
 
 
+def _lead(x, n: int):
+    """`x` with n trailing unit axes when it is a tensor of rank > 0 (a
+    per-particle value broadcast over beams and samples), else `x`."""
+    if isinstance(x, torch.Tensor) and x.dim() > 0:
+        return x.reshape(x.shape + (1,) * n)
+    return x
+
+
 def _endpoints(pose, beams, cfg: GridConfig, shape, ox, oy, roff, coff):
-    """(row, col, weight) [B] of the hits' endpoint cells, relative to
-    (roff, coff), l_occ where the cell lies inside `shape`, else 0 (the
-    cells not yet clipped)."""
+    """(row, col, weight) [..., B] of the hits' endpoint cells, relative to
+    (roff, coff) (numbers, or [...] tensors for a batch of poses [..., 3]),
+    l_occ where the cell lies inside `shape`, else 0 (the cells not yet
+    clipped)."""
     dirx, diry, _, hit, r_clip = beams
     H, W = shape
     inv_res = inv_f32(cfg.resolution)
-    erow = _cells(_fma(diry, r_clip, pose[1]), oy, inv_res, roff)
-    ecol = _cells(_fma(dirx, r_clip, pose[0]), ox, inv_res, coff)
+    erow = _cells(_fma(diry, r_clip, pose[..., 1, None]), oy, inv_res,
+                  _lead(roff, 1))
+    ecol = _cells(_fma(dirx, r_clip, pose[..., 0, None]), ox, inv_res,
+                  _lead(coff, 1))
     e_in = (erow >= 0) & (erow < H) & (ecol >= 0) & (ecol < W)
     return erow, ecol, torch.where(hit & e_in, cfg.l_occ, 0.0)
 
@@ -158,10 +170,11 @@ def _endpoints(pose, beams, cfg: GridConfig, shape, ox, oy, roff, coff):
 def _raycast_entries(pose, ranges, cfg: GridConfig, sensor: SensorConfig,
                      shape, ox, oy, roff, coff):
     """The sampled-ray update's (row, col, weight) entries before the gate:
-    [B * S] free samples then [B] endpoints, in the JAX package's order,
-    the cells relative to (roff, coff) and clipped into `shape`, a sample
-    outside it weighing 0 (XLA's scatter with mode="drop" on clipped
-    indices)."""
+    [..., B * S] free samples then [..., B] endpoints, in the JAX package's
+    order, the cells relative to (roff, coff) and clipped into `shape`, a
+    sample outside it weighing 0 (XLA's scatter with mode="drop" on
+    clipped indices). `pose` may be a batch [..., 3], with (roff, coff)
+    numbers or [...] tensors."""
     H, W = shape
     res = cfg.resolution
     inv_res = inv_f32(res)
@@ -172,8 +185,10 @@ def _raycast_entries(pose, ranges, cfg: GridConfig, sensor: SensorConfig,
     S = cfg.ray_samples
     r_free = torch.clamp_min(r_clip - res, 0.0)
     d = r_free[:, None] * _sample_fracs(S, ranges.device)[None, :]
-    frow = _cells(_fma(diry[:, None], d, pose[1]), oy, inv_res, roff)
-    fcol = _cells(_fma(dirx[:, None], d, pose[0]), ox, inv_res, coff)
+    frow = _cells(_fma(diry[..., None], d, pose[..., 1, None, None]), oy,
+                  inv_res, _lead(roff, 2))
+    fcol = _cells(_fma(dirx[..., None], d, pose[..., 0, None, None]), ox,
+                  inv_res, _lead(coff, 2))
     # a traversed cell accumulates about l_free whatever the oversampling:
     # min(r_free / S / res, 1), which XLA folds into one multiplication by
     # fl32(fl32(1 / S) * fl32(1 / res))
@@ -185,9 +200,13 @@ def _raycast_entries(pose, ranges, cfg: GridConfig, sensor: SensorConfig,
 
     erow, ecol, occ_w = _endpoints(pose, beams, cfg, shape, ox, oy, roff,
                                    coff)
-    rows = torch.cat([frow.reshape(-1), erow]).clamp(0, H - 1)
-    cols = torch.cat([fcol.reshape(-1), ecol]).clamp(0, W - 1)
-    return rows, cols, torch.cat([free_w.reshape(-1), occ_w])
+    lead = erow.shape[:-1]
+
+    def cat(free, occ):
+        return torch.cat([free.reshape(lead + (-1,)), occ], dim=-1)
+
+    return (cat(frow, erow).clamp(0, H - 1), cat(fcol, ecol).clamp(0, W - 1),
+            cat(free_w, occ_w))
 
 
 def _origin(cfg: GridConfig, origin_xy, origin_rc):
@@ -290,9 +309,21 @@ def raycast_update_dense(logodds, pose, ranges, cfg: GridConfig,
     it lies within 0.75 cells of a hit's range and of its ray. A single
     beam is its own ray, half a cell wide. Returns a new tensor of
     `logodds`' dtype, accumulated in float32."""
-    H, W = logodds.shape
-    dev = logodds.device
     ox, oy = (cfg.origin_x, cfg.origin_y) if origin_xy is None else origin_xy
+    upd = _dense_increments(pose[0], pose[1], pose[2], ox, oy,
+                            logodds.shape, ranges, cfg, sensor)
+    out = logodds.to(torch.float32) + upd * enable
+    return torch.clamp(out, -cfg.l_clamp, cfg.l_clamp).to(logodds.dtype)
+
+
+def _dense_increments(px, py, pth, ox, oy, shape, ranges, cfg: GridConfig,
+                      sensor: SensorConfig):
+    """The dense update's increments (l_free * free + l_occ * occ, float32)
+    of the cells of an (H, W) window at the float origin (ox, oy) seen
+    from the pose (px, py, pth): numbers or 0-d tensors [H, W] out, or
+    [P, 1, 1] tensors for P poses and windows at once, [P, H, W] out."""
+    H, W = shape
+    dev = ranges.device
     res = cfg.resolution
     B = sensor.n_beams
     r = torch.clamp(ranges.to(torch.float32), 0.0, sensor.max_range)
@@ -303,10 +334,10 @@ def raycast_update_dense(logodds, pose, ranges, cfg: GridConfig,
     # cell centres relative to the sensor (XLA contracts the multiply-add)
     col = torch.arange(W, **f32)[None, :].expand(H, W)
     row = torch.arange(H, **f32)[:, None].expand(H, W)
-    cx = _fma(col + 0.5, res, ox) - pose[0]
-    cy = _fma(row + 0.5, res, oy) - pose[1]
+    cx = _fma(col + 0.5, res, ox) - px
+    cy = _fma(row + 0.5, res, oy) - py
     d = torch.hypot(cx, cy)
-    phi = torch.atan2(cy, cx) - pose[2]
+    phi = torch.atan2(cy, cx) - pth
     # jnp.mod: fmod, then the divisor added where the signs differ
     two_pi = float(np.float32(2 * math.pi))
     phi = torch.fmod(phi - sensor.angle_min, two_pi)
@@ -320,7 +351,7 @@ def raycast_update_dense(logodds, pose, ranges, cfg: GridConfig,
         # the signed wrap: the beam sits at relative bearing 0
         phi = torch.where(phi > math.pi, phi - two_pi, phi)
         step = 1.0
-        k = torch.zeros((H, W), dtype=torch.int32, device=dev)
+        k = torch.zeros_like(phi, dtype=torch.int32)
         in_fov = (phi.abs() < math.pi / 2) & (phi.abs() * d <= 0.75 * res)
 
     # the nearest beam and its neighbour on the cell's side: at grazing
@@ -341,10 +372,66 @@ def raycast_update_dense(logodds, pose, ranges, cfg: GridConfig,
     r_min = torch.where(v_k2, torch.minimum(r_k, r_k2), r_k)
     free = in_fov & v_k & (d < r_min - res)
     occ = in_fov & (occ_k | occ_k2)
-    upd = cfg.l_free * free.to(torch.float32) + cfg.l_occ * occ.to(
+    return cfg.l_free * free.to(torch.float32) + cfg.l_occ * occ.to(
         torch.float32)
-    out = logodds.to(torch.float32) + upd * enable
-    return torch.clamp(out, -cfg.l_clamp, cfg.l_clamp).to(logodds.dtype)
+
+
+def _particle_windows(maps, poses, cfg: GridConfig, region):
+    """((r0, c0) int64 [P] top-left cells, (ox, oy) float32 [P] world
+    origins) of each particle's `region` window of `maps` [P, H, W]
+    around its pose, as the JAX package's _windowed_update places it
+    (extract_window around world_to_cell of the pose)."""
+    return window_origins(poses, region, maps.shape[1:],
+                          (cfg.origin_x, cfg.origin_y), cfg.resolution)
+
+
+def raycast_update_particles(maps, poses, ranges, cfg: GridConfig,
+                             sensor: SensorConfig, region, enable=1.0):
+    """`raycast_update` of one scan into every particle's map, IN PLACE:
+    particle p's scan is taken from `poses[p]` and updates the `region` =
+    (Hr, Wr) window of maps[p] [P, H, W] around that pose (a region the
+    size of the map is the whole map), with the cells of the full grid's
+    floor minus the window's origin, as the JAX package's vmapped
+    _windowed_update computes them. Every particle's entries are added in
+    one index_put_(accumulate=True) into the flattened stack (a particle
+    offset in the index; within a particle, in the single update's
+    order); then the cells they touch are clamped (the rest of each
+    window holds clamped values already). Returns `maps`."""
+    P, H, W = maps.shape
+    (r0, c0), _ = _particle_windows(maps, poses, cfg, region)
+    rows, cols, w = _raycast_entries(poses, ranges, cfg, sensor, region,
+                                     cfg.origin_x, cfg.origin_y, r0, c0)
+    base = torch.arange(P, device=maps.device, dtype=torch.int64) * (H * W)
+    idx = ((base + r0 * W + c0)[:, None]
+           + rows.to(torch.int64) * W + cols.to(torch.int64)).reshape(-1)
+    flat = maps.view(-1)
+    flat.index_put_((idx,), (w * enable).to(maps.dtype).reshape(-1),
+                    accumulate=True)
+    flat[idx] = torch.clamp(flat[idx], -cfg.l_clamp, cfg.l_clamp)
+    return maps
+
+
+def dense_update_particles(maps, poses, ranges, cfg: GridConfig,
+                           sensor: SensorConfig, region, enable=1.0):
+    """`raycast_update_dense` of one scan into every particle's map, IN
+    PLACE: particle p's `region` window of maps[p] [P, H, W] around
+    `poses[p]` (placed as in `raycast_update_particles`) at its float
+    origin ox + f32(c0) * res, every window at once. Returns `maps`."""
+    P = maps.shape[0]
+    Hr, Wr = region
+    dev = maps.device
+    (r0, c0), (ox, oy) = _particle_windows(maps, poses, cfg, region)
+    pidx = torch.arange(P, device=dev)[:, None, None]
+    rows = (r0[:, None] + torch.arange(Hr, device=dev))[:, :, None]
+    cols = (c0[:, None] + torch.arange(Wr, device=dev))[:, None, :]
+    g = maps[pidx, rows, cols].to(torch.float32)
+    upd = _dense_increments(
+        poses[:, 0, None, None], poses[:, 1, None, None],
+        poses[:, 2, None, None], ox[:, None, None], oy[:, None, None],
+        region, ranges, cfg, sensor)
+    out = torch.clamp(g + upd * enable, -cfg.l_clamp, cfg.l_clamp)
+    maps[pidx, rows, cols] = out.to(maps.dtype)
+    return maps
 
 
 def resolve_update_impl(

@@ -462,14 +462,20 @@ def match_scans(
     of the thetas around each coarse winner, the bilinear fine pass, the
     motion penalty, the first maximum, the quadratic sub-cell and sub-bin
     peak and the keep-the-prior rule of `match_scan`, per particle. The
-    scorer is the correlation scorer (mcfg.score_impl resolving to "cmx"
-    or "emx"); nothing is read back to the host."""
+    batch is scored by the correlation scorer (mcfg.score_impl resolving
+    to "cmx" or "emx"); "gather" (and "pallas"), whose scorer takes one
+    search space a launch (kernel 2), runs `match_scan` particle by
+    particle, the function of the JAX package's vmapped gather match.
+    Nothing is read back to the host."""
     impl = resolve_score_impl(mcfg.score_impl)
-    if impl not in ("cmx", "emx"):
-        raise NotImplementedError(
-            f"score_impl={mcfg.score_impl!r}: the batched match scores with "
-            "the correlation scorer (kernel 5, 'cmx' or 'emx') only"
-        )
+    if impl == "gather":
+        out = [
+            match_scan(S[p], ranges, priors[p], gcfg, mcfg, sensor,
+                       search_space=S[p], origin_xy=origin[p], plain=plain)
+            for p in range(priors.shape[0])
+        ]
+        return (torch.stack([o[0] for o in out]),
+                torch.stack([o[1] for o in out]))
     dev = priors.device
     P = priors.shape[0]
     f = mcfg.coarse_factor

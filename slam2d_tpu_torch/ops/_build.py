@@ -86,6 +86,16 @@ _SIGNATURES = {
     # max_range, 1/ray_samples, res/2, 1/res, angle_min, step, l_free,
     # l_occ, l_clamp, enable, stream
     "slam2d_update_ray": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P],
+    # maps, is_bf16, poses, ranges, angles, P, H, W, h, w, B, ox, oy,
+    # res, step, angle_min, min_range, max_range, l_free, l_occ, l_clamp,
+    # enable, stream
+    "slam2d_update_hybrid_particles": [_P, _I, _P, _P, _P] + [_I] * 6
+    + [_F] * 11 + [_P],
+    # maps, is_bf16, poses, ranges, angles, P, H, W, h, w, B, ox, oy, res,
+    # min_range, max_range, 1/ray_samples, res/2, 1/res, angle_min, step,
+    # l_free, l_occ, l_clamp, enable, stream
+    "slam2d_update_ray_particles": [_P, _I, _P, _P, _P] + [_I] * 6
+    + [_F] * 14 + [_P],
     # D, O, Cinv, K, stream
     "slam2d_tridiag_factor": [_P, _P, _P, _I, _P],
 }

@@ -22,11 +22,16 @@ the ports of slam2d_tpu/ops/pallas_update.py:_update_kernel, variants
 - out = clip(g + (l_free * free + l_occ * occ) * enable, +-l_clamp),
   in float32, stored in the map's dtype.
 
-`update_hybrid`, `update_hybrid_window`, `update_ism` and `update_ray`
-send a CUDA tensor to the kernel and a CPU tensor to their plain versions;
-anything else raises. `update_hybrid_window` is the frontend step's form
-of kernel 1 `hybrid`: in place on a window of the map whose origin and
-gate lie in device memory.
+`update_hybrid`, `update_hybrid_window`, `update_hybrid_particles`,
+`update_ism`, `update_ray` and `update_ray_particles` send a CUDA tensor
+to the kernel and a CPU tensor to their plain versions; anything else
+raises. `update_hybrid_window` is the frontend step's form of kernel 1
+`hybrid`: in place on a window of the map whose origin and gate lie in
+device memory. `update_hybrid_particles` and `update_ray_particles` are
+the particle filter's forms of kernels 1 `hybrid` and `ray`: every
+particle's window of a [P, H, W] map stack in one launch (a grid axis
+over the particles, as kernel 1 `ism` has), each window placed around
+its particle's pose as `window_origins` says.
 """
 
 from __future__ import annotations
@@ -681,3 +686,120 @@ def update_ray(
 
 
 update_ray.launches = 0
+
+
+def _check_particles(maps, poses, ranges, angles, region):
+    _check_ism(maps, poses, ranges, region)
+    if (angles.dtype != torch.float32 or tuple(angles.shape) != ranges.shape
+            or angles.device != maps.device or not angles.is_contiguous()):
+        raise ValueError("angles must be a contiguous float32 [B] tensor on "
+                         "the maps' device")
+
+
+def _per_particle_plain(update_one, maps, poses, region, origin_xy,
+                        resolution):
+    """The plain version of a particle-batched update: `update_one(window
+    [Hr, Wr] float32, pose [3], window origin (x, y))` on each particle's
+    window in turn (placed by `window_origins`), written back IN PLACE in
+    the maps' dtype."""
+    Hr, Wr = region
+    (r0, c0), (ox, oy) = window_origins(
+        poses, region, maps.shape[1:], origin_xy, resolution)
+    for p, (r, c, x, y) in enumerate(zip(r0.tolist(), c0.tolist(),
+                                         ox.tolist(), oy.tolist())):
+        win = maps[p, r : r + Hr, c : c + Wr]
+        new = update_one(win.to(torch.float32).contiguous(), poses[p], (x, y))
+        win.copy_(new.to(maps.dtype))
+    return maps
+
+
+def update_hybrid_particles(
+    maps, poses, ranges, angles, *, region, origin_xy, resolution, step,
+    angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
+    plain=False,
+):
+    """Kernel 1 `hybrid` on every particle's map, IN PLACE; returns `maps`
+    [P, H, W] (float32 or bfloat16, updated in float32).
+
+    Particle p's scan is taken from `poses[p]`; it updates the `region` =
+    (Hr, Wr) window of maps[p] placed around that pose as `window_origins`
+    says (a region the size of the map is the whole map), with the bits of
+    `update_hybrid` on that window at its float origin ox + f32(c0) * res.
+    `angles` [B] is the float32 beam-angle table. One launch for all the
+    particles. The plain version loops over the particles with
+    `update_hybrid_plain`; `plain=True` runs it on a CUDA tensor too (for
+    checks)."""
+    _check_particles(maps, poses, ranges, angles, region)
+    kw = dict(resolution=resolution, step=step, angle_min=angle_min,
+              min_range=min_range, max_range=max_range, l_free=l_free,
+              l_occ=l_occ, l_clamp=l_clamp, enable=enable)
+    if plain or maps.device.type == "cpu":
+        return _per_particle_plain(
+            lambda g, pose, o: update_hybrid_plain(
+                g, pose, ranges, angles, origin_xy=o, **kw),
+            maps, poses, region, origin_xy, resolution)
+    if maps.device.type != "cuda":
+        raise ValueError(f"no update kernel for device {maps.device}")
+    P, H, W = maps.shape
+    lib = _build.load_library()
+    err = lib.slam2d_update_hybrid_particles(
+        maps.data_ptr(), int(maps.dtype == torch.bfloat16), poses.data_ptr(),
+        ranges.data_ptr(), angles.data_ptr(), P, H, W, region[0], region[1],
+        ranges.shape[0], origin_xy[0], origin_xy[1], resolution, step,
+        angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable,
+        _build.stream_handle(maps.device),
+    )
+    _build.check(err, "slam2d_update_hybrid_particles")
+    update_hybrid_particles.launches += 1
+    return maps
+
+
+update_hybrid_particles.launches = 0
+
+
+def update_ray_particles(
+    maps, poses, ranges, angles, *, region, origin_xy, resolution, min_range,
+    max_range, angle_min, step, l_free, l_occ, l_clamp, ray_samples,
+    enable=1.0, plain=False,
+):
+    """Kernel 1 `ray` on every particle's map, IN PLACE; returns `maps`
+    [P, H, W] (float32 or bfloat16, updated in float32): particle p's
+    window placed around `poses[p]` as in `update_hybrid_particles`, with
+    the bits of `update_ray` on that window at its float origin. One
+    launch for all the particles. The plain version loops over the
+    particles with `ray_tables` and `update_ray_plain`; `plain=True` runs
+    it on a CUDA tensor too (for checks)."""
+    _check_particles(maps, poses, ranges, angles, region)
+    if ranges.shape[0] > _MAX_RAY_BEAMS:
+        raise ValueError(f"need at most {_MAX_RAY_BEAMS} beams")
+    if plain or maps.device.type == "cpu":
+        def one(g, pose, o):
+            rays = ray_tables(
+                pose, ranges, angles, origin_xy=o, resolution=resolution,
+                min_range=min_range, max_range=max_range,
+                ray_samples=ray_samples,
+            )
+            return update_ray_plain(
+                g, pose, rays, origin_xy=o, resolution=resolution,
+                l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
+            )
+        return _per_particle_plain(one, maps, poses, region, origin_xy,
+                                   resolution)
+    if maps.device.type != "cuda":
+        raise ValueError(f"no update kernel for device {maps.device}")
+    P, H, W = maps.shape
+    lib = _build.load_library()
+    err = lib.slam2d_update_ray_particles(
+        maps.data_ptr(), int(maps.dtype == torch.bfloat16), poses.data_ptr(),
+        ranges.data_ptr(), angles.data_ptr(), P, H, W, region[0], region[1],
+        ranges.shape[0], origin_xy[0], origin_xy[1], resolution, min_range,
+        max_range, inv_f32(max(ray_samples, 1)), 0.5 * resolution,
+        inv_f32(resolution), angle_min, step, l_free, l_occ, l_clamp, enable,
+        _build.stream_handle(maps.device),
+    )
+    _build.check(err, "slam2d_update_ray_particles")
+    update_ray_particles.launches += 1
+    return maps
+
+
+update_ray_particles.launches = 0

@@ -8,9 +8,11 @@ score is the likelihood-field weight), which is the shared-anchor refine
 the per-particle match below (`per_particle_fields`, then `match_scans`
 with the correlation scorer kernel); the map update, which is
 the shared-anchor update (pf/shared_update.py) from
-update_shared_min_particles particles on and the per-particle ISM update
-(kernel: ops/update.py, variant "ism") below; and systematic resampling
-when N_eff falls below its threshold (kernel: ops/gather.py).
+update_shared_min_particles particles on and the per-particle update
+below (`_update_all`: kernel 1 `ism`, `ray` or `hybrid` over every
+particle in one launch, or the sampled-ray or dense update); and
+systematic resampling when N_eff falls below its threshold (kernel:
+ops/gather.py).
 
 The stage gates (refine, update, bootstrap) are functions of the odometry
 alone. `fastslam_step` takes them from the host, as a row of
@@ -45,6 +47,9 @@ from slam2d_tpu_torch.config import FrontendConfig, PFConfig
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.core.numerics import inv_f32
 from slam2d_tpu_torch.grid.occupancy import (
+    beam_angles,
+    dense_update_particles,
+    raycast_update_particles,
     resolve_update_impl,
     update_constants,
     world_to_cell,
@@ -57,7 +62,11 @@ from slam2d_tpu_torch.grid.window import (
 from slam2d_tpu_torch.match.correlative import gaussian_kernel_1d, match_scans
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.gather import gather_rows
-from slam2d_tpu_torch.ops.update import update_ism
+from slam2d_tpu_torch.ops.update import (
+    update_hybrid_particles,
+    update_ism,
+    update_ray_particles,
+)
 from slam2d_tpu_torch.pf.shared_refine import shared_refine
 from slam2d_tpu_torch.pf.shared_update import shared_update
 
@@ -139,6 +148,26 @@ def fastslam_init(cfg: FrontendConfig, pf: PFConfig, device="cuda",
         dist=torch.zeros((), **f32),
         since_update=torch.full((), float("inf"), **f32),  # integrate scan 0
         since_match=torch.zeros((), **f32),
+    )
+
+
+def pf_state_template(cfg: FrontendConfig, pf: PFConfig) -> PFState:
+    """A PFState of tensors on the "meta" device with the run's shapes and
+    dtypes, the counterpart of the JAX package's: the restore target of
+    utils/checkpoint.load_state(path, template, device=...). It allocates
+    nothing, so a [P, H, W] stack is described without being made."""
+    meta = dict(dtype=torch.float32, device="meta")
+    P = pf.n_particles
+    return PFState(
+        logodds=torch.empty((P, cfg.grid.height, cfg.grid.width),
+                            dtype=getattr(torch, pf.map_dtype),
+                            device="meta"),
+        poses=torch.empty((P, 3), **meta),
+        log_w=torch.empty(P, **meta),
+        prev_odom=torch.empty(3, **meta),
+        dist=torch.empty((), **meta),
+        since_update=torch.empty((), **meta),
+        since_match=torch.empty((), **meta),
     )
 
 
@@ -256,10 +285,16 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
     PFConfig.update_mode picks the batching, "auto" as on the JAX
     package's accelerator: the shared-anchor update (pf/shared_update.py:
     G carve images, kernel 8 adds them with the exact endpoint marks) from
-    update_shared_min_particles particles on, else the per-particle ISM
-    update over the update window around each pose (pf/fastslam.py's
-    _windowed_update, batched over the particles in one kernel). The
-    quantized_* modes are diagnostics of the JAX package and raise."""
+    update_shared_min_particles particles on, else the per-particle update
+    over the update window around each pose (the JAX package's vmap of
+    pf/fastslam.py's _windowed_update; the whole map when the window is
+    not narrower), every particle at once, by GridConfig.update_impl as
+    `resolve_update_impl(..., auto_ctx="pf")` resolves it: kernel 1 `ism`
+    ("pallas", the "auto" of fields of view up to pi), `ray`
+    ("pallas_ray") or `hybrid` ("pallas_hybrid") with a grid axis over the
+    particles; the sampled-ray update ("sparse", "sparse_mxu", the "auto"
+    past pi) in one index_put_ over the stack; the dense one ("dense").
+    The quantized_* modes are diagnostics of the JAX package and raise."""
     mode = pf.update_mode
     if mode == "auto":
         mode = (
@@ -275,21 +310,33 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
         )
     g, s = cfg.grid, cfg.sensor
     impl = resolve_update_impl(g, s, auto_ctx="pf")
-    if impl != "pallas":
-        raise NotImplementedError(
-            "the particle filter's map update is ported for the "
-            "inverse-sensor-model update only (update_impl 'auto' or "
-            f"'pallas' up to a field of view of pi), got {g.update_impl!r} "
-            f"({impl!r}): its per-particle sampled-ray and dense updates "
-            "are ROADMAP queue 1 item 9's remainder"
-        )
     H, W = logodds.shape[1:]
     win = update_window_cells(g, s)
     region = (win, win) if win < min(H, W) else (H, W)
-    return update_ism(
-        logodds, poses, ranges, region=region,
-        origin_xy=(g.origin_x, g.origin_y), plain=plain,
-        **update_constants(g, s),
+    if impl in ("sparse", "sparse_mxu"):
+        return raycast_update_particles(logodds, poses, ranges, g, s, region)
+    if impl == "dense":
+        return dense_update_particles(logodds, poses, ranges, g, s, region)
+    consts = update_constants(g, s)
+    origin_xy = (g.origin_x, g.origin_y)
+    if impl == "pallas":
+        return update_ism(
+            logodds, poses, ranges, region=region, origin_xy=origin_xy,
+            plain=plain, **consts,
+        )
+    angles = beam_angles(s, logodds.device)
+    if impl == "pallas_ray":
+        return update_ray_particles(
+            logodds, poses, ranges, angles, region=region,
+            origin_xy=origin_xy, resolution=g.resolution,
+            min_range=s.min_range, max_range=s.max_range,
+            angle_min=s.angle_min, step=consts["step"], l_free=g.l_free,
+            l_occ=g.l_occ, l_clamp=g.l_clamp, ray_samples=g.ray_samples,
+            plain=plain,
+        )
+    return update_hybrid_particles(
+        logodds, poses, ranges, angles, region=region, origin_xy=origin_xy,
+        plain=plain, **consts,
     )
 
 

@@ -24,7 +24,7 @@ from slam2d_tpu_torch.pf.fastslam import (
 
 def run_fastslam(
     log: dict, cfg: FrontendConfig, pf: PFConfig, device="cuda", seed: int = 0,
-    state: PFState | None = None, draws=None,
+    state: PFState | None = None, draws=None, frame_cb=None,
 ):
     """Run the particle filter over a host-side log dict {odom, ranges}.
 
@@ -38,6 +38,12 @@ def run_fastslam(
     resamples. Unlike the JAX package's chunked driver, no padded tail
     scans run, so the final state equals the JAX one when the log length
     is a multiple of cfg.chunk.
+
+    `frame_cb(logodds, traj_chunk)` is called at every cfg.chunk-scan
+    boundary (and after the last scan), as the JAX package's run loop calls
+    it: the best-weighted particle's map (a view of the state's tensor,
+    valid until the next scan) and the chunk's best poses (numpy [n, 3]);
+    each call reads the weights and the chunk's poses back.
     """
     odom = np.asarray(log["odom"], np.float32)
     ranges = np.asarray(log["ranges"], np.float32)
@@ -76,6 +82,10 @@ def run_fastslam(
         traj[t] = bp
         n_eff[t] = ne
         scores[t] = sc
+        if frame_cb is not None and ((t + 1) % cfg.chunk == 0 or t == T - 1):
+            s0 = t - t % cfg.chunk
+            best = int(torch.argmax(state.log_w))
+            frame_cb(state.logodds[best], traj[s0 : t + 1].cpu().numpy())
     return (
         state, traj.cpu().numpy(), n_eff.cpu().numpy(), scores.cpu().numpy()
     )

@@ -42,6 +42,7 @@ the JAX package runs ("dense", "schur", "sparse", "hier" and "auto");
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import math
@@ -92,6 +93,21 @@ _NOT_PORTED = {
                      "multi-device (ROADMAP queue 1 item 10)",
 }
 SCHUR_BLOCKS = 4   # the JAX package's n_blocks for optimizer="schur"
+
+# Opt-in accept-path phase profiler: a utils/profiling.PhaseTimer, or None
+# (the default: no cost, no extra syncs). Given one (each phase boundary
+# synchronizes the card), the accept path records
+# its phases at the JAX package's names: "accept/graph_to_device" (the
+# HostGraph copied to the device), "accept/optimize+fetch" (the solve and
+# the read of its poses, attributed together) and
+# "accept/retro_correct_host" (the trajectory's retro-correction).
+ACCEPT_TIMER = None
+
+
+def _accept_phase(name: str):
+    if ACCEPT_TIMER is None:
+        return contextlib.nullcontext()
+    return ACCEPT_TIMER.phase(name)
 
 
 def _check_optimizer(optimizer: str) -> None:
@@ -685,7 +701,6 @@ class LoopCloser:
         only host read is the chi^2 prune's flags); the Schur solver, as
         the JAX package's, does not: the flags land in the HostGraph at the
         finalize, and the next solve leaves the edges out."""
-        gcfg = self.gcfg
         optimizer = self.optimizer
         if optimizer == "auto":
             optimizer = (
@@ -696,7 +711,15 @@ class LoopCloser:
         self.graph.add_edge(i, k_new, z, np.eye(3) * self.loop_edge_info)
         self.loop_records.append((i, k_new, score, z[0], z[1], z[2]))
         self.n_loops += 1
-        dev_graph = self.graph.to_device(self.device)
+        with _accept_phase("accept/graph_to_device"):
+            dev_graph = self.graph.to_device(self.device)
+        with _accept_phase("accept/optimize+fetch"):
+            return self._solve_and_prune(optimizer, dev_graph)
+
+    def _solve_and_prune(self, optimizer, dev_graph):
+        """The solve of `_dispatch_optimize` and the chi2 prune's
+        re-solve; returns its (poses, chi2, pruned flags)."""
+        gcfg = self.gcfg
         dev_graph, chi = self._solve(optimizer, dev_graph, self.graph)
         prune_chi2 = float(gcfg.loop_prune_chi2)
         if prune_chi2 > 0.0:
@@ -773,7 +796,8 @@ class LoopCloser:
         (est, last_kf_pose, Tc)."""
         pa = self.pending_accept
         self.pending_accept = None
-        corrected0, chi_h, pruned = fetch(*pa["dev"])
+        with _accept_phase("accept/optimize+fetch"):
+            corrected0, chi_h, pruned = fetch(*pa["dev"])
         self._apply_prune(pruned)
         self.chi2 = float(chi_h)
         n0 = pa["n0"]
@@ -799,7 +823,8 @@ class LoopCloser:
         """Synchronous accept (defer_accept=False): solve, read, tail."""
         new_edge_idx = self.graph.n_edges  # the index add_edge will use
         dev = self._dispatch_optimize(i, k_new, z, score)
-        corrected, chi_h, pruned = fetch(*dev)
+        with _accept_phase("accept/optimize+fetch"):
+            corrected, chi_h, pruned = fetch(*dev)
         self._apply_prune(pruned)
         self.chi2 = float(chi_h)
         old_kf = np.stack(self.kf_poses)
@@ -819,10 +844,11 @@ class LoopCloser:
             self.kf_poses[k] = corrected[k]
         self.cache_anchor = -1
         self.cache_gs = None
-        _retro_correct_traj(
-            self.traj_out, self.kf_scan_idx, old_kf, corrected,
-            emitted_upto, offset=self.scan_index_offset,
-        )
+        with _accept_phase("accept/retro_correct_host"):
+            _retro_correct_traj(
+                self.traj_out, self.kf_scan_idx, old_kf, corrected,
+                emitted_upto, offset=self.scan_index_offset,
+            )
         # transport the motion since the LAST keyframe onto its corrected
         # pose, as a left transform Tc = corrected_last ∘ old_last^-1 that
         # run_full_slam applies to the device pose too

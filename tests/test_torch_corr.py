@@ -295,13 +295,34 @@ def test_corr_wrapper_rejects_bad_input(bad):
 
 
 def test_match_scans_needs_the_correlation_scorer():
+    """The batched match batches with the correlation scorer (kernel 5)
+    only: "gather", whose scorer takes one search space a launch, runs
+    the match particle by particle and holds to JAX's vmapped gather
+    match to the refine's tolerances; the TPU-only "mxu" raises."""
     cfg = to_port(PF_CFG)
     with pytest.raises(NotImplementedError):
         tcor.match_scans(
             torch.zeros(1, 64, 64), torch.zeros(1, 2),
             torch.ones(PF_SENSOR.n_beams), torch.zeros(1, 3), cfg.grid,
-            dataclasses.replace(cfg.matcher, score_impl="gather"), cfg.sensor,
+            dataclasses.replace(cfg.matcher, score_impl="mxu"), cfg.sensor,
         )
+    cfg, maps, priors, ranges = _refine_case("windowed")
+    pf = PFConfig(n_particles=PF_P, refine_mode="per_particle",
+                  refine_score_impl="gather")
+    fn = jax.jit(jfs._refine_all, static_argnums=(3, 4))
+    ref_poses, ref_scores = fn(
+        jnp.asarray(maps), jnp.asarray(ranges), jnp.asarray(priors), cfg, pf
+    )
+    poses, scores = tfs._refine_all(
+        torch.from_numpy(maps), torch.from_numpy(ranges),
+        torch.from_numpy(priors), to_port(cfg), to_port(pf),
+    )
+    np.testing.assert_allclose(
+        scores.numpy(), np.asarray(ref_scores), rtol=0, atol=SCORE_TOL
+    )
+    np.testing.assert_allclose(
+        poses.numpy(), np.asarray(ref_poses), rtol=0, atol=POSE_TOL
+    )
 
 
 def test_frontend_match_scan_with_cmx_matches_jax():

@@ -22,6 +22,7 @@ synthetic log.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +40,7 @@ from torch_parity import PF_CFG as CFG
 from torch_parity import PF_P as P
 from torch_parity import PF_SENSOR as SENSOR
 from torch_parity import PF_T as T
-from torch_parity import pf_draws, pf_log, to_port
+from torch_parity import pf_draws, pf_log, pf_run_pair, to_port
 
 torch.set_num_threads(1)
 
@@ -257,3 +258,130 @@ def test_unported_pf_paths_raise(pf, why):
             gates=(refine, not refine, False),
             noise=torch.zeros(pf.n_particles, 3),
         )
+
+
+# ---- the per-particle map updates of every update_impl ------------------
+#
+# The JAX package's per-particle update is vmap(_windowed_update) (its
+# fastslam.py:303); the port updates every particle's window at once. Same
+# maps (random log-odds) and poses (one clamped against the map's corner)
+# in both. Tolerances: the dense, ISM and hybrid updates bit-exact; the
+# sampled-ray update within 1e-5 of log-odds (its per-cell sums add in
+# another order in XLA's vmapped scatter), at most 0.05% of cells off by
+# more (an endpoint moved by XLA's CPU cos/sin); the exact-ray update as
+# tests/test_torch_ray.py holds it: 0.05% of cells may differ by one
+# l_occ, the free channel within 2e-3.
+
+UPD_P = 4
+
+
+@functools.cache
+def _update_inputs():
+    log = pf_log()
+    rng = np.random.default_rng(0)
+    maps = rng.normal(0, 1.5, (UPD_P, 224, 224)).astype(np.float32)
+    maps = maps.clip(-5, 5)
+    poses = np.stack([log["odom"][20]] * UPD_P) + rng.normal(
+        0, [0.3, 0.3, 0.1], (UPD_P, 3))
+    poses = poses.astype(np.float32)
+    poses[1, :2] = [1.0, 1.0]   # the window clamped into the map's corner
+    return maps, poses, log["ranges"][20].astype(np.float32)
+
+
+def _impl_cfg(impl, cfg=CFG):
+    return dataclasses.replace(
+        cfg, grid=dataclasses.replace(cfg.grid, update_impl=impl))
+
+
+def _jax_update(impl, maps, poses, ranges, cfg=CFG):
+    jcfg = _impl_cfg(impl, cfg)
+    return np.asarray(jax.vmap(
+        lambda g, p: jfs._windowed_update(g, p, jnp.asarray(ranges), jcfg)
+    )(jnp.asarray(maps), jnp.asarray(poses)))
+
+
+def _port_update(impl, maps, poses, ranges, cfg=CFG):
+    out = torch.tensor(maps)
+    pf = to_port(PFConfig(n_particles=len(poses), update_mode="per_particle"))
+    tfs._update_all(out, torch.tensor(poses), torch.tensor(ranges),
+                    to_port(_impl_cfg(impl, cfg)), pf)
+    return out.numpy()
+
+
+@pytest.mark.parametrize(
+    "impl", ["sparse", "sparse_mxu", "dense", "pallas_ray", "pallas_hybrid"])
+def test_per_particle_update_matches_jax(impl):
+    maps, poses, ranges = _update_inputs()
+    # "sparse_mxu" is the sampled-ray update that JAX accumulates by a
+    # one-hot matmul (reduced precision off its TPU): held to "sparse"
+    ref = _jax_update("sparse" if impl == "sparse_mxu" else impl, maps,
+                      poses, ranges)
+    out = _port_update(impl, maps, poses, ranges)
+    assert (ref != maps).mean() > 0.05        # the update did something
+    diff = np.abs(out - ref)
+    if impl == "dense" or impl == "pallas_hybrid":
+        np.testing.assert_array_equal(out, ref)
+    elif impl.startswith("sparse"):
+        assert (diff > 1e-5).mean() <= 0.0005, diff.max()
+    else:
+        occ = np.isclose(diff, CFG.grid.l_occ, atol=2e-3)
+        assert occ.mean() <= 0.0005
+        assert diff[~occ].max() <= 2e-3
+
+
+@pytest.mark.parametrize("impl", ["pallas_ray", "pallas_hybrid"])
+@pytest.mark.parametrize("map_dtype", [torch.float32, torch.bfloat16])
+def test_batched_kernel_plain_equals_single_window(impl, map_dtype):
+    """The plain version of the particle-batched kernels 1 `ray` and
+    `hybrid` equals the single-map update (`integrate_scan` with the
+    window's origin) on each particle's window, bit for bit; a bfloat16
+    map is updated in float32 and rounded once."""
+    from slam2d_tpu_torch.grid.occupancy import integrate_scan, world_to_cell
+    from slam2d_tpu_torch.grid.window import (
+        extract_window, update_window_cells,
+    )
+
+    maps, poses, ranges = _update_inputs()
+    cfg = to_port(_impl_cfg(impl))
+    stack = torch.tensor(maps).to(map_dtype)
+    ref = stack.clone()
+    win = update_window_cells(cfg.grid, cfg.sensor)
+    r = torch.tensor(ranges)
+    for p in range(UPD_P):
+        pose = torch.tensor(poses[p])
+        center = world_to_cell(pose[:2], cfg.grid).tolist()
+        g, orc = extract_window(ref[p].to(torch.float32), center, win)
+        g = integrate_scan(g, pose, r, cfg.grid, cfg.sensor, origin_rc=orc)
+        ref[p, orc[0]:orc[0] + win, orc[1]:orc[1] + win] = g.to(map_dtype)
+    pf = to_port(PFConfig(n_particles=UPD_P, update_mode="per_particle"))
+    tfs._update_all(stack, torch.tensor(poses), r, cfg, pf)
+    if map_dtype == torch.bfloat16:
+        stack, ref = stack.view(torch.int16), ref.view(torch.int16)
+    assert torch.equal(stack, ref)
+
+
+def test_fastslam_270_degree_scanner_matches_jax():
+    """FastSLAM with a 270-degree, 271-beam scanner: "auto" resolves to
+    the sampled-ray update (the JAX package's choice past pi), which the
+    particle filter now runs. Held as test_run_fastslam_matches_jax holds
+    its run: a trajectory within 0.25 m of JAX's, an ATE within 0.03 m of
+    JAX's."""
+    import math
+
+    from slam2d_tpu.config import SensorConfig as JSensor
+    from slam2d_tpu.data.synth import SynthWorld, simulate_log
+
+    sensor = JSensor(n_beams=271, fov_rad=1.5 * math.pi,
+                     angle_min=-0.75 * math.pi, max_range=8.0)
+    cfg = dataclasses.replace(_impl_cfg("auto"), sensor=sensor)
+    wp = np.array([[3.0, 3.0], [3.0, 9.0], [9.0, 9.0], [11.0, 4.0]])
+    log = simulate_log(SynthWorld.box_rooms(16.0), wp, sensor, step=0.12,
+                       odom_noise_xy=0.03, odom_noise_theta=0.012, seed=11)
+    log = {k: np.asarray(v)[:T] for k, v in log.items()}
+    ref, (traj, n_eff, _), _ = pf_run_pair(PF, cfg, log)
+    assert np.isfinite(traj).all() and np.isfinite(n_eff).all()
+    assert np.abs(traj - ref[0]).max() <= 0.25
+    ate = ate_rmse(traj, log["gt_poses"], align=False)
+    ref_ate = ate_rmse(ref[0], log["gt_poses"], align=False)
+    print(f"ATE port {ate:.4f}, JAX {ref_ate:.4f}")
+    assert abs(ate - ref_ate) <= 0.03

@@ -20,6 +20,8 @@ Tolerances:
   bounds (5x below odometry's error, chi2 < 1).
 """
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -320,3 +322,68 @@ def test_coarse_graph_stride_divides_n_nodes():
                      np.zeros(32)], axis=1)
     np.testing.assert_allclose(g2.poses[:32].numpy(), want, atol=1e-3)
     assert float(chi) < 1e-4
+
+
+# ---- the repaired coarse solve of optimize_hier -------------------------
+#
+# On the 4096-node serpentine with every node's x moved by -1 float32 ulp
+# the anchored factor of the coarse dense level fails (its 1e8 node-0
+# prior puts the anchor graph's condition near 1e13); the level then
+# solves with node 0's unknowns eliminated (se2_graph._gn_iterate's
+# gauge_fallback), a departure from the JAX package, whose LAPACK factor
+# of the same matrix succeeds. Held: finite poses, an error at most 2x
+# JAX's; and wherever the anchored factor succeeds, the step bit-equal to
+# the one without the fallback.
+
+def _moved(k):
+    arrays, gt, est, jcfg = _serpentine(4096, 120)
+    p = arrays["poses"].copy()
+    for _ in range(abs(k)):
+        p[:, 0] = np.nextafter(p[:, 0], np.float32(np.inf * np.sign(k)))
+    arrays["poses"] = p
+    return arrays, gt, jcfg
+
+
+def test_optimize_hier_minus_one_ulp_is_finite():
+    arrays, gt, jcfg = _moved(-1)
+    g_j, _ = js.optimize_hier(
+        jg.PoseGraph(**{k: jnp.asarray(v) for k, v in arrays.items()}), jcfg)
+    err_j = _xy_err(np.asarray(g_j.poses), gt)
+    calls = []
+    dense = tg.optimize
+
+    def spy(g_l, cfg_l, gauge_fallback=False):
+        out = dense(g_l, cfg_l, gauge_fallback=gauge_fallback)
+        calls.append((out[0].poses, dense(g_l, cfg_l)[0].poses))
+        return out
+
+    g = tg.PoseGraph(**{k: torch.tensor(v) for k, v in arrays.items()})
+    with mock.patch.object(ts.se2_graph, "optimize", spy):
+        g_t, chi = ts.optimize_hier(g, to_port(jcfg))
+    out = g_t.poses.numpy()
+    print(f"err port {_xy_err(out, gt):.3e}, JAX {err_j:.3e}")
+    assert np.isfinite(out).all() and np.isfinite(float(chi))
+    assert _xy_err(out, gt) <= 2.0 * err_j
+    # the fallback fired on this input (the level without it is NaN), and
+    # did not change a finite solve
+    assert any(not torch.isfinite(plain).all() for _, plain in calls)
+    for fixed, plain in calls:
+        if torch.isfinite(plain).all():
+            assert torch.equal(fixed, plain)
+
+
+@pytest.mark.parametrize("k", [0, 1])
+def test_coarse_solve_bits_unchanged_where_the_factor_succeeds(k):
+    """The unperturbed and +1-ulp serpentines: the coarse level's dense
+    solve (the first V-cycle's anchor graph) gives the same bits with and
+    without the fallback."""
+    arrays, _, jcfg = _moved(k)
+    cfg = to_port(jcfg)
+    g = tg.PoseGraph(**{k_: torch.tensor(v) for k_, v in arrays.items()})
+    plan = ts.sparse_plan(g, cfg, g.poses.device, hier=True)
+    gc, ccfg = ts._coarse_graph(g, cfg, plan.levels[0])
+    with_fb, chi_fb = tg.optimize(gc, ccfg, gauge_fallback=True)
+    without, chi = tg.optimize(gc, ccfg)
+    assert torch.isfinite(without.poses).all()
+    assert torch.equal(with_fb.poses, without.poses)
+    assert torch.equal(chi_fb, chi)

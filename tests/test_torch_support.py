@@ -1,7 +1,9 @@
 """PyTorch port: its own copies of the JAX package's JAX-free modules
-(slam2d_tpu_torch/config.py, data/synth.py, metrics.py, the numpy SE(2)
-helpers of run/frontend_tiled.py) against the originals, and a scan of
-its sources for imports of the JAX package. Everything here is exact."""
+(slam2d_tpu_torch/config.py, data/synth.py with default_log, metrics.py,
+the numpy SE(2) helpers of run/frontend_tiled.py) against the originals,
+and a scan of its sources, the CLI and its loaders, checkpoints,
+profiling and exports included, for imports of the JAX package.
+Everything here is exact."""
 
 import ast
 import dataclasses
@@ -131,6 +133,27 @@ def test_ate_matches_jax():
         assert ate_rmse(est, gt, align=align) == jax_ate(est, gt, align=align)
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_default_log_matches_jax(seed):
+    """data/synth.default_log, the CLI's `--log synth`: the same world and
+    the same arrays, field for field."""
+    sensor = jcfg.SensorConfig(n_beams=90)
+    jw, ref = jsynth.default_log(sensor, step=0.2, seed=seed)
+    tw, out = tsynth.default_log(to_port(sensor), step=0.2, seed=seed)
+    np.testing.assert_array_equal(tw.segments, jw.segments)
+    assert sorted(out) == sorted(ref)
+    for k in ref:
+        assert out[k].dtype == np.asarray(ref[k]).dtype, k
+        np.testing.assert_array_equal(out[k], np.asarray(ref[k]))
+
+
+PORT_MODULES = (
+    "data/carmen.py", "data/native.py", "data/__init__.py",
+    "utils/checkpoint.py", "utils/metrics_logger.py", "utils/profiling.py",
+    "viz/render.py", "viz/ros_map.py", "viz/video.py", "run/cli.py",
+)
+
+
 def _port_sources():
     files = sorted((ROOT / "slam2d_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
@@ -145,6 +168,8 @@ def test_port_imports_nothing_of_the_jax_package():
     bad = []
     files = _port_sources()
     assert len(files) > 20
+    for m in PORT_MODULES:
+        assert ROOT / "slam2d_tpu_torch" / m in files, m
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
