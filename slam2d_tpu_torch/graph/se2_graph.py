@@ -302,16 +302,8 @@ def assemble_normal_eq(poses, edges_ij, edges_z, edges_omega, edge_mask,
     return H, b, chi.sum()
 
 
-def _gn_iterate(poses, H, b, node_mask, cfg: GraphConfig, K: int,
-                gauge_fallback: bool = False):
-    """One damped Gauss-Newton solve and the masked update.
-
-    With `gauge_fallback`, where the anchored factor fails (its 1e8 prior
-    on node 0 can push the condition of a float32 H past what the factor
-    survives) the system is solved with node 0's three unknowns
-    eliminated instead, the limit of that prior: Hd[3:, 3:] factored and
-    node 0's step 0. The two are selected on the device; where the
-    anchored factor succeeds the step is the one without the flag."""
+def _gn_iterate(poses, H, b, node_mask, cfg: GraphConfig, K: int):
+    """One damped Gauss-Newton solve and the masked update."""
     dev = poses.device
     diag = torch.zeros(3 * K, dtype=torch.float32, device=dev)
     diag[:3] = 1e8                                   # node 0's anchor
@@ -325,12 +317,6 @@ def _gn_iterate(poses, H, b, node_mask, cfg: GraphConfig, K: int,
     # a failed factorization is all NaN, as the JAX package's
     L = torch.where(info == 0, L, torch.full_like(L, torch.nan))
     delta = torch.cholesky_solve((-b)[:, None], L)[:, 0]
-    if gauge_fallback:
-        L0, info0 = torch.linalg.cholesky_ex(Hd[3:, 3:])
-        L0 = torch.where(info0 == 0, L0, torch.full_like(L0, torch.nan))
-        d0 = torch.cholesky_solve((-b[3:])[:, None], L0)[:, 0]
-        delta = torch.where(info == 0, delta,
-                            torch.cat([d0.new_zeros(3), d0]))
     delta = delta.reshape(K, 3) * node_mask[:, None]
     new = poses + delta
     return torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], dim=1)
@@ -343,11 +329,10 @@ def edge_chi2s(poses, g: PoseGraph):
     return g.edge_mask.to(torch.float32) * _quad(e, g.edges_omega)
 
 
-def optimize(g: PoseGraph, cfg: GraphConfig, gauge_fallback: bool = False):
+def optimize(g: PoseGraph, cfg: GraphConfig):
     """Run cfg.gn_iters Gauss-Newton iterations on the graph's device;
     returns (graph with the new poses, chi2 of the last linearization as
-    a 0-d tensor). Reads nothing back to the host. `gauge_fallback`
-    (graph/sparse.py's coarse level only) as in `_gn_iterate`."""
+    a 0-d tensor). Reads nothing back to the host."""
     K = g.poses.shape[0]
     poses = g.poses
     chi = torch.zeros((), dtype=torch.float32, device=poses.device)
@@ -356,6 +341,5 @@ def optimize(g: PoseGraph, cfg: GraphConfig, gauge_fallback: bool = False):
             poses, g.edges_ij, g.edges_z, g.edges_omega, g.edge_mask, K,
             _robust_of(cfg, it),
         )
-        poses = _gn_iterate(poses, H, b, g.node_mask, cfg, K,
-                            gauge_fallback)
+        poses = _gn_iterate(poses, H, b, g.node_mask, cfg, K)
     return g._replace(poses=poses), chi

@@ -18,7 +18,8 @@ stay edge-resident.
 - `optimize_hier`: the recursive V-cycle: the anchor graph (chain
   measurements composed between anchors by a segmented prefix scan over
   SE(2), loop edges re-anchored) solved down to `hier_dense_max` nodes
-  by the dense solver (graph/se2_graph.py), the correction prolonged
+  by the dense solver (graph/se2_graph.py; `_coarse_optimize` adds a
+  fallback where its anchored factor fails), the correction prolonged
   rigidly over each segment, then `optimize_cg` as the polish;
   `sparse_hier_cycles` cycles. As in the JAX package the recursion runs
   on the graph's capacity (K = poses.shape[0]), not its live nodes.
@@ -499,6 +500,48 @@ def _coarse_graph(g: PoseGraph, cfg: GraphConfig, lv: _Level):
     return gc, ccfg
 
 
+def _coarse_iterate(poses, H, b, node_mask, cfg: GraphConfig, K: int):
+    """se2_graph._gn_iterate with one departure from the JAX package:
+    where the anchored factor fails (its 1e8 prior on node 0 can push the
+    condition of a float32 H past what the factor survives), the system
+    is solved with node 0's three unknowns eliminated instead, the limit
+    of that prior: Hd[3:, 3:] factored and node 0's step 0. The two are
+    selected on the device; where the anchored factor succeeds the step
+    is se2_graph._gn_iterate's to the bit."""
+    dev = poses.device
+    diag = torch.zeros(3 * K, dtype=torch.float32, device=dev)
+    diag[:3] = 1e8                                   # node 0's anchor
+    inactive = (~node_mask).repeat_interleave(3).to(torch.float32)
+    diag = diag + cfg.damping + inactive
+    Hd = 0.5 * (H + H.T) + torch.diag(diag)
+    L, info = torch.linalg.cholesky_ex(Hd)
+    L = torch.where(info == 0, L, torch.full_like(L, torch.nan))
+    delta = torch.cholesky_solve((-b)[:, None], L)[:, 0]
+    L0, info0 = torch.linalg.cholesky_ex(Hd[3:, 3:])
+    L0 = torch.where(info0 == 0, L0, torch.full_like(L0, torch.nan))
+    d0 = torch.cholesky_solve((-b[3:])[:, None], L0)[:, 0]
+    delta = torch.where(info == 0, delta, torch.cat([d0.new_zeros(3), d0]))
+    delta = delta.reshape(K, 3) * node_mask[:, None]
+    new = poses + delta
+    return torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], dim=1)
+
+
+def _coarse_optimize(g: PoseGraph, cfg: GraphConfig):
+    """The hierarchy's dense level: se2_graph.optimize with
+    `_coarse_iterate`'s step. Full SLAM's dense solve stays
+    se2_graph.optimize, without the second factor."""
+    K = g.poses.shape[0]
+    poses = g.poses
+    chi = torch.zeros((), dtype=torch.float32, device=poses.device)
+    for it in range(cfg.gn_iters):
+        H, b, chi = se2_graph.assemble_normal_eq(
+            poses, g.edges_ij, g.edges_z, g.edges_omega, g.edge_mask, K,
+            _robust_of(cfg, it),
+        )
+        poses = _coarse_iterate(poses, H, b, g.node_mask, cfg, K)
+    return g._replace(poses=poses), chi
+
+
 def optimize_hier(g: PoseGraph, cfg: GraphConfig,
                   plan: SparsePlan | None = None):
     """Hierarchical Gauss-Newton for large graphs (module docstring): the
@@ -519,9 +562,7 @@ def optimize_hier(g: PoseGraph, cfg: GraphConfig,
         lv = levels[depth]
         if lv.K <= dense_max:
             optimize_hier.stages["dense"] += 1
-            # a departure from the JAX package: where the anchored factor
-            # fails, node 0's unknowns are eliminated (se2_graph._gn_iterate)
-            return se2_graph.optimize(g_l, cfg_l, gauge_fallback=True)
+            return _coarse_optimize(g_l, cfg_l)
         optimize_hier.stages["vcycle"] += 1
         gc, ccfg = _coarse_graph(g_l, cfg_l, lv)
         gc2, chi_c = vcycle(gc, ccfg, depth + 1, top=False)

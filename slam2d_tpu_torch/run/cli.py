@@ -296,12 +296,30 @@ def load_run(args):
     return log, cfg
 
 
+def pf_config(args):
+    """The PFConfig of parsed arguments (fastslam mode)."""
+    from slam2d_tpu_torch.config import PFConfig
+
+    pf_noise = {}
+    if args.pf_noise_xy is not None:
+        pf_noise["noise_xy"] = args.pf_noise_xy
+    if args.pf_noise_theta is not None:
+        pf_noise["noise_theta"] = args.pf_noise_theta
+    return PFConfig(
+        n_particles=args.particles, map_dtype=args.map_dtype,
+        refine_chunk=args.refine_chunk, refine_mode=args.refine_mode,
+        update_mode=args.update_mode,
+        update_theta_slots=args.update_theta_slots,
+        update_qstep_cells=args.update_qstep_cells, **pf_noise,
+    )
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     _check_ported(args)
     device = _device(args.device)
 
-    from slam2d_tpu_torch.config import GraphConfig, PFConfig
+    from slam2d_tpu_torch.config import GraphConfig
 
     log, cfg = load_run(args)
     if args.scan_range is not None:
@@ -426,18 +444,7 @@ def main(argv=None) -> int:
         from slam2d_tpu_torch.pf.fastslam import pf_state_template
         from slam2d_tpu_torch.run.fastslam_run import run_fastslam
 
-        pf_noise = {}
-        if args.pf_noise_xy is not None:
-            pf_noise["noise_xy"] = args.pf_noise_xy
-        if args.pf_noise_theta is not None:
-            pf_noise["noise_theta"] = args.pf_noise_theta
-        pf = PFConfig(
-            n_particles=args.particles, map_dtype=args.map_dtype,
-            refine_chunk=args.refine_chunk, refine_mode=args.refine_mode,
-            update_mode=args.update_mode,
-            update_theta_slots=args.update_theta_slots,
-            update_qstep_cells=args.update_qstep_cells, **pf_noise,
-        )
+        pf = pf_config(args)
         init_state = None
         if args.resume_state:
             init_state = load(pf_state_template(cfg, pf))

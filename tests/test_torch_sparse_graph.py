@@ -329,11 +329,11 @@ def test_coarse_graph_stride_divides_n_nodes():
 # On the 4096-node serpentine with every node's x moved by -1 float32 ulp
 # the anchored factor of the coarse dense level fails (its 1e8 node-0
 # prior puts the anchor graph's condition near 1e13); the level then
-# solves with node 0's unknowns eliminated (se2_graph._gn_iterate's
-# gauge_fallback), a departure from the JAX package, whose LAPACK factor
+# solves with node 0's unknowns eliminated (graph/sparse.py's
+# _coarse_optimize), a departure from the JAX package, whose LAPACK factor
 # of the same matrix succeeds. Held: finite poses, an error at most 2x
 # JAX's; and wherever the anchored factor succeeds, the step bit-equal to
-# the one without the fallback.
+# se2_graph.optimize's.
 
 def _moved(k):
     arrays, gt, est, jcfg = _serpentine(4096, 120)
@@ -350,15 +350,15 @@ def test_optimize_hier_minus_one_ulp_is_finite():
         jg.PoseGraph(**{k: jnp.asarray(v) for k, v in arrays.items()}), jcfg)
     err_j = _xy_err(np.asarray(g_j.poses), gt)
     calls = []
-    dense = tg.optimize
+    coarse = ts._coarse_optimize
 
-    def spy(g_l, cfg_l, gauge_fallback=False):
-        out = dense(g_l, cfg_l, gauge_fallback=gauge_fallback)
-        calls.append((out[0].poses, dense(g_l, cfg_l)[0].poses))
+    def spy(g_l, cfg_l):
+        out = coarse(g_l, cfg_l)
+        calls.append((out[0].poses, tg.optimize(g_l, cfg_l)[0].poses))
         return out
 
     g = tg.PoseGraph(**{k: torch.tensor(v) for k, v in arrays.items()})
-    with mock.patch.object(ts.se2_graph, "optimize", spy):
+    with mock.patch.object(ts, "_coarse_optimize", spy):
         g_t, chi = ts.optimize_hier(g, to_port(jcfg))
     out = g_t.poses.numpy()
     print(f"err port {_xy_err(out, gt):.3e}, JAX {err_j:.3e}")
@@ -375,14 +375,14 @@ def test_optimize_hier_minus_one_ulp_is_finite():
 @pytest.mark.parametrize("k", [0, 1])
 def test_coarse_solve_bits_unchanged_where_the_factor_succeeds(k):
     """The unperturbed and +1-ulp serpentines: the coarse level's dense
-    solve (the first V-cycle's anchor graph) gives the same bits with and
-    without the fallback."""
+    solve (the first V-cycle's anchor graph) gives the same bits through
+    _coarse_optimize as through se2_graph.optimize."""
     arrays, _, jcfg = _moved(k)
     cfg = to_port(jcfg)
     g = tg.PoseGraph(**{k_: torch.tensor(v) for k_, v in arrays.items()})
     plan = ts.sparse_plan(g, cfg, g.poses.device, hier=True)
     gc, ccfg = ts._coarse_graph(g, cfg, plan.levels[0])
-    with_fb, chi_fb = tg.optimize(gc, ccfg, gauge_fallback=True)
+    with_fb, chi_fb = ts._coarse_optimize(gc, ccfg)
     without, chi = tg.optimize(gc, ccfg)
     assert torch.isfinite(without.poses).all()
     assert torch.equal(with_fb.poses, without.poses)
