@@ -1,6 +1,5 @@
 """Block Schur-complement pose-graph solver, port of
-slam2d_tpu/graph/schur.py (all of it but the multi-device
-`optimize_schur_sharded`).
+slam2d_tpu/graph/schur.py.
 
 Nodes are split into contiguous keyframe blocks. Both endpoints of an
 edge that crosses a block boundary are SEPARATORS (node 0, the anchor,
@@ -29,6 +28,11 @@ destination into a padded [U, M] table of sources. Each iteration
 gathers the entries through it and sums each row in one reduction: a
 fixed order, with no sort and no atomics (`index_put_(accumulate=True)`
 sorts its indices at every launch).
+
+`optimize_schur_sharded` splits the block axis over the ranks of a mesh
+(parallel/mesh.py): each rank eliminates its own blocks, S, r, chi2 and
+the interior deltas are summed over the ranks (psum), and the separator
+system is solved on every rank.
 """
 
 from __future__ import annotations
@@ -322,9 +326,12 @@ def _assemble(poses, g: PoseGraph, pt: _PlanTensors, I: int, S: int,
 
 
 def _iteration_core_f32(poses, g: PoseGraph, pt: _PlanTensors, I: int,
-                        S: int, cfg: GraphConfig, robust_delta_eff):
-    """One Gauss-Newton iteration over every block; returns (new poses
-    [K, 3], chi2 of this linearization, a 0-d tensor)."""
+                        S: int, cfg: GraphConfig, robust_delta_eff,
+                        mesh=None):
+    """One Gauss-Newton iteration over every block of `pt`; returns (new
+    poses [K, 3], chi2 of this linearization, a 0-d tensor). With a
+    `mesh`, `pt` holds this rank's blocks and the separator system, the
+    chi2 and the interior deltas are summed over the ranks."""
     robust = (
         None if cfg.robust_kind == "none"
         else (cfg.robust_kind, robust_delta_eff)
@@ -341,6 +348,8 @@ def _iteration_core_f32(poses, g: PoseGraph, pt: _PlanTensors, I: int,
     HbsT = Hbs.transpose(1, 2)
     S_tot = (Hss - HbsT @ HinvB).sum(0)
     r_tot = (bs - (HbsT @ Hinvb)[..., 0]).sum(0)
+    if mesh is not None:
+        S_tot, r_tot, chi = mesh.psum(S_tot), mesh.psum(r_tot), mesh.psum(chi)
 
     # node 0 is always a separator: pin it
     S_tot = 0.5 * (S_tot + S_tot.T) + torch.diag(pt.anchor + cfg.damping)
@@ -351,6 +360,9 @@ def _iteration_core_f32(poses, g: PoseGraph, pt: _PlanTensors, I: int,
     # interiors and separators are disjoint, each id once
     delta = torch.zeros_like(poses)
     delta[pt.int_ids] = db.reshape(-1, 3)[pt.int_pos]
+    if mesh is not None:
+        # each interior is one rank's; the other ranks add 0
+        delta = mesh.psum(delta)
     delta[pt.sep_ids] = ds.reshape(S, 3)
     new = poses + delta
     return (torch.cat([new[:, :2], se2.wrap_angle(new[:, 2:3])], dim=1),
@@ -383,5 +395,52 @@ def optimize_schur(g: PoseGraph, cfg: GraphConfig, n_blocks: int = 4,
             poses, chi = _iteration_core_f32(
                 poses, g, pt, I, plan.n_sep, cfg,
                 np.float32(_host_delta_eff(cfg, it)),
+            )
+    return g._replace(poses=poses), chi
+
+
+def block_slice(plan: SchurPlan, lo: int, hi: int) -> SchurPlan:
+    """The plan of blocks [lo, hi) alone, the same separators."""
+    return plan._replace(**{
+        f: getattr(plan, f)[lo:hi]
+        for f in ("int_ids", "edge_idx", "edge_mask", "ei_slot",
+                  "ei_is_sep", "ej_slot", "ej_is_sep")
+    })
+
+
+def optimize_schur_sharded(g: PoseGraph, cfg: GraphConfig, mesh,
+                           n_blocks: int | None = None,
+                           plan: SchurPlan | None = None):
+    """optimize_schur with the BLOCK axis split over the ranks of `mesh`,
+    the JAX package's optimize_schur_sharded: n_blocks (default the world
+    size; a multiple of it) blocks, rank r eliminating blocks [r * NB /
+    n, (r + 1) * NB / n); S, r, chi2 and the interior deltas are summed
+    over the ranks and the separator solve runs on every rank. Every rank
+    passes the same graph (and `plan`, build_plan(host_graph, n_blocks),
+    built here from `g` when not given) and gets the same poses."""
+    n = mesh.world_size
+    n_blocks = n_blocks or n
+    if n_blocks % n:
+        raise ValueError(f"n_blocks={n_blocks} must be a multiple of the "
+                         f"world size {n}")
+    if plan is None:
+        if _host_int(g.n_nodes) == 0 or _host_int(g.n_edges) == 0:
+            return g, torch.zeros((), dtype=torch.float32,
+                                  device=g.poses.device)
+        plan = build_plan(g, n_blocks)
+    if plan.int_ids.shape[0] != n_blocks:
+        raise ValueError(f"the plan has {plan.int_ids.shape[0]} blocks, "
+                         f"not {n_blocks}")
+    per = n_blocks // n
+    local = block_slice(plan, mesh.rank * per, (mesh.rank + 1) * per)
+    pt = schur_tables(local, g.poses.device)
+    I = plan.int_ids.shape[1]
+    poses = g.poses
+    chi = torch.zeros((), dtype=torch.float32, device=poses.device)
+    with highest_matmul_precision():
+        for it in range(cfg.gn_iters):
+            poses, chi = _iteration_core_f32(
+                poses, g, pt, I, plan.n_sep, cfg,
+                np.float32(_host_delta_eff(cfg, it)), mesh=mesh,
             )
     return g._replace(poses=poses), chi

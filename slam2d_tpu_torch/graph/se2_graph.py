@@ -1,6 +1,5 @@
 """SE(2) pose-graph backend: Gauss-Newton with loop closure, port of
-slam2d_tpu/graph/se2_graph.py (all of it but the multi-device
-`make_optimize_sharded`).
+slam2d_tpu/graph/se2_graph.py.
 
 Edge error e_ij = t2v(Z_ij^-1 (Xi^-1 Xj)). The graph has a static
 capacity: node and edge arrays are [Kmax, ...] and [Emax, ...] with
@@ -23,6 +22,11 @@ the host inside `optimize`.
 
 `HostGraph` builds the graph in numpy on the host (keyframe admission is
 a host event) and copies it to the device once, when a solve runs.
+
+`make_optimize_sharded(cfg, mesh)` splits the edge set over the ranks of
+a mesh (parallel/mesh.py): each rank assembles H, b and chi2 from its own
+slice of the edge slots, a psum adds them, and the dense solve runs on
+every rank.
 """
 
 from __future__ import annotations
@@ -343,3 +347,33 @@ def optimize(g: PoseGraph, cfg: GraphConfig):
         )
         poses = _gn_iterate(poses, H, b, g.node_mask, cfg, K)
     return g._replace(poses=poses), chi
+
+
+def make_optimize_sharded(cfg: GraphConfig, mesh):
+    """Edge-sharded Gauss-Newton, the JAX package's make_optimize_sharded:
+    returns run(g) -> (graph, chi2). Rank r assembles (H, b, chi2) from
+    edge slots [r * E / n, (r + 1) * E / n) (max_edges must divide over
+    the n ranks), the three are summed over the ranks by psum, and the
+    damped solve runs replicated. Every rank passes the same graph and
+    gets the same poses."""
+    n, r = mesh.world_size, mesh.rank
+
+    def run(g: PoseGraph):
+        E = g.edges_ij.shape[0]
+        if E % n:
+            raise ValueError(f"max_edges={E} must divide {n} shards")
+        lo, hi = r * E // n, (r + 1) * E // n
+        K = g.poses.shape[0]
+        poses = g.poses
+        chi = torch.zeros((), dtype=torch.float32, device=poses.device)
+        for it in range(cfg.gn_iters):
+            H, b, chi = assemble_normal_eq(
+                poses, g.edges_ij[lo:hi], g.edges_z[lo:hi],
+                g.edges_omega[lo:hi], g.edge_mask[lo:hi], K,
+                _robust_of(cfg, it),
+            )
+            H, b, chi = mesh.psum(H), mesh.psum(b), mesh.psum(chi)
+            poses = _gn_iterate(poses, H, b, g.node_mask, cfg, K)
+        return g._replace(poses=poses), chi
+
+    return run

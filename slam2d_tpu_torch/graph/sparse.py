@@ -1,6 +1,5 @@
 """Matrix-free SE(2) pose-graph Gauss-Newton for large graphs, port of
-slam2d_tpu/graph/sparse.py (all of it but the multi-device
-`optimize_cg_sharded`).
+slam2d_tpu/graph/sparse.py.
 
 No [3K, 3K] object is made: the odometry chain and every diagonal block
 form a block-tridiagonal SPD matrix T, factored once a Gauss-Newton
@@ -39,6 +38,13 @@ products), another tree than JAX's `associative_scan`, so their sums
 round differently. Everything is float32 with TF32 off ("highest"
 matmul precision, as the JAX package asks for). Nothing is read back to
 the host during a solve; a failed factorization gives NaN.
+
+`optimize_cg_sharded` splits the edge set over the ranks of a mesh
+(parallel/mesh.py): each rank assembles D, O, b and chi2 and applies H
+from its own edge slice, and psum adds them; the preconditioner's loop
+edges are the first `sparse_max_loops` valid ones of every rank's
+candidates, all-gathered, so that it is the same on every rank; the
+factor and the PCG vectors are replicated.
 """
 
 from __future__ import annotations
@@ -140,17 +146,21 @@ def _coarse_basis_np(K: int, Kc: int, stride: int):
 
 
 def _level(edges_ij, edge_mask, n_edges: int, n_nodes: int, K: int,
-           cfg: GraphConfig, with_coarse: bool, device):
+           cfg: GraphConfig, with_coarse: bool, device, loops=None):
     """One level's routing from its host edge list (numpy), and, with
-    `with_coarse`, its anchor graph's edge list and node count."""
+    `with_coarse`, its anchor graph's edge list and node count. `loops`
+    = (li, lj, valid) gives the preconditioner's loop edges by their
+    endpoints instead of the first loop slots of this edge list."""
     stride = cfg.sparse_coarse_stride
     Kc = max(2, -(-K // stride))
     ei = edges_ij[:n_edges, 0].astype(np.int64)
     ej = edges_ij[:n_edges, 1].astype(np.int64)
     idx, valid = _loop_slots_np(edges_ij, edge_mask, cfg.sparse_max_loops)
-    L = len(idx)
     li = edges_ij[idx, 0].astype(np.int64)
     lj = edges_ij[idx, 1].astype(np.int64)
+    if loops is not None:
+        li, lj, valid = loops
+    L = len(li)
     node_of = np.repeat(np.concatenate([li, lj]), 3)
     coord_of = np.tile(np.arange(3), 2 * L)
     uvalid = np.repeat(np.concatenate([valid, valid]), 3).astype(np.float32)
@@ -230,14 +240,15 @@ def _seg(x, table):
 
 
 def _assemble_sparse(poses, g: PoseGraph, robust, damping: float,
-                     lv: _Level):
+                     lv: _Level, mesh=None):
     """(D, O, b, chi, free, (Hii, Hij, Hjj)) of the JAX package's
     `_assemble_sparse`: D [K, 3, 3] the diagonal blocks (every edge's Hii,
     Hjj) + damping, O [K, 3, 3] the chain off-diagonals (O[k] the block
     (k, k+1)), b [K, 3], all projected (clamped nodes: identity diagonal,
     zero couplings and gradient); free [K] float32 is 1 on the nodes the
     solve may move (active, k > 0). The per-edge blocks are those of the
-    routed edges (the slots before n_edges)."""
+    routed edges (the slots before n_edges). With a `mesh`, D, O, b and
+    chi2 are summed over the ranks before the projection."""
     K = poses.shape[0]
     n = lv.n_src
     ij = g.edges_ij[:n]
@@ -252,6 +263,8 @@ def _assemble_sparse(poses, g: PoseGraph, robust, damping: float,
     O = _seg(Hij * fwd, lv.seg_i) + _seg(Hij.transpose(1, 2) * rev, lv.seg_j)
     b = _seg(bi, lv.seg_i) + _seg(bj, lv.seg_j)
     chi = chi.sum()
+    if mesh is not None:
+        D, O, b, chi = (mesh.psum(x) for x in (D, O, b, chi))
     eye = torch.eye(3, dtype=torch.float32, device=dev)
     f3 = free[:, None, None]
     D = f3 * (D + damping * eye) + (1.0 - f3) * eye
@@ -294,9 +307,10 @@ def _tridiag_apply(Cinv, O, r):
 
 
 def _make_matvec(g: PoseGraph, Hii, Hij, Hjj, free, damping: float,
-                 lv: _Level):
+                 lv: _Level, mesh=None):
     """Matrix-free projected H V for V [K, 3] or [K, 3, N]: clamped nodes
-    act as identity rows."""
+    act as identity rows. With a `mesh` the edges' products are summed
+    over the ranks."""
     n = lv.n_src
     ei = g.edges_ij[:n, 0].to(torch.int64)
     ej = g.edges_ij[:n, 1].to(torch.int64)
@@ -311,6 +325,8 @@ def _make_matvec(g: PoseGraph, Hii, Hij, Hjj, free, damping: float,
         yi = Hii @ vi + Hij @ vj
         yj = HijT @ vi + Hjj @ vj
         y = _seg(yi, lv.seg_i) + _seg(yj, lv.seg_j)
+        if mesh is not None:
+            y = mesh.psum(y)
         y = (y + damping * vm) * fm
         y = y + (1.0 - fm) * V
         return y[..., 0] if single else y
@@ -403,14 +419,16 @@ def _pcg(matvec, precond, b, iters: int):
     return x, torch.sqrt(dot(r, r))
 
 
-def _optimize_cg_level(g: PoseGraph, cfg: GraphConfig, lv: _Level):
+def _optimize_cg_level(g: PoseGraph, cfg: GraphConfig, lv: _Level,
+                       mesh=None):
     poses = g.poses
     chi = torch.zeros((), dtype=torch.float32, device=poses.device)
     for it in range(cfg.gn_iters):
         D, O, b, chi, free, (Hii, Hij, Hjj) = _assemble_sparse(
-            poses, g, _robust_of(cfg, it), cfg.damping, lv)
+            poses, g, _robust_of(cfg, it), cfg.damping, lv, mesh)
         Cinv = tridiag_factor(D, O)
-        matvec = _make_matvec(g, Hii, Hij, Hjj, free, cfg.damping, lv)
+        matvec = _make_matvec(g, Hii, Hij, Hjj, free, cfg.damping, lv,
+                              mesh)
         precond = _make_two_level(g, Cinv, O, matvec, free, lv)
         delta, _ = _pcg(matvec, precond, -b, cfg.sparse_cg_iters)
         new = poses + delta * free[:, None]
@@ -583,3 +601,67 @@ def optimize_hier(g: PoseGraph, cfg: GraphConfig,
 
 
 optimize_hier.stages = {"dense": 0, "vcycle": 0, "polish": 0}
+
+
+def sharded_cg_plan(g, cfg: GraphConfig, mesh) -> tuple:
+    """(this rank's edge slice (lo, hi) of the padded edge capacity, its
+    SparsePlan): the level routed over the slice's slots, the
+    preconditioner's loop edges the first sparse_max_loops valid of every
+    rank's candidates (each rank's first loop slots of its slice, one
+    all_gather), as the JAX package keeps them. `g` is a HostGraph or a
+    PoseGraph (its edge list is read back), the same on every rank."""
+    edges_ij, edge_mask, n_nodes, _ = _host_graph_arrays(g)
+    n = mesh.world_size
+    E = len(edges_ij)
+    El = -(-E // n)
+    lo = mesh.rank * El
+    ij = np.zeros((El, 2), np.int32)
+    m = np.zeros(El, bool)
+    take = max(0, min(E, lo + El) - lo)
+    ij[:take] = edges_ij[lo : lo + take]
+    m[:take] = edge_mask[lo : lo + take]
+    idx, valid = _loop_slots_np(ij, m, cfg.sparse_max_loops)
+    cand = np.stack([ij[idx, 0], ij[idx, 1], valid], 1).astype(np.int64)
+    every = mesh.all_gather(torch.as_tensor(cand, device=mesh.device),
+                            tiled=True).cpu().numpy()
+    M = len(every)
+    order = np.argsort(np.where(every[:, 2] > 0, 0, 1) * (M + 1)
+                       + np.arange(M), kind="stable")[: cfg.sparse_max_loops]
+    loops = (every[order, 0], every[order, 1], every[order, 2] > 0)
+    lv = _level(ij, m, El, n_nodes, g.poses.shape[0], cfg, False,
+                mesh.device, loops=loops)
+    return (lo, lo + take, El), SparsePlan(levels=(lv,))
+
+
+def optimize_cg_sharded(g: PoseGraph, cfg: GraphConfig, mesh,
+                        plan: tuple | None = None):
+    """optimize_cg with the EDGE set split over the ranks of `mesh`, the
+    JAX package's optimize_cg_sharded: the edge capacity padded to a
+    multiple of the world size with masked slots, rank r assembling and
+    applying H from its slice, psum reducing (module docstring). Every
+    rank passes the same graph (and `plan`, sharded_cg_plan of it, built
+    here when not given) and gets the same poses; returns (graph with the
+    caller's edge capacity, chi2). The sums' order differs from
+    optimize_cg's, so the two agree to rounding."""
+    if plan is None:
+        plan = sharded_cg_plan(g, cfg, mesh)
+    (lo, hi, El), sp = plan
+    dev = g.poses.device
+
+    def part(x, fill_shape):
+        x = x[lo:hi]
+        pad = El - x.shape[0]
+        if pad:
+            x = torch.cat([x, torch.zeros((pad,) + fill_shape,
+                                          dtype=x.dtype, device=dev)])
+        return x
+
+    g_l = g._replace(
+        edges_ij=part(g.edges_ij, (2,)), edges_z=part(g.edges_z, (3,)),
+        edges_omega=part(g.edges_omega, (3, 3)),
+        edge_mask=part(g.edge_mask, ()),
+        n_edges=torch.tensor(El, dtype=torch.int32, device=dev),
+    )
+    with highest_matmul_precision():
+        out, chi = _optimize_cg_level(g_l, cfg, sp.levels[0], mesh)
+    return g._replace(poses=out.poses), chi

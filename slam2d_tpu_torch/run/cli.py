@@ -14,10 +14,19 @@ metrics.json and metrics.jsonl (map.png with --save-viz). The metrics
 are printed as one JSON line.
 
 Everything runs on --device (default "cuda"); without a card it raises
-unless --device cpu is given. Three options of the JAX CLI are
-not ported and raise: --shard and --optimizer schur_sharded (multi-device,
-ROADMAP queue 1 item 10) and --score-impl mxu|mxu_int8|emx|cmx (TPU
-workarounds, ROADMAP queue 1 "Not ported on purpose").
+unless --device cpu is given. --score-impl mxu|mxu_int8|emx|cmx (TPU
+workarounds, ROADMAP queue 1 "Not ported on purpose") raise.
+
+Multi-device (parallel/mesh.py): `--mode fastslam --shard` splits the
+particles over the ranks, `--mode full --optimizer schur_sharded` the
+Schur solver's blocks. Under torchrun the CLI joins that world (NCCL,
+one rank a card):
+
+    torchrun --nproc-per-node 4 -m slam2d_tpu_torch.run.cli --mode fastslam --shard ...
+
+otherwise it spawns one rank per visible card (NCCL), or with --device
+cpu runs one gloo rank. Every rank runs the pipeline; rank 0 alone
+writes the outputs and prints.
 """
 
 from __future__ import annotations
@@ -53,8 +62,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "visible devices, matrix-free two-level PCG "
                         "(no dense H — large graphs), or hierarchical "
                         "anchor-graph + PCG polish (largest graphs); "
-                        "overrides --schur. schur_sharded is not ported "
-                        "yet and raises")
+                        "overrides --schur")
     p.add_argument("--log", required=True,
                    help="CARMEN .log/.clf, preprocessed .json, or 'synth'")
     p.add_argument("--map", default=None,
@@ -100,8 +108,7 @@ def build_parser() -> argparse.ArgumentParser:
     # pf
     p.add_argument("--particles", type=int, default=32)
     p.add_argument("--shard", action="store_true",
-                   help="shard particles over all visible devices (not "
-                        "ported yet: raises)")
+                   help="shard particles over all visible devices")
     p.add_argument("--map-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="per-particle map storage dtype (fastslam mode)")
@@ -218,16 +225,6 @@ _TPU_SCORERS = ("mxu", "mxu_int8", "emx", "cmx")
 
 def _check_ported(args) -> None:
     """Raise SystemExit for the JAX CLI's options the port lacks."""
-    if args.shard:
-        raise SystemExit(
-            "--shard needs multi-device particle sharding, not ported yet "
-            "(ROADMAP queue 1 item 10)"
-        )
-    if args.optimizer == "schur_sharded":
-        raise SystemExit(
-            "--optimizer schur_sharded needs the mesh-sharded Schur "
-            "solver, not ported yet (ROADMAP queue 1 item 10)"
-        )
     if args.score_impl in _TPU_SCORERS:
         raise SystemExit(
             f"--score-impl {args.score_impl} is a TPU workaround, not ported "
@@ -314,12 +311,52 @@ def pf_config(args):
     )
 
 
+def _sharded(args) -> bool:
+    """Whether the run splits over the ranks of a mesh."""
+    return ((args.mode == "fastslam" and args.shard)
+            or (args.mode == "full" and args.optimizer == "schur_sharded"))
+
+
+def _rank_main(mesh, argv) -> int:
+    """One rank of a spawned world: the run on the rank's device."""
+    return _run(build_parser().parse_args(argv), mesh.device, mesh)
+
+
 def main(argv=None) -> int:
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     _check_ported(args)
     device = _device(args.device)
+    if not _sharded(args):
+        return _run(args, device, None)
+    if args.save_video and args.mode == "fastslam":
+        raise SystemExit(
+            "--save-video supports frontend/fastslam/full non-tiled, "
+            "non-sharded runs"
+        )
+    from slam2d_tpu_torch.parallel import mesh as pmesh
 
+    cpu = device.type == "cpu"
+    backend = "gloo" if cpu else "nccl"
+    if pmesh.in_torchrun():
+        mesh = pmesh.from_env(backend, device if cpu else None)
+        try:
+            return _run(args, mesh.device, mesh)
+        finally:
+            pmesh.leave(mesh)
+    world = 1 if cpu else torch.cuda.device_count()
+    return pmesh.spawn(_rank_main, world, backend, device if cpu else None,
+                       args=(argv,))[0]
+
+
+def _run(args, device, mesh) -> int:
+    """The run of parsed arguments on `device`; with a `mesh`, this rank's
+    part of a sharded run (rank 0 writes the outputs and prints)."""
     from slam2d_tpu_torch.config import GraphConfig
+
+    lead = mesh is None or mesh.rank == 0
 
     log, cfg = load_run(args)
     if args.scan_range is not None:
@@ -335,7 +372,7 @@ def main(argv=None) -> int:
         )
 
     recorder = None
-    if args.save_video:
+    if args.save_video and lead:
         if args.tiled:
             raise SystemExit(
                 "--save-video supports frontend/fastslam/full non-tiled runs"
@@ -350,7 +387,7 @@ def main(argv=None) -> int:
             recorder.set_ground_truth(log["gt_poses"])
 
     def save(state):
-        if args.save_state:
+        if args.save_state and lead:
             from slam2d_tpu_torch.utils.checkpoint import save_state
 
             save_state(args.save_state, state)
@@ -448,13 +485,24 @@ def main(argv=None) -> int:
         init_state = None
         if args.resume_state:
             init_state = load(pf_state_template(cfg, pf))
-        state, traj, n_eff, scores = run_fastslam(
-            log, cfg, pf, device, seed=args.seed, state=init_state,
-            frame_cb=recorder.add if recorder else None,
-        )
-        save(state)
-        best = int(torch.argmax(state.log_w))
-        grid = state.logodds[best]
+        if args.shard:
+            from slam2d_tpu_torch.pf.sharded import best_map, gather_state
+            from slam2d_tpu_torch.run.sharded_run import run_sharded_fastslam
+
+            state, traj, n_eff, scores = run_sharded_fastslam(
+                log, cfg, pf, seed=args.seed, mesh=mesh, state=init_state,
+            )
+            if args.save_state:
+                save(gather_state(state, mesh))
+            grid = best_map(state, mesh)
+        else:
+            state, traj, n_eff, scores = run_fastslam(
+                log, cfg, pf, device, seed=args.seed, state=init_state,
+                frame_cb=recorder.add if recorder else None,
+            )
+            save(state)
+            best = int(torch.argmax(state.log_w))
+            grid = state.logodds[best]
         extra["mean_n_eff"] = float(np.mean(n_eff))
     else:  # full
         overrides = {
@@ -485,6 +533,7 @@ def main(argv=None) -> int:
             res = run_full_slam_tiled(
                 log, cfg, tile_cfg(), gcfg, optimizer=optimizer,
                 resume=resume, scan_index_offset=offset, device=device,
+                mesh=mesh,
             )
             extra["tiled"] = True
         else:
@@ -499,6 +548,7 @@ def main(argv=None) -> int:
                 log, cfg, gcfg, optimizer=optimizer, resume=resume,
                 scan_index_offset=offset,
                 frame_cb=recorder.add if recorder else None, device=device,
+                mesh=mesh,
             )
         save(res.ckpt)
         traj, grid = res.traj, res.grid
@@ -546,6 +596,8 @@ def main(argv=None) -> int:
             metrics["relations_used"] = rr["n_used"]
             metrics["relations_total"] = rr["n_total"]
 
+    if not lead:
+        return 0
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         np.save(os.path.join(args.out, "trajectory.npy"), traj)

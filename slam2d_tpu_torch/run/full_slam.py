@@ -35,9 +35,12 @@ Device-to-host reads of this module go through `fetch` and are counted in
 The frontend writes its map in place (grid/window.py), so every map this
 module keeps beside the live one is a copy: the rebuilder's cached prefix
 (copied when cached and when replayed from), the map handed to `frame_cb`
-and the checkpoint's frontend state. Every single-device optimizer of
-the JAX package runs ("dense", "schur", "sparse", "hier" and "auto");
-"schur_sharded" raises NotImplementedError.
+and the checkpoint's frontend state. Every optimizer of the JAX package
+runs ("dense", "schur", "schur_sharded", "sparse", "hier" and "auto").
+Under "schur_sharded" every rank of a mesh (parallel/mesh.py) runs the
+whole loop; before each solve rank 0 broadcasts a header (the keyframe and
+edge counts) and then the graph, so that every rank solves the same
+bits, and a rank whose header differs raises.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from slam2d_tpu_torch.grid.window import (
     update_window_cells,
     write_window,
 )
+from slam2d_tpu_torch.parallel import mesh as pmesh
 from slam2d_tpu_torch.match.correlative import (
     build_search_space,
     match_scan,
@@ -88,10 +92,6 @@ from slam2d_tpu_torch.run.frontend_tiled import (
 # keyframe counts up to which optimizer="auto" runs the dense solver; above
 # it, as the JAX package, the hierarchical one (graph/sparse.py)
 DENSE_MAX_KEYFRAMES = 1024
-_NOT_PORTED = {
-    "schur_sharded": "graph/schur.py's optimize_schur_sharded and "
-                     "multi-device (ROADMAP queue 1 item 10)",
-}
 SCHUR_BLOCKS = 4   # the JAX package's n_blocks for optimizer="schur"
 
 # Opt-in accept-path phase profiler: a utils/profiling.PhaseTimer, or None
@@ -110,15 +110,50 @@ def _accept_phase(name: str):
     return ACCEPT_TIMER.phase(name)
 
 
+OPTIMIZERS = ("auto", "dense", "schur", "schur_sharded", "sparse", "hier")
+
+
 def _check_optimizer(optimizer: str) -> None:
-    if optimizer in _NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer={optimizer!r} needs {_NOT_PORTED[optimizer]}, which "
-            "is not ported yet; the port runs 'dense', 'schur', 'sparse', "
-            "'hier' and 'auto'"
-        )
-    if optimizer not in ("auto", "dense", "schur", "sparse", "hier"):
+    if optimizer not in OPTIMIZERS:
         raise ValueError(f"unknown optimizer {optimizer!r}")
+
+
+def solve_mesh(mesh, device):
+    """The mesh of "schur_sharded": `mesh`, else the one this process
+    joined, else a world of one rank on `device` (the JAX package's mesh
+    over every visible device of a one-device process)."""
+    mesh = mesh or pmesh.joined()
+    if mesh is not None:
+        return mesh
+    dev = torch.device(device)
+    return pmesh.Mesh(0, 1, dev, "nccl" if dev.type == "cuda" else "gloo")
+
+
+def agree_graph(host, mesh):
+    """`host` (a HostGraph) as rank 0 holds it, on every rank: rank 0
+    broadcasts a header of its node and edge counts, which every rank
+    checks against its own (a rank whose header differs raises), then
+    the graph's arrays. Returns a HostGraph of rank 0's bits (`host`
+    itself in a world of one)."""
+    if mesh.world_size == 1:
+        return host
+    dev = mesh.device
+    mine = torch.tensor([host.n_nodes, host.n_edges], dtype=torch.int64,
+                        device=dev)
+    head = mesh.broadcast(mine, 0)
+    if not torch.equal(head, mine):
+        raise RuntimeError(
+            f"rank {mesh.rank}: graph header {mine.tolist()} differs from "
+            f"rank 0's {head.tolist()}: the ranks' runs diverged")
+    out = copy.copy(host)
+    for name in ("poses", "node_mask", "edges_ij", "edges_z", "edges_omega",
+                 "edge_mask"):
+        a = getattr(host, name)
+        t = torch.as_tensor(a.astype(np.uint8) if a.dtype == bool else a,
+                            device=dev)
+        b = mesh.broadcast(t, 0).cpu().numpy()
+        setattr(out, name, b.astype(bool) if a.dtype == bool else b)
+    return out
 
 
 def fetch(*tensors):
@@ -477,8 +512,9 @@ class LoopCloser:
                  ranges_np, traj_out, optimizer, loop_edge_info,
                  scan_index_offset, apply_correction, loop_records,
                  n_loops=0, chi2=0.0, cache_anchor=-1, defer_accept=True,
-                 device="cuda", plain=False):
+                 device="cuda", plain=False, mesh=None):
         self.cfg = cfg
+        self.mesh = mesh
         self.gcfg = graph_cfg
         self.hw = submap_halfwidth
         self.graph = graph
@@ -740,7 +776,7 @@ class LoopCloser:
             # solve again from the solved iterate only when something was
             # pruned (with GNC a warm re-solve is not a no-op); never
             # under "schur"
-            if optimizer != "schur":
+            if optimizer not in ("schur", "schur_sharded"):
                 # the flags in one read (the sparse solvers plan the
                 # re-solve's topology from them on the host)
                 pruned = fetch(prune)[0]
@@ -764,6 +800,17 @@ class LoopCloser:
             return schur.optimize_schur(
                 dev_graph, gcfg, SCHUR_BLOCKS,
                 plan=schur.build_plan(host, SCHUR_BLOCKS))
+        if optimizer == "schur_sharded":
+            mesh = solve_mesh(self.mesh, self.device)
+            # no re-solve runs under "schur_sharded" (as under "schur"):
+            # the graph solved is the HostGraph as rank 0 holds it
+            host = agree_graph(host, mesh)
+            if mesh.world_size > 1:
+                dev_graph = host.to_device(self.device)
+            n_blocks = mesh.world_size
+            return schur.optimize_schur_sharded(
+                dev_graph, gcfg, mesh, n_blocks,
+                plan=schur.build_plan(host, n_blocks))
         if optimizer in ("sparse", "hier"):
             hier = optimizer == "hier"
             plan = sparse.sparse_plan(host, gcfg, self.device, hier=hier)
@@ -887,7 +934,7 @@ class HostLoop:
                  ranges_np, optimizer, odom_edge_info, loop_edge_info,
                  scan_index_offset, apply_correction, resume=None,
                  defer_accept=True, frame_cb=None, device="cuda",
-                 plain=False):
+                 plain=False, mesh=None):
         self.gcfg = graph_cfg
         self.ranges_np = ranges_np
         self.offset = scan_index_offset
@@ -926,7 +973,7 @@ class HostLoop:
             loop_edge_info, scan_index_offset, apply_correction,
             self.loop_records, n_loops=n_loops, chi2=chi2,
             cache_anchor=cache_anchor, defer_accept=defer_accept,
-            device=device, plain=plain,
+            device=device, plain=plain, mesh=mesh,
         )
         self.emitted_upto = -1   # last traj_out row written (run-local)
         self.est = None          # pose after the last processed chunk
@@ -1082,6 +1129,7 @@ def run_full_slam(
     defer_accept: bool = True,
     device="cuda",
     plain: bool = False,
+    mesh=None,
 ):
     """Run full SLAM over a host-side log {odom, ranges} on `device`.
     Returns a FullSLAMResult.
@@ -1093,8 +1141,12 @@ def run_full_slam(
     optimizer: "dense" (one Cholesky over all keyframes), "schur"
     (keyframe blocks eliminated, graph/schur.py, 4 blocks), "sparse"
     (matrix-free PCG, graph/sparse.py:optimize_cg), "hier" (the V-cycle,
-    optimize_hier) or "auto" (dense up to DENSE_MAX_KEYFRAMES keyframes,
-    hier beyond); "schur_sharded" raises NotImplementedError.
+    optimize_hier), "auto" (dense up to DENSE_MAX_KEYFRAMES keyframes,
+    hier beyond) or "schur_sharded" (the blocks split over the ranks of
+    `mesh`, one block a rank: graph/schur.py's optimize_schur_sharded;
+    every rank runs this function on its own device, `device` the mesh's;
+    `mesh` None takes the mesh this process joined, else a world of one
+    rank on `device`).
 
     resume: a previous run's `ckpt` (or numpy arrays of
     fullslam_ckpt_template's schema) to continue from, with
@@ -1157,7 +1209,7 @@ def run_full_slam(
         cfg, graph_cfg, loop_matcher or default_loop_matcher(graph_cfg),
         submap_halfwidth, ranges_np, optimizer, odom_edge_info,
         loop_edge_info, scan_index_offset, apply_correction, resume,
-        defer_accept, frame_cb, device, plain,
+        defer_accept, frame_cb, device, plain, mesh=mesh,
     )
     (host.est,) = fetch(state.pose)
     # the host loop over chunks: run chunk c, then process chunk c-1 and

@@ -332,14 +332,15 @@ def run_full_slam_tiled(
     defer_accept: bool = True,
     device="cuda",
     plain: bool = False,
+    mesh=None,
 ):
     """Run full SLAM on the tiled world over a host-side log {odom,
     ranges} on `device`; returns a FullSLAMResult whose `grid` is the
     log-odds TiledGrid (grid/tiles.stitch_tiles makes it one array).
 
-    optimizer: "dense", "schur" (graph/schur.py, 4 blocks) or "auto"
-    (dense up to full_slam.DENSE_MAX_KEYFRAMES keyframes); the JAX
-    package's other solvers raise NotImplementedError. resume /
+    optimizer: any of run_full_slam's ("dense", "schur" with 4 blocks,
+    "schur_sharded" over the ranks of `mesh` as there, "sparse", "hier",
+    "auto": dense up to full_slam.DENSE_MAX_KEYFRAMES keyframes). resume /
     scan_index_offset: continue from a previous run's `ckpt` (or numpy
     arrays of fullslam_tiled_ckpt_template's schema), as in run_full_slam;
     the resumed state is copied. `plain=True` runs every kernel's plain
@@ -401,7 +402,7 @@ def run_full_slam_tiled(
         cfg, graph_cfg, loop_matcher or default_loop_matcher(graph_cfg),
         submap_halfwidth, ranges_np, optimizer, odom_edge_info,
         loop_edge_info, scan_index_offset, apply_correction, resume,
-        defer_accept, device=device, plain=plain,
+        defer_accept, device=device, plain=plain, mesh=mesh,
     )
     host.est, host.base = fetch(state.pose, state.prev_odom)
     # the host loop over chunks: activate chunk c's tiles from the

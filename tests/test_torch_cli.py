@@ -12,7 +12,8 @@ FastSLAM, whose random streams differ, to the JAX CLI test's bounds
 --save-state/--resume-state equal to the single run (frontend 1e-4 and
 full SLAM 1e-3 after the cut, tests/test_resume.py's tolerances); the
 outputs written (trajectory, map, grid.json, the ROS pair, metrics,
-map.png, a GIF); the options that are not ported raise.
+map.png, a GIF); the TPU scorer workarounds, which are not ported,
+raise.
 """
 
 import json
@@ -223,7 +224,6 @@ def test_carmen_and_json_logs_with_relations(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--shard"], ["--optimizer", "schur_sharded"],
     ["--score-impl", "mxu"], ["--score-impl", "mxu_int8"],
     ["--score-impl", "emx"], ["--score-impl", "cmx"],
 ])

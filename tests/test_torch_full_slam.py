@@ -360,13 +360,6 @@ def test_loop_prune_as_jax(optimizer):
                                atol=1e-6)
 
 
-@pytest.mark.parametrize("optimizer", ["schur_sharded"])
-def test_unported_optimizers_raise(optimizer):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfs.run_full_slam(_log(), to_port(CFG), to_port(GCFG),
-                          optimizer=optimizer, device=CPU)
-
-
 def test_auto_switches_to_hier_past_dense_keyframes(monkeypatch):
     """optimizer="auto" runs the dense solver up to DENSE_MAX_KEYFRAMES
     keyframes and the hierarchical one past it, as the JAX package does

@@ -308,10 +308,3 @@ def test_split_run_matches_single_run():
     np.testing.assert_allclose(res_b.kf_poses, full.kf_poses, atol=1e-3)
     np.testing.assert_allclose(res_b.traj, full.traj[cut:], atol=1e-3)
     np.testing.assert_array_equal(saved["frontend"].grid.tiles, keep)
-
-
-@pytest.mark.parametrize("optimizer", ["schur_sharded"])
-def test_unported_optimizers_raise(optimizer):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tfst.run_full_slam_tiled(_log(), to_port(CFG), TTCFG, to_port(GCFG),
-                                 optimizer=optimizer, device=CPU)
