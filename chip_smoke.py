@@ -253,18 +253,21 @@ Phases, each of which raises on failure:
    rank, ATE within PF_MAX_ATE_M, at least one ring hop, the bytes staged
    a scan; the modes pinned per particle, held to the single-device run
    by the PF run gates (MD_RUN_*); (c) the first 8 heavy steps after the
-   bootstrap also through the plain versions on the same inputs (poses
-   2e-4, 0.05% of cells); (d) run_sharded_tiled_frontend at
-   tiled_bench_config, 1 rank (NCCL, 2048 scans) and 4 ranks (gloo, 1024
-   scans), against phase 13's trajectory (5e-3; the bits are printed);
+   bootstrap, and then the first whose resample takes a ring hop, also
+   through the plain versions on the same inputs (poses 2e-4, 0.05% of
+   cells); (d) run_sharded_tiled_frontend at tiled_bench_config, 1 rank
+   (NCCL, 2048 scans) and 4 ranks (gloo, 1024 scans), against phase 13's
+   trajectory (5e-3; the bits are printed), and 4 ranks on a pool of 16
+   slots whose tiles span two ranks, held to phase 13's bits;
    (e) the three sharded solvers at 4 ranks: the edge-sharded dense and
    the Schur solve on phase 15's final graph against the dense solve
    (5e-3), optimize_cg_sharded on it against optimize_cg (1e-3) and on
-   phase 19's 4096-node serpentine (its error at most 2x optimize_cg's);
+   phase 19's 4096-node serpentine against optimize_cg (1e-2 m, its
+   error within 1% of optimize_cg's);
    (f) the CLI's --shard at FastSLAM-100 and --mode full --optimizer
    schur_sharded, one rank a card through its spawn path; (g)
-   dryrun_multichip(4) over gloo on the card; (h) NCCL across
-   min(4, cards) cards, or a line saying it was skipped, and what NCCL
+   dryrun_multichip(4) over gloo on the card (four ranks share it);
+   (h) NCCL across min(4, cards) cards, or a line saying it was skipped, and what NCCL
    does with two ranks on one card. The four-rank parts run in one world
    of spawned processes; each rank's kernel launches are counted against
    its decisions.
@@ -4220,8 +4223,13 @@ def run_sparse_hier_fullslam(cfg, gcfg, log, device):
 MD_RANKS = 4              # (b), (d), (e), (g): ranks sharing the card (gloo)
 MD_SCANS = 512            # (b): the first 512 scans of bench_pf's log
 MD_PLAIN_STEPS = 8        # (c): heavy steps after the bootstrap, plain too
+#                           (and then the first whose resample takes a hop)
 MD_TILED_SCANS = 1024     # (d): the 4-rank tiled run's scans (16 chunks)
 MD_TILED_SCANS_1 = 2048   # (d): the 1-rank tiled run's scans (32 chunks)
+# (d): a second 4-rank run on a pool of 16 slots, 4 a rank, so that the 8
+# tiles the first MD_TILED_SCANS activate span two ranks and the window
+# gather's psum merges pieces of two owners
+MD_SPREAD_SLOTS = 16
 MD_TIMEOUT_S = 300        # a collective's wait, and 4x it a whole run
 # (b): four ranks sum the weights' partials in another order than one, and
 # the filter amplifies the last bits (through near-tied argmaxes and the
@@ -4230,6 +4238,12 @@ MD_TIMEOUT_S = 300        # a collective's wait, and 4x it a whole run
 # within 0.03 m of the one-rank port's run of the same config
 MD_RUN_TRAJ_TOL_M = 0.25
 MD_RUN_ATE_TOL_M = 0.03
+# (e): optimize_cg_sharded on the 4096-node serpentine against the
+# single-device optimize_cg (which does not converge there: 2.098 m of
+# error against odometry's 3.368 m), from the readings of 2.77e-3 m and
+# an error ratio of 1.0001: an unsolved graph lies metres off
+MD_SERP_CG_TOL_M = 1e-2
+MD_SERP_CG_ERR_RATIO = 1.01
 # (f): the CLI's FastSLAM-100 and full SLAM runs of phase 21, split
 MD_CLI_PF = ["--log", "synth", "--gt-ate", "--mode", "fastslam",
              "--particles", "100", "--shard"]
@@ -4342,10 +4356,12 @@ def _md_expected(cfg, pf, r, ranks):
 
 def _md_plain_steps(mesh, log, cfg, pf, seed, n_steps):
     """(c): sharded_step over the log until `n_steps` heavy steps after the
-    bootstrap have run, each of those also from a copy of the same state
-    with the same draws through every kernel's plain version: the worst
-    pose difference of this rank's particles and the share of its map
-    cells that differ."""
+    bootstrap, and at least one heavy step whose resample moved maps
+    through the ring (d_max >= 1), have run, each of those also from a
+    copy of the same state with the same draws through every kernel's
+    plain version: the worst pose difference of this rank's particles,
+    the share of its map cells that differ, and the ring hops both
+    versions ran. Raises if the log ends first."""
     dev = mesh.device
     odom = torch.as_tensor(np.asarray(log["odom"], np.float32), device=dev)
     ranges = torch.as_tensor(np.asarray(log["ranges"], np.float32),
@@ -4359,46 +4375,75 @@ def _md_plain_steps(mesh, log, cfg, pf, seed, n_steps):
     gen.manual_seed(seed)
     _, ne = sharded._global_log_normalize(state.log_w, mesh)
     worst_pose, worst_cells, worst_best, done = 0.0, 0.0, 0.0, 0
+    ring_steps, ring_hops, ring_d_max = 0, 0, []
+    ring = sharded.ring_exchange
     for t in range(len(odom_np)):
         r, u_, b = (bool(x) for x in flags[t])
         noise = (torch.randn((pf.n_particles, 3), generator=gen, device=dev)
                  if r or b else None)
         u = torch.rand((), generator=gen, device=dev) if r else None
         kw = dict(gates=flags[t], n_eff=ne, noise=noise, u=u)
-        if (r or u_) and not b:
-            copy = fastslam.PFState(*(x.clone() for x in state))
-            plain, (bp_p, _, _, _) = sharded.sharded_step(
-                copy, odom[t], ranges[t], cfg, pf, mesh, plain=True, **kw)
-            state, (bp, _, _, ne) = sharded.sharded_step(
-                state, odom[t], ranges[t], cfg, pf, mesh, **kw)
-            dxy, dth = _pose_errors(state.poses.cpu().numpy(),
-                                    plain.poses.cpu().numpy())
-            bxy, bth = _pose_errors(bp.cpu().numpy()[None],
-                                    bp_p.cpu().numpy()[None])
-            cells = float((state.logodds != plain.logodds).float().mean())
-            worst_pose = max(worst_pose, dxy, dth)
-            worst_best = max(worst_best, bxy, bth)
-            worst_cells = max(worst_cells, cells)
-            done += 1
-            if done == n_steps:
-                break
-        else:
+        if not ((r or u_) and not b):
             state, (_, _, _, ne) = sharded.sharded_step(
                 state, odom[t], ranges[t], cfg, pf, mesh, **kw)
+            continue
+        # the kernels' step first; past the first n_steps the plain
+        # version runs only where the resample took a ring hop (every
+        # rank takes the same branch: d_max is a pmax)
+        copy = fastslam.PFState(*(x.clone() for x in state))
+        h0, d0 = ring.hops, len(ring.d_max)
+        state, (bp, _, _, ne_next) = sharded.sharded_step(
+            state, odom[t], ranges[t], cfg, pf, mesh, **kw)
+        hops = ring.hops - h0
+        if done >= n_steps and hops == 0:
+            ne = ne_next
+            continue
+        d_max = ring.d_max[d0:]
+        h1 = ring.hops
+        plain, (bp_p, _, _, _) = sharded.sharded_step(
+            copy, odom[t], ranges[t], cfg, pf, mesh, plain=True, **kw)
+        if ring.hops - h1 != hops:
+            raise AssertionError(f"22c: {hops} ring hops with the kernels, "
+                                 f"{ring.hops - h1} plain")
+        ne = ne_next
+        dxy, dth = _pose_errors(state.poses.cpu().numpy(),
+                                plain.poses.cpu().numpy())
+        bxy, bth = _pose_errors(bp.cpu().numpy()[None],
+                                bp_p.cpu().numpy()[None])
+        cells = float((state.logodds != plain.logodds).float().mean())
+        worst_pose = max(worst_pose, dxy, dth)
+        worst_best = max(worst_best, bxy, bth)
+        worst_cells = max(worst_cells, cells)
+        done += 1
+        if hops:
+            ring_steps += 1
+            ring_hops += hops
+            ring_d_max += d_max
+        if done >= n_steps and ring_steps:
+            break
+    if not ring_steps:
+        raise AssertionError(f"22c: no resample took a ring hop in "
+                             f"{len(odom_np)} scans ({done} steps checked)")
     return dict(steps=done, max_pose_diff=worst_pose,
-                max_best_pose_diff=worst_best, max_cell_share=worst_cells)
+                max_best_pose_diff=worst_best, max_cell_share=worst_cells,
+                ring_steps=ring_steps, ring_hops=ring_hops,
+                ring_d_max=ring_d_max)
 
 
 def _md_four(mesh, pf_args, tiled_args, solver_args):
     """Rank body of the four-rank parts, one world for all of them: (c)
     the kernel-against-plain steps, (b) the run at `pf` (the modes as they
-    resolve at P / 4) and at `pinned`, (d) the tiled frontend, (e) the
-    solvers."""
+    resolve at P / 4) and at `pinned`, (d) the tiled frontend on the
+    bench pool and on one of MD_SPREAD_SLOTS slots, (e) the solvers."""
     log, cfg, pf, pinned, seed, n_plain = pf_args
     out = dict(plain=_md_plain_steps(mesh, log, cfg, pf, seed, n_plain),
                auto=_md_fastslam(mesh, log, cfg, pf, seed),
                pinned=_md_fastslam(mesh, log, cfg, pinned, seed))
-    out["tiled"] = _md_tiled(mesh, *tiled_args)
+    tlog, tcfg_f, tcfg = tiled_args
+    out["tiled"] = _md_tiled(mesh, tlog, tcfg_f, tcfg)
+    out["tiled_spread"] = _md_tiled(
+        mesh, tlog, tcfg_f,
+        dataclasses.replace(tcfg, n_slots=MD_SPREAD_SLOTS))
     out["solvers"] = _md_solvers(mesh, *solver_args)
     return out
 
@@ -4562,13 +4607,14 @@ def run_multidevice(device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log,
         raise AssertionError("22b: no ring hop")
     plain = [r["plain"] for r in b]
     out["c"] = dict(
-        steps=plain[0]["steps"],
+        steps=plain[0]["steps"], ring_steps=plain[0]["ring_steps"],
+        ring_hops=plain[0]["ring_hops"], ring_d_max=plain[0]["ring_d_max"],
         max_pose_diff=max(r["max_pose_diff"] for r in plain),
         max_best_pose_diff=max(r["max_best_pose_diff"] for r in plain),
         max_cell_share=max(r["max_cell_share"] for r in plain),
         tolerance=dict(pose=PF_POSE_TOL, cells=MAP_CELL_SHARE))
     print("22c kernels against plain:", json.dumps(out["c"]))
-    if (out["c"]["steps"] < MD_PLAIN_STEPS
+    if (out["c"]["steps"] < MD_PLAIN_STEPS or out["c"]["ring_hops"] < 1
             or out["c"]["max_pose_diff"] > PF_POSE_TOL
             or out["c"]["max_best_pose_diff"] > PF_POSE_TOL
             or out["c"]["max_cell_share"] > MAP_CELL_SHARE):
@@ -4577,15 +4623,22 @@ def run_multidevice(device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log,
 
     # (d) the tiled frontend on the split pool: one rank (NCCL) over the
     # first MD_TILED_SCANS_1 scans of the lap, four (gloo) over the first
-    # MD_TILED_SCANS, each against phase 13's single-device run
+    # MD_TILED_SCANS on the bench pool and on MD_SPREAD_SLOTS slots, each
+    # against phase 13's single-device run
     _md_reset()
     (d1,) = pmesh.spawn(_md_tiled, 1, one_rank, device, args=(
         {k: np.asarray(v)[:MD_TILED_SCANS_1] for k, v in tiled_log.items()},
         tiled_cfg, tcfg))
     d4 = [r["tiled"] for r in four]
+    ds = [r["tiled_spread"] for r in four]
+    for rs in (d4, ds):
+        if not all(np.array_equal(r["traj"], rs[0]["traj"]) for r in rs):
+            raise AssertionError("22d: the ranks' trajectories differ")
     out["d"] = {}
     for key, r, ref_t in (("1 rank", d1, tiled_traj[:MD_TILED_SCANS_1]),
-                          ("4 ranks", d4[0], tiled_traj[:MD_TILED_SCANS])):
+                          ("4 ranks", d4[0], tiled_traj[:MD_TILED_SCANS]),
+                          (f"4 ranks, {MD_SPREAD_SLOTS} slots", ds[0],
+                           tiled_traj[:MD_TILED_SCANS])):
         dxy, dth = _pose_errors(r["traj"], ref_t)
         same = bool(np.array_equal(r["traj"], ref_t))
         out["d"][key] = dict(
@@ -4599,13 +4652,23 @@ def run_multidevice(device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log,
         _md_launches_held(f"22d {key}", r["launches"], {
             "update_hybrid": r["updates"], "search_space": r["updates"],
             "score_offsets": 2 * r["matches"]}, device)
-    # the slots fill in order: more active tiles than a rank holds must
-    # land on a second rank
-    spread = sum(r["local_tiles_with_content"] > 0 for r in d4)
-    print(f"22d: {d4[0]['active_tiles']} active tiles, {d4[0]['local_slots']}"
-          f" slots a rank, content on {spread} ranks")
-    if d4[0]["active_tiles"] > d4[0]["local_slots"] and spread < 2:
-        raise AssertionError("22d: the map did not spread over the ranks")
+    # the slots fill in order: on the bench pool (16 slots a rank) every
+    # tile of these scans sits on rank 0; on the small pool they must span
+    # two ranks, and that run must give phase 13's bits
+    for key, rs in (("4 ranks", d4),
+                    (f"4 ranks, {MD_SPREAD_SLOTS} slots", ds)):
+        spread = sum(r["local_tiles_with_content"] > 0 for r in rs)
+        out["d"][key]["ranks_with_content"] = spread
+        print(f"22d {key}: {rs[0]['active_tiles']} active tiles, "
+              f"{rs[0]['local_slots']} slots a rank, content on {spread} "
+              "ranks")
+    spread_d = out["d"][f"4 ranks, {MD_SPREAD_SLOTS} slots"]
+    if spread_d["ranks_with_content"] < 2:
+        raise AssertionError("22d: the small pool's map did not spread "
+                             "over the ranks")
+    if not spread_d["same_bits"]:
+        raise AssertionError("22d: the spread run differs from phase 13's "
+                             "bits")
     by_path["22d sharded tiled frontend, 1 rank (NCCL)"] = d1["launches"]
 
 
@@ -4634,10 +4697,10 @@ def run_multidevice(device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log,
             raise AssertionError(f"22e {name}: {max(dxy, dth)} > {tol}")
     # the 4096-node serpentine: optimize_cg alone does not converge there
     # (phase 19 solves it with optimize_hier), and f32 PCG from another
-    # sum order lands elsewhere within the solve's own error, so it is
-    # held as phase 19 holds a solve against a reference: its error
-    # against the truth at most HIER_ERR_JAX_FACTOR x the single-device
-    # optimize_cg's
+    # sum order lands a little off the single-device optimize_cg's
+    # iterate, so the sharded solve is held to that iterate within
+    # MD_SERP_CG_TOL_M and to its error against the truth within
+    # MD_SERP_CG_ERR_RATIO
     cg4 = e[0]["cg"]["poses"]
     for r in e[1:]:
         if not np.array_equal(r["cg"]["poses"], cg4):
@@ -4649,7 +4712,8 @@ def run_multidevice(device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log,
                           chi2=e[0]["cg"]["chi2"], ms=e[0]["cg"]["ms"])
     print(f"22e cg sharded over {MD_RANKS} ranks, serpentine: "
           f"{json.dumps(out['e']['cg'])}")
-    if not (np.isfinite(cg4).all() and err <= HIER_ERR_JAX_FACTOR * err1):
+    if not (np.isfinite(cg4).all() and dxy <= MD_SERP_CG_TOL_M
+            and err <= MD_SERP_CG_ERR_RATIO * err1):
         raise AssertionError(f"22e cg: {out['e']['cg']}")
     launches_e = {}
     for r in e:

@@ -7,7 +7,12 @@ and a short run of the tiled frontend on the split tile pool. Rank 0
 prints the tail line.
 
     python -m slam2d_tpu_torch.parallel.dryrun [N] [--backend gloo|nccl]
-        [--device cpu|cuda]
+        [--device cpu|cuda|cuda:k]
+
+The ranks run on the cards (rank r on cuda:(r % cards)) unless --device
+names the CPU or one card. The backend defaults to the device's: nccl
+when every rank has a card of its own, gloo on the CPU or when ranks
+share a card (NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
@@ -113,20 +118,40 @@ def _rank(mesh: pmesh.Mesh) -> dict:
             "staged_bytes": mesh.staged_bytes}
 
 
-def dryrun_multichip(world_size: int, backend: str = "gloo",
+def default_backend(world_size: int, device=None) -> str:
+    """The backend for `world_size` ranks on `device` (module docstring):
+    gloo on the CPU or where ranks share a card, else nccl."""
+    if device is not None and torch.device(device).type == "cpu":
+        return "gloo"
+    one_card = device is not None and torch.device(device).index is not None
+    if one_card and world_size > 1:
+        return "gloo"
+    pmesh.rank_device(0, device)   # raises without a card
+    return "nccl" if world_size <= torch.cuda.device_count() else "gloo"
+
+
+def dryrun_multichip(world_size: int, backend: str | None = None,
                      device=None) -> list:
     """The dry run (module docstring) on a new world of `world_size`
-    ranks (parallel/mesh.py's spawn: `backend`, `device` as there);
-    returns each rank's results (its tail line under "line")."""
+    ranks (parallel/mesh.py's spawn, `device` as there; `backend` None
+    takes default_backend's); returns each rank's results (its tail line
+    under "line")."""
+    if backend is None:
+        backend = default_backend(world_size, device)
     return pmesh.spawn(_rank, world_size, backend, device)
 
 
-if __name__ == "__main__":
+def main(argv=None) -> list:
+    """The command line (module docstring)."""
     import argparse
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("world_size", type=int, nargs="?", default=2)
-    p.add_argument("--backend", default="gloo", choices=pmesh.BACKENDS)
-    p.add_argument("--device", default="cpu")
-    a = p.parse_args()
-    dryrun_multichip(a.world_size, a.backend, a.device)
+    p.add_argument("--backend", default=None, choices=pmesh.BACKENDS)
+    p.add_argument("--device", default=None)
+    a = p.parse_args(argv)
+    return dryrun_multichip(a.world_size, a.backend, a.device)
+
+
+if __name__ == "__main__":
+    main()

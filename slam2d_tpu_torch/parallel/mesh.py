@@ -16,9 +16,7 @@ gloo lists only broadcast and all_reduce for CUDA tensors and its
 point-to-point ops read host memory, so under gloo every CUDA operand is
 copied to the host and its result back, here and nowhere else, and
 `Mesh.staged_bytes` counts those bytes (both ways). The compute stays on
-the card. A Mesh made without a process group (a world of one, e.g.
-full SLAM's "schur_sharded" in one process) runs every collective as a
-copy.
+the card.
 
 Starting a world:
 
@@ -58,11 +56,10 @@ _CURRENT = None
 
 class Mesh:
     """One rank's view of a world: `rank`, `world_size`, `device`,
-    `backend` and the collectives (module docstring). Without a process
-    group (`group` None, a world of one) every collective is a copy."""
+    `backend` and the collectives (module docstring) over `group`."""
 
     def __init__(self, rank: int, world_size: int, device, backend: str,
-                 group=None):
+                 group):
         self.rank = rank
         self.world_size = world_size
         self.device = torch.device(device)
@@ -100,16 +97,12 @@ class Mesh:
     def all_gather(self, t: torch.Tensor, tiled: bool = False):
         """Every rank's `t` in rank order: stacked [n, ...], or with
         `tiled` concatenated along the first axis."""
-        if self.group is None:
-            return t.clone() if tiled else t[None].clone()
         x = self._in(t)
         outs = [torch.empty_like(x) for _ in range(self.world_size)]
         dist.all_gather(outs, x, group=self.group)
         return self._out(torch.cat(outs) if tiled else torch.stack(outs))
 
     def _reduce(self, t: torch.Tensor, op):
-        if self.group is None:
-            return t.clone()
         x = self._in(t)
         if x is t:
             x = x.clone()
@@ -150,8 +143,6 @@ class Mesh:
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Rank `src`'s `t` on every rank (a new tensor; every rank passes
         a tensor of the same shape and dtype)."""
-        if self.group is None:
-            return t.clone()
         x = self._in(t)
         if x is t:
             x = x.clone()
@@ -179,8 +170,7 @@ class Mesh:
 
     def barrier(self) -> None:
         """Every rank reaches this point (an all_reduce of one value)."""
-        if self.group is not None:
-            self.psum(torch.zeros(1, device=self.device))
+        self.psum(torch.zeros(1, device=self.device))
 
 def joined() -> Mesh | None:
     """The mesh this process joined last, or None."""
@@ -241,7 +231,7 @@ def join(backend: str, world_size: int, rank: int, init_method: str,
 def leave(mesh: Mesh) -> None:
     """Tear down the mesh's process group."""
     global _CURRENT
-    if mesh.group is not None and dist.is_initialized():
+    if dist.is_initialized():
         dist.destroy_process_group()
     if _CURRENT is mesh:
         _CURRENT = None

@@ -118,15 +118,11 @@ def _check_optimizer(optimizer: str) -> None:
         raise ValueError(f"unknown optimizer {optimizer!r}")
 
 
-def solve_mesh(mesh, device):
+def solve_mesh(mesh):
     """The mesh of "schur_sharded": `mesh`, else the one this process
-    joined, else a world of one rank on `device` (the JAX package's mesh
-    over every visible device of a one-device process)."""
-    mesh = mesh or pmesh.joined()
-    if mesh is not None:
-        return mesh
-    dev = torch.device(device)
-    return pmesh.Mesh(0, 1, dev, "nccl" if dev.type == "cuda" else "gloo")
+    joined, else None (a process of its own: the JAX package's mesh over
+    the one visible device, one block)."""
+    return mesh or pmesh.joined()
 
 
 def agree_graph(host, mesh):
@@ -801,7 +797,10 @@ class LoopCloser:
                 dev_graph, gcfg, SCHUR_BLOCKS,
                 plan=schur.build_plan(host, SCHUR_BLOCKS))
         if optimizer == "schur_sharded":
-            mesh = solve_mesh(self.mesh, self.device)
+            mesh = solve_mesh(self.mesh)
+            if mesh is None:
+                return schur.optimize_schur(
+                    dev_graph, gcfg, 1, plan=schur.build_plan(host, 1))
             # no re-solve runs under "schur_sharded" (as under "schur"):
             # the graph solved is the HostGraph as rank 0 holds it
             host = agree_graph(host, mesh)
@@ -1145,8 +1144,8 @@ def run_full_slam(
     hier beyond) or "schur_sharded" (the blocks split over the ranks of
     `mesh`, one block a rank: graph/schur.py's optimize_schur_sharded;
     every rank runs this function on its own device, `device` the mesh's;
-    `mesh` None takes the mesh this process joined, else a world of one
-    rank on `device`).
+    `mesh` None takes the mesh this process joined, else solves as one
+    rank would: optimize_schur with one block).
 
     resume: a previous run's `ckpt` (or numpy arrays of
     fullslam_ckpt_template's schema) to continue from, with

@@ -6,7 +6,10 @@ float32 rounding (rtol 1e-6), the ring shifts and the broadcast exact.
 CPU operands are never staged (staged_bytes 0). A rank's exception ends
 the run and is raised in the caller. parallel/dryrun.py's
 dryrun_multichip(2) (one sharded FastSLAM step, the Schur and CG solves
-with their work split, the split tiled frontend) prints its tail line.
+with their work split, the split tiled frontend) prints its tail line;
+its command line runs on the cards unless told otherwise (here, with no
+card, it raises), nccl when every rank has a card, gloo on the CPU or on
+a shared card.
 """
 
 import numpy as np
@@ -104,3 +107,18 @@ def test_dryrun_multichip_two_ranks(capfd):
     # the loop is consistent: Schur and CG agree with the chain's poses
     assert np.abs(res[0]["schur_poses"][:, 0] - np.arange(8)).max() < 1e-3
     assert np.abs(res[0]["cg_poses"][:, 0] - np.arange(8)).max() < 1e-3
+
+
+def test_dryrun_command_line_runs_on_the_cards(capfd, monkeypatch):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main([])
+    res = dryrun.main(["2", "--device", "cpu"])
+    assert res[0]["line"] in capfd.readouterr().out
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for cards, world, device, backend in (
+        (4, 4, None, "nccl"), (4, 2, None, "nccl"), (1, 4, None, "gloo"),
+        (1, 1, None, "nccl"), (4, 1, "cuda:0", "nccl"),
+        (4, 2, "cuda:0", "gloo"), (4, 4, "cpu", "gloo"),
+    ):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda c=cards: c)
+        assert dryrun.default_backend(world, device) == backend

@@ -10,6 +10,9 @@ bodies in tests/torch_dist.py).
   same keyframes and loop decisions, keyframe poses and the trajectory
   within 5e-3 m / rad, chi2 within 0.1%. Every rank returns the same
   result.
+- In a process that joined no world, "schur_sharded" solves as one rank
+  would (one block), held as the 2 ranks are against JAX's run on 4
+  devices.
 - A rank whose graph header differs from rank 0's raises (ranks that
   diverged end in an error, not a hang).
 """
@@ -61,6 +64,19 @@ def test_schur_sharded_full_slam_matches_jax(n):
     res = pmesh.spawn(torch_dist.full_slam, n, "gloo", "cpu", args=(
         _log(), to_port(CFG), to_port(GCFG), "schur_sharded"))
     _held(res[0], _jax_ref(), res[1:])
+
+
+def test_schur_sharded_without_a_world_matches_jax():
+    from slam2d_tpu_torch.run.full_slam import run_full_slam
+
+    ref = _jax_ref()
+    assert pmesh.joined() is None
+    res = run_full_slam(_log(), to_port(CFG), to_port(GCFG),
+                        optimizer="schur_sharded", device=torch.device("cpu"))
+    out = {"traj": res.traj, "kf_poses": np.asarray(res.kf_poses),
+           "kf_scan_idx": np.asarray(res.kf_scan_idx),
+           "n_loops": res.n_loops, "chi2": res.chi2}
+    _held(out, ref, [])
 
 
 def test_diverged_graph_header_raises():
