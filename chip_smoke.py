@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (slam2d_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--kernels-only]
+    python3 chip_smoke.py [--kernels-only | --multi-device-only |
+                           --pf-graph-only]
 
-from the repository root (--kernels-only: phases 1-3 alone). It needs a
+from the repository root (--kernels-only: phases 1-3 alone;
+--multi-device-only: phases 1, 2 and 22; --pf-graph-only: phases 1, 2
+and 23). It needs a
 CUDA card, PyTorch built for CUDA and nvcc; it imports nothing of JAX.
 Phases, each of which raises on failure:
 
@@ -72,7 +75,10 @@ Phases, each of which raises on failure:
 5. the first 256 scans again with every kernel replaced by its plain
    version on the card: the poses must agree within 5e-3 m / 5e-3 rad;
 6. FastSLAM at bench_pf.py's default config and log (100 particles, bf16
-   512^2 maps at 0.1 m, 653 scans): finite trajectory and N_eff, ATE at
+   512^2 maps at 0.1 m, 653 scans), host-gated (run_fastslam's
+   host_gated=True, as in phases 8 and 10; phase 23 runs the
+   device-gated graph that host_gated=None picks at 100 and 16
+   particles): finite trajectory and N_eff, ATE at
    most 1 m, at least one resample, every PF kernel launched as often as
    the gates decided (ISM update once per update event, field and stack
    once per refine event, row gather once per resample); scans/s, ATE
@@ -271,6 +277,28 @@ Phases, each of which raises on failure:
    does with two ranks on one card. The four-rank parts run in one world
    of spawned processes; each rank's kernel launches are counted against
    its decisions.
+23. FastSLAM's device-gated single program (run/fastslam_run.py:
+   PFChunkGraph, one CUDA graph replay a chunk of 32 scans; the log's
+   13-scan tail eagerly through the same steps): (a) at FastSLAM-100 and
+   FastSLAM-16 over bench_pf's log, run_fastslam(host_gated=None) takes
+   the graph (a replay a whole chunk), 0 host reads, every kernel of the
+   capture launched once a step, finite trajectory and N_eff, ATE at
+   most 1 m, at least one resample; scans/s beside phases 6's and 10's
+   host-gated rates, capture s, peak memory; (b) the first 128 scans
+   through the graph and through the same device-gated steps one by one,
+   with the same draws: the same bits; (c) the whole log through the
+   graph and host-gated (host_gated=True), with the same draws: the same
+   bits; (d) each gated PF kernel (kernel 1 `ism` and the particle forms
+   of `hybrid` and `ray`, kernels 4-8) at its path's shapes: gate 0
+   leaves an in-place output bit-identical, gate 1 equals the ungated
+   launch, the gate-0 launch's device time (each kernel's entry,
+   `gate0_device_ms`); (e) FastSLAM-1000 with host_gated=False over its
+   first 128 scans (kernel 8's gated form in the graph): scans/s, peak
+   memory; (f) the frontend with score_impl "cmx" (the CLI's --score-impl
+   cmx) over bench.py's first 256 scans: graph replay = eager bits, the
+   correlation kernel launched twice a scan; (g) FastSLAM-16 with
+   update_impl "pallas_hybrid", "pallas_ray", "sparse" and "dense" over
+   the first 128 scans: graph = host-gated bits with the same draws.
 Phase 3 also holds kernel 2 at a 1081-beam scan and kernel 3 in place on
 the whole 1024^2 map (phase 20's shapes), and the block-Thomas factor
 (csrc/tridiag_factor.cu, the sparse solvers' sequential recurrence; it
@@ -388,6 +416,7 @@ from slam2d_tpu_torch.run.bench_configs import (
     tiled_bench_log,
     wide_fov_config,
 )
+from slam2d_tpu_torch.run import fastslam_run
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
 from slam2d_tpu_torch.run.frontend import (
     frontend_step,
@@ -2628,10 +2657,11 @@ def _pf_expected(cfg, pf, counts):
 
 def run_pf(cfg, pf, log, device, label):
     """Phases 6, 8 and 10: FastSLAM over the whole bench_pf log through
-    the kernels, every launch counted against the gate decisions. Returns
-    the launches of the kernels the path runs, and the ATE."""
+    the kernels, host-gated (host_gated=True; phase 23 runs the device-gated
+    graph), every launch counted against the gate decisions. Returns the
+    launches of the kernels the path runs, the ATE and the scans/s."""
     warm = {k: np.asarray(v)[:64] for k, v in log.items()}
-    run_fastslam(warm, cfg, pf, device, seed=SEED)
+    run_fastslam(warm, cfg, pf, device, seed=SEED, host_gated=True)
     torch.cuda.synchronize()
 
     _reset_pf_counts()
@@ -2640,7 +2670,8 @@ def run_pf(cfg, pf, log, device, label):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    _, traj, n_eff, _ = run_fastslam(log, cfg, pf, device, seed=SEED)
+    _, traj, n_eff, _ = run_fastslam(log, cfg, pf, device, seed=SEED,
+                                     host_gated=True)
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
@@ -2675,7 +2706,8 @@ def run_pf(cfg, pf, log, device, label):
         raise AssertionError(f"{label}: launches {launches}, expected {expect}")
     if counts["host_syncs"] > counts["refines"]:
         raise AssertionError(f"{label}: more than one host read per refine")
-    return {k: v for k, v in launches.items() if expect[k] > 0}, ate
+    return ({k: v for k, v in launches.items() if expect[k] > 0}, ate,
+            result["scans_per_sec"])
 
 
 def pf_parity(cfg, pf, log, device, gate: int, n_events: int, label,
@@ -2747,9 +2779,9 @@ def corr_held_runs(cfg, pf, log, device, ate):
     held = dict(calls=0, calls_best_differs=0, particles_best_differs=0,
                 max_err_over_tolerance=0.0)
 
-    def checked(E, Sp, R, C, plain=False):
-        out = corr_scores(E, Sp, R, C)
-        ref = corr_scores(E, Sp, R, C, plain=True)
+    def checked(E, Sp, R, C, plain=False, gate=None):
+        out = corr_scores(E, Sp, R, C, gate=gate)
+        ref = corr_scores(E, Sp, R, C, plain=True, gate=gate)
         over = float(((out - ref).abs() / corr_tolerance(E, Sp)).max())
         P = E.shape[0]
         best = out.reshape(P, -1).argmax(1) != ref.reshape(P, -1).argmax(1)
@@ -2761,14 +2793,15 @@ def corr_held_runs(cfg, pf, log, device, ate):
                                              over)
         return out
 
-    def plain(E, Sp, R, C, plain=False):
-        return corr_scores(E, Sp, R, C, plain=True)
+    def plain(E, Sp, R, C, plain=False, gate=None):
+        return corr_scores(E, Sp, R, C, plain=True, gate=gate)
 
     ates = {}
     try:
         for name, fn in (("held", checked), ("plain", plain)):
             correlative.corr_scores = fn
-            _, traj, _, _ = run_fastslam(log, cfg, pf, device, seed=SEED)
+            _, traj, _, _ = run_fastslam(log, cfg, pf, device, seed=SEED,
+                                         host_gated=True)
             if not np.isfinite(traj).all():
                 raise AssertionError(f"fastslam-16 {name} run: not finite")
             ates[name] = ate_rmse(traj, log["gt_poses"], align=False)
@@ -3874,7 +3907,7 @@ def update_path_parity(cfg, pf, log, device, n_updates, label):
 
     fastslam._update_all = held
     try:
-        run_fastslam(log, cfg, pf, device, seed=SEED)
+        run_fastslam(log, cfg, pf, device, seed=SEED, host_gated=True)
     finally:
         fastslam._update_all = real
     print(f"{label}: the first {n_updates} map updates after the bootstrap "
@@ -4779,7 +4812,337 @@ def run_multidevice(device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log,
     return by_path, out
 
 
-def main(kernels_only: bool = False, multi_device_only: bool = False):
+# ---- phase 23: FastSLAM's device-gated chunk as one CUDA graph ----------
+
+PF_GRAPH_PARITY_SCANS = 128   # (b), (e), (g): the first 128 scans (4 chunks)
+PF_GRAPH_CMX_SCANS = 256      # (f): the frontend under cmx, 4 chunks
+PF_GRAPH_UPDATES = ("pallas_hybrid", "pallas_ray", "sparse", "dense")  # (g)
+
+
+def _pf_launch_counts():
+    """Every PF kernel wrapper's launch count, by kernel name."""
+    return {fn.__name__: fn.launches for fn in fastslam_run._KERNELS}
+
+
+def _reset_pf_graph_counts():
+    for fn in fastslam_run._KERNELS:
+        fn.launches = 0
+    for name in ("host_syncs", "refines", "updates", "resamples"):
+        setattr(fastslam.fastslam_step, name, 0)
+
+
+def _same_bits(a, b) -> bool:
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return a.shape == b.shape and bool(torch.equal(a.cpu(), b.cpu()))
+
+
+def _pf_draws(P, n, device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    return (torch.randn((n, P, 3), generator=gen, device=device),
+            torch.rand(n, generator=gen, device=device))
+
+
+def _pf_graph_timed(cfg, pf, log, device, label, host_gated=None):
+    """One run_fastslam over `log` that must take the chunk graph, its
+    counts set to 0 just before it: (traj, n_eff, result dict)."""
+    K = cfg.chunk
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g = fastslam_run.pf_chunk_graph(cfg, pf, device, K)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    per_step = {}
+    for fn, n in g.launches:
+        if n % K:
+            raise AssertionError(f"{label}: {fn.__name__} launched {n} "
+                                 f"times in a capture of {K} steps")
+        per_step[fn.__name__] = n // K
+    _reset_pf_graph_counts()
+    replays = g.replays
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    _, traj, n_eff, _ = run_fastslam(log, cfg, pf, device, seed=SEED,
+                                     host_gated=host_gated)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    elapsed = start.elapsed_time(end) / 1e3
+    T = len(traj)
+    step = fastslam.fastslam_step
+    launches = {k: v for k, v in _pf_launch_counts().items() if v}
+    expect = {k: v * T for k, v in per_step.items()}
+    result = dict(
+        scans=T, particles=pf.n_particles, replays=g.replays - replays,
+        scans_per_sec=T / elapsed, seconds_cuda_events=elapsed,
+        seconds_host=wall, capture_s=capture_s,
+        host_reads_per_scan=step.host_syncs / T, refines=step.refines,
+        updates=step.updates, resamples=step.resamples,
+        launches_per_step=per_step, launches=launches,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+        min_n_eff=float(n_eff.min()),
+    )
+    if result["replays"] != T // K:
+        raise AssertionError(f"{label}: {result['replays']} replays for "
+                             f"{T} scans in chunks of {K}")
+    if step.host_syncs:
+        raise AssertionError(f"{label}: {step.host_syncs} host reads")
+    if launches != expect:
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{expect} (each capture launch once a step)")
+    if not (np.isfinite(traj).all() and np.isfinite(n_eff).all()):
+        raise AssertionError(f"{label}: trajectory or N_eff is not finite")
+    return traj, n_eff, result
+
+
+def _pf_graph_replay_equals_eager(cfg, pf, log, device, label):
+    """(b): the first PF_GRAPH_PARITY_SCANS scans through the graph and
+    through the same device-gated steps one by one, with the same draws:
+    the same bits. Returns the number of scans held."""
+    n = PF_GRAPH_PARITY_SCANS
+    part = {k: np.asarray(v)[:n] for k, v in log.items()}
+    noise, u = _pf_draws(pf.n_particles, n, device, SEED + 23)
+    st_g, *out_g = run_fastslam(part, cfg, pf, device, draws=(noise, u),
+                                host_gated=False)
+    state = fastslam.fastslam_init(cfg, pf, device,
+                                   start_pose=part["odom"][0])
+    odom = torch.as_tensor(part["odom"], dtype=torch.float32, device=device)
+    ranges = torch.as_tensor(part["ranges"], dtype=torch.float32,
+                             device=device)
+    out = torch.empty((n, 5), dtype=torch.float32, device=device)
+    for t in range(n):
+        state, (bp, ne, sc) = fastslam.fastslam_step(
+            state, odom[t], ranges[t], cfg, pf, noise=noise[t], u=u[t])
+        out[t, :3], out[t, 3], out[t, 4] = bp, ne, sc
+    out = out.cpu().numpy()
+    eager = (out[:, :3], out[:, 3], out[:, 4])
+    for name, a, b in zip(("trajectory", "N_eff", "scores"), out_g, eager):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: replay and eager {name} differ")
+    for name, a, b in zip(fastslam.PFState._fields, st_g, state):
+        if not _same_bits(a, b):
+            raise AssertionError(f"{label}: replay and eager {name} differ")
+    return n
+
+
+def _pf_graph_equals_host_gated(cfg, pf, log, device, label):
+    """(c), (g): the log through the graph and through the host-gated
+    eager loop, with the same explicit draws: the same bits."""
+    T = len(log["odom"])
+    draws = _pf_draws(pf.n_particles, T, device, SEED + 24)
+    st_g, *out_g = run_fastslam(log, cfg, pf, device, draws=draws,
+                                host_gated=False)
+    st_h, *out_h = run_fastslam(log, cfg, pf, device, draws=draws,
+                                host_gated=True)
+    for name, a, b in zip(("trajectory", "N_eff", "scores"), out_g, out_h):
+        if not np.array_equal(a, b):
+            bad = np.nonzero((a != b).reshape(T, -1).any(1))[0]
+            raise AssertionError(f"{label}: graph and host-gated {name} "
+                                 f"differ first at scan {bad[0]}")
+    for name, a, b in zip(fastslam.PFState._fields, st_g, st_h):
+        if not _same_bits(a, b):
+            raise AssertionError(f"{label}: graph and host-gated {name} "
+                                 "differ")
+    return T
+
+
+def pf_gate_checks(cfg, pf, cfg16, pf16, cfg1k, pf1k, log, device):
+    """(d): each gated PF kernel at its path's shapes, random operands from
+    the seed: gate 0 leaves an in-place output bit-identical, gate 1
+    equals the ungated launch, and the gate-0 launch's device time.
+    Returns {kernel: {gate0_device_ms, gate0_device_by, ...}}."""
+    rng = np.random.default_rng(SEED + 23)
+    g, s = cfg.grid, cfg.sensor
+    g0 = torch.zeros((), dtype=torch.bool, device=device)
+    g1 = torch.ones((), dtype=torch.bool, device=device)
+    odom = np.asarray(log["odom"], np.float32)
+    ranges = torch.as_tensor(np.asarray(log["ranges"][200], np.float32),
+                             device=device)
+
+    def maps_poses(P):
+        maps = torch.tensor(rng.normal(0, 1.5, (P, g.height, g.width))
+                            .clip(-5, 5), dtype=torch.bfloat16, device=device)
+        poses = torch.tensor(odom[200] + rng.normal(0, [0.3, 0.3, 0.1],
+                                                    (P, 3)),
+                             dtype=torch.float32, device=device)
+        return maps, poses
+
+    maps, poses = maps_poses(pf.n_particles)
+    maps16, poses16 = maps[:pf16.n_particles].clone(), poses[:pf16.n_particles]
+    win = update_window_cells(g, s)
+    consts = occupancy.update_constants(g, s)
+    o = (g.origin_x, g.origin_y)
+    angles = occupancy.beam_angles(s, device)
+    ray_kw = dict(resolution=g.resolution, min_range=s.min_range,
+                  max_range=s.max_range, angle_min=s.angle_min,
+                  step=consts["step"], l_free=g.l_free, l_occ=g.l_occ,
+                  l_clamp=g.l_clamp, ray_samples=g.ray_samples)
+    anc = torch.tensor(np.sort(rng.integers(0, pf.n_particles,
+                                            pf.n_particles)),
+                       dtype=torch.int32, device=device)
+    scratch = torch.empty_like(maps)
+    maps1k, poses1k = maps_poses(pf1k.n_particles)
+    a1k = apply_operands(poses1k, ranges, cfg1k, pf1k, g.height, g.width)
+    anchors, slots, images, ep = a1k
+    in_place = {
+        "update_ism": (maps, lambda m, gate: update_ism(
+            m, poses, ranges, region=(win, win), origin_xy=o, gate=gate,
+            **consts)),
+        "update_hybrid_particles": (maps16, lambda m, gate:
+            update_hybrid_particles(m, poses16, ranges, angles,
+                                    region=(win, win), origin_xy=o,
+                                    gate=gate, **consts)),
+        "update_ray_particles": (maps16, lambda m, gate: update_ray_particles(
+            m, poses16, ranges, angles, region=(win, win), origin_xy=o,
+            gate=gate, **ray_kw)),
+        "gather_rows": (scratch, lambda m, gate: gather_rows(
+            maps, anc, gate=gate, out=m)),
+        "shared_apply": (maps1k, lambda m, gate: shared_apply(
+            m, anchors, slots, images, float(g.l_clamp), *ep, gate=gate)),
+    }
+    mcfg = fastslam.refine_matcher(cfg, pf)
+    swin = scan_window_cells(g, s, mcfg)
+    taps, fkw = _field_args(mcfg, g.resolution)
+    origins = torch.tensor(rng.integers(-16, g.height - swin + 16,
+                                        (pf.n_particles, 2)),
+                           dtype=torch.int32, device=device)
+    E = torch.zeros((15, swin, swin), dtype=torch.bfloat16, device=device)
+    E.view(-1)[torch.as_tensor(rng.integers(0, E.numel(), 4 * 180 * 15),
+                               device=device)] = 0.25
+    E16 = torch.zeros((pf16.n_particles, 9, swin, swin),
+                      dtype=torch.bfloat16, device=device)
+    E16.view(-1)[torch.as_tensor(rng.integers(0, E16.numel(),
+                                              4 * 180 * 9 * 16),
+                                 device=device)] = 0.25
+    Sp = torch.tensor(rng.random((pf16.n_particles, swin + 5, swin + 5)),
+                      dtype=torch.float32, device=device)
+    out_of_place = {
+        "window_field": lambda gate: window_field(
+            maps, origins, swin, taps, out_dtype=torch.bfloat16, gate=gate,
+            **fkw),
+        "shift_stack": lambda gate: shift_stack(E, 5, 5, gate=gate),
+        "corr_scores": lambda gate: corr_scores(E16, Sp, 5, 5, gate=gate),
+    }
+    results = {}
+    for name, (target, call) in in_place.items():
+        before = target.clone()
+        call(target, g0)
+        kept = _same_bits(target, before)
+        on, off = target.clone(), target.clone()
+        call(on, g1)
+        call(off, None)
+        same = _same_bits(on, off) and not _same_bits(on, before)
+        ms, by = _cuda_device_ms(lambda: call(target, g0))
+        results[name] = dict(gate0_device_ms=ms, gate0_device_by=by,
+                             gate0_bit_identical=kept,
+                             gate1_equals_ungated=same)
+        del before, on, off
+    for name, call in out_of_place.items():
+        same = _same_bits(call(g1), call(None))
+        ms, by = _cuda_device_ms(lambda: call(g0))
+        results[name] = dict(gate0_device_ms=ms, gate0_device_by=by,
+                             gate1_equals_ungated=same)
+    torch.cuda.synchronize()
+    print("phase 23 (d), the gated PF kernels at their paths' shapes:",
+          json.dumps(results))
+    for name, r in results.items():
+        if not (r.get("gate0_bit_identical", True)
+                and r["gate1_equals_ungated"]):
+            raise AssertionError(f"{name}: gated form {r}")
+    return results
+
+
+def run_pf_graph(device, pf_log, host_rates):
+    """Phase 23 (module docstring). `host_rates`: phase 6's and 10's
+    host-gated scans/s by label, printed beside (None: not run). Returns
+    (the launches of each path, the gate checks by kernel)."""
+    t_start = time.perf_counter()
+    by_path, out = {}, {}
+    configs = (("FastSLAM-100", pf_bench_config()),
+               ("FastSLAM-16", pf_per_particle_bench_config()))
+    for label, (cfg, pf) in configs:
+        if pf.n_particles >= pf.host_gate_min_particles:
+            raise AssertionError(f"{label}: host_gated=None would not pick "
+                                 "the graph")
+        traj, _, res = _pf_graph_timed(cfg, pf, pf_log, device, label)
+        res["ate_m"] = ate_rmse(traj, pf_log["gt_poses"], align=False)
+        res["host_gated_scans_per_sec"] = host_rates.get(label)
+        res["replay_equals_eager_scans"] = _pf_graph_replay_equals_eager(
+            cfg, pf, pf_log, device, label)
+        res["equals_host_gated_scans"] = _pf_graph_equals_host_gated(
+            cfg, pf, pf_log, device, label)
+        print(f"phase 23 (a-c) {label} graph on {card()}:", json.dumps(res))
+        if not res["ate_m"] <= PF_MAX_ATE_M:
+            raise AssertionError(f"{label}: ATE {res['ate_m']} m")
+        if res["resamples"] < 1:
+            raise AssertionError(f"{label}: no resample event")
+        by_path[f"23a {label} graph"] = res["launches"]
+        out[label] = res
+    # (e) FastSLAM-1000 through the graph: kernel 8's gated form
+    cfg1k, pf1k = pf1000_bench_config()
+    part = {k: np.asarray(v)[:PF_GRAPH_PARITY_SCANS]
+            for k, v in pf_log.items()}
+    _, _, res = _pf_graph_timed(cfg1k, pf1k, part, device, "FastSLAM-1000",
+                                host_gated=False)
+    print(f"phase 23 (e) FastSLAM-1000 graph, host_gated=False, on {card()}:",
+          json.dumps(res))
+    if not res["launches"].get("shared_apply"):
+        raise AssertionError("FastSLAM-1000 graph: the apply never launched")
+    by_path["23e FastSLAM-1000 graph"] = res["launches"]
+    out["FastSLAM-1000"] = res
+    # (g) FastSLAM-16 with the other particle updates: graph = host-gated
+    cfg16, pf16 = pf_per_particle_bench_config()
+    for impl in PF_GRAPH_UPDATES:
+        icfg = dataclasses.replace(cfg16, grid=dataclasses.replace(
+            cfg16.grid, update_impl=impl))
+        for fn in fastslam_run._KERNELS:
+            fn.launches = 0
+        n = _pf_graph_equals_host_gated(icfg, pf16, part, device,
+                                        f"FastSLAM-16 {impl}")
+        launches = {k: v for k, v in _pf_launch_counts().items() if v}
+        print(f"phase 23 (g) FastSLAM-16 with update_impl {impl}: graph = "
+              f"host-gated bits over {n} scans; launches {launches}")
+        want = {"pallas_hybrid": "update_hybrid_particles",
+                "pallas_ray": "update_ray_particles"}.get(impl)
+        if want is not None and not launches.get(want):
+            raise AssertionError(f"FastSLAM-16 {impl}: {want} not launched")
+    # (d) the gated kernels, alone
+    cfg, pf = pf_bench_config()
+    cfg16, pf16 = pf_per_particle_bench_config()
+    gates = pf_gate_checks(cfg, pf, cfg16, pf16, cfg1k, pf1k, pf_log, device)
+    # (f) the frontend with --score-impl cmx: graph replay = eager bits
+    fcfg = bench_config()
+    fcfg = dataclasses.replace(fcfg, matcher=dataclasses.replace(
+        fcfg.matcher, score_impl="cmx"))
+    flog = {k: np.asarray(v)[:PF_GRAPH_CMX_SCANS]
+            for k, v in bench_log(fcfg.sensor).items()}
+    run_frontend({k: v[: fcfg.chunk] for k, v in flog.items()}, fcfg,
+                 device)   # the capture
+    corr_scores.launches = 0
+    st_g, tr_g, sc_g = run_frontend(flog, fcfg, device)
+    n_corr = corr_scores.launches
+    st_e, tr_e, sc_e = run_frontend(flog, fcfg, device, graph=False)
+    same = (np.array_equal(tr_g, tr_e) and np.array_equal(sc_g, sc_e)
+            and all(_same_bits(a, b) for a, b in zip(st_g, st_e)))
+    ate = ate_rmse(tr_g, flog["gt_poses"], align=False)
+    print(f"phase 23 (f) frontend with score_impl cmx, {PF_GRAPH_CMX_SCANS} "
+          f"scans: graph replay = eager bits {same}, corr_scores launches "
+          f"{n_corr} (two passes a scan), ATE {ate}")
+    if not same or n_corr != 2 * PF_GRAPH_CMX_SCANS:
+        raise AssertionError("cmx frontend: graph and eager differ, or the "
+                             "correlation kernel not launched twice a scan")
+    by_path["23f cmx frontend graph"] = {"corr_scores": n_corr}
+    print(f"phase 23 took {time.perf_counter() - t_start:.1f} s")
+    return by_path, gates
+
+
+def main(kernels_only: bool = False, multi_device_only: bool = False,
+         pf_graph_only: bool = False):
     """Every phase; with `kernels_only` (--kernels-only) phases 1-3 alone,
     for work on a kernel: the last line is then the checks' JSON, not the
     {"ok": ...} line of a whole run; with `multi_device_only`
@@ -4809,6 +5172,10 @@ def main(kernels_only: bool = False, multi_device_only: bool = False):
     cfg1k, pf1k = pf1000_bench_config()
     cfg16, pf16 = pf_per_particle_bench_config()
     ray_cfg = ray_bench_config()
+    if pf_graph_only:
+        paths, gates = run_pf_graph(device, pf_log, {})
+        print(json.dumps({"pf_graph": gates, "launches": paths}))
+        return
     if multi_device_only:
         tiled_cfg, tcfg = tiled_bench_config()
         tiled_log = tiled_bench_log(tiled_cfg.sensor)
@@ -4898,16 +5265,17 @@ def main(kernels_only: bool = False, multi_device_only: bool = False):
     by_path = {}
     traj, by_path["4 frontend"], slice_state = run_slice(cfg, log, device)
     parity_run(cfg, log, device, traj)
-    by_path["6 FastSLAM-100"], _ = run_pf(pf_cfg, pf, pf_log, device,
-                                          "fastslam-100")
+    host_rates = {}
+    by_path["6 FastSLAM-100"], _, host_rates["FastSLAM-100"] = run_pf(
+        pf_cfg, pf, pf_log, device, "fastslam-100")
     pf_parity(pf_cfg, pf, pf_log, device, 0, PF_PARITY_REFINES,
               "fastslam-100")
-    by_path["8 FastSLAM-1000"], _ = run_pf(cfg1k, pf1k, pf_log, device,
-                                           "fastslam-1000")
+    by_path["8 FastSLAM-1000"], _, _ = run_pf(cfg1k, pf1k, pf_log, device,
+                                              "fastslam-1000")
     pf_parity(cfg1k, pf1k, pf_log, device, 1, PF1000_PARITY_UPDATES,
               "fastslam-1000", after_boot=True)
-    by_path["10 FastSLAM-16"], ate16 = run_pf(cfg16, pf16, pf_log, device,
-                                              "fastslam-16")
+    by_path["10 FastSLAM-16"], ate16, host_rates["FastSLAM-16"] = run_pf(
+        cfg16, pf16, pf_log, device, "fastslam-16")
     checks["corr_scores"]["fastslam16_runs_held"] = corr_held_runs(
         cfg16, pf16, pf_log, device, ate16
     )
@@ -4957,6 +5325,10 @@ def main(kernels_only: bool = False, multi_device_only: bool = False):
         device, pf_log, cfg1k, pf1k, tiled_cfg, tcfg, tiled_log, tiled_traj,
         fs_gcfg, fs_res.ckpt["graph"])
     by_path.update(md_paths)
+    graph_paths, gates = run_pf_graph(device, pf_log, host_rates)
+    by_path.update(graph_paths)
+    for name, entry in gates.items():
+        checks[name].update(entry)
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",
@@ -5008,4 +5380,5 @@ def main(kernels_only: bool = False, multi_device_only: bool = False):
 
 if __name__ == "__main__":
     main(kernels_only="--kernels-only" in sys.argv[1:],
-         multi_device_only="--multi-device-only" in sys.argv[1:])
+         multi_device_only="--multi-device-only" in sys.argv[1:],
+         pf_graph_only="--pf-graph-only" in sys.argv[1:])

@@ -4,7 +4,7 @@
     python3 scripts/profile_torch.py frontend|ray|localize|tiled
         [--warm 256] [--scans 256] [--eager]
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
-        [--warm 128] [--scans 192] [--seeds N]
+        [--warm 128] [--scans 192] [--seeds N] [--graph]
     python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
     python3 scripts/profile_torch.py schur [--warm 2] [--scans 3]
     python3 scripts/profile_torch.py hier [--warm 1] [--scans 1]
@@ -30,7 +30,11 @@ warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. The
 frontend and localization run as run_frontend runs them on CUDA, one
 CUDA graph replay a chunk (`--warm` and `--scans` whole chunks);
-`--eager` steps them one by one instead. Prints the
+`--eager` steps them one by one instead. FastSLAM runs host-gated
+(fastslam_step with the host's gates), or with `--graph` as
+run_fastslam(host_gated=False) runs it on CUDA: the device-gated steps,
+one PFChunkGraph replay a chunk of 32 (`--warm` and `--scans` whole
+chunks), the draws from a seeded generator a chunk at a time. Prints the
 kernels by device time, then one JSON line: the device busy share of the
 traced wall time, per-scan host time, the step's counters, the largest
 device costs and every kernel of the port's own. Writes the
@@ -64,7 +68,10 @@ from slam2d_tpu_torch.pf.fastslam import (  # noqa: E402
     host_gate_flags,
 )
 from slam2d_tpu_torch.run import bench_configs  # noqa: E402
-from slam2d_tpu_torch.run.fastslam_run import run_fastslam  # noqa: E402
+from slam2d_tpu_torch.run.fastslam_run import (  # noqa: E402
+    pf_chunk_graph,
+    run_fastslam,
+)
 from slam2d_tpu_torch.run.frontend import (  # noqa: E402
     chunk_graph,
     frontend_init,
@@ -329,18 +336,41 @@ def hier_steps(dev):
     return steps, steps, ()
 
 
-def fastslam_steps(dev, cfg, pf, seeds):
+def fastslam_steps(dev, cfg, pf, seeds, graph):
     """(steps(lo, hi) running FastSLAM over scans lo..hi-1, counters);
-    with `seeds`, the whole-log sweep first."""
+    with `seeds`, the whole-log sweep first. `graph`: the device-gated
+    chunk graph's replays (lo and hi multiples of cfg.chunk) in place of
+    the host-gated steps."""
     log = bench_configs.pf_bench_log(cfg.sensor)
     if seeds:
-        seed_sweep(cfg, pf, log, dev, seeds)
+        seed_sweep(cfg, pf, log, dev, seeds, graph)
     flags = host_gate_flags(log["odom"], cfg, log["odom"][0], 0.0, np.inf)
     odom = torch.as_tensor(log["odom"], device=dev)
     ranges = torch.as_tensor(log["ranges"], device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     state = fastslam_init(cfg, pf, dev, start_pose=log["odom"][0])
+    counters = ("host_syncs", "refines", "updates", "resamples")
+    if graph:
+        K, P = cfg.chunk, pf.n_particles
+        g = pf_chunk_graph(cfg, pf, dev, K)
+        g.load(state)
+        odom_p = torch.from_numpy(np.asarray(log["odom"], np.float32))
+        ranges_p = torch.from_numpy(np.asarray(log["ranges"], np.float32))
+        odom_p, ranges_p = odom_p.pin_memory(), ranges_p.pin_memory()
+        out = torch.empty((K, 5), dtype=torch.float32, device=dev)
+
+        def replays(lo, hi):
+            for s in range(lo, hi, K):
+                g.run_chunk(
+                    odom_p[s : s + K], ranges_p[s : s + K],
+                    torch.randn((K, P, 3), generator=gen, device=dev),
+                    torch.rand(K, generator=gen, device=dev), out)
+            # the replays' counts into fastslam_step's (no host read)
+            fastslam_step.counter(dev).add_(g.counts)
+            g.counts.zero_()
+
+        return replays, fastslam_step, counters
 
     def steps(lo, hi):
         nonlocal state
@@ -350,21 +380,22 @@ def fastslam_steps(dev, cfg, pf, seeds):
                 generator=gen,
             )
 
-    return steps, fastslam_step, ("host_syncs", "refines", "updates",
-                                  "resamples")
+    return steps, fastslam_step, counters
 
 
-def seed_sweep(cfg, pf, log, dev, n):
+def seed_sweep(cfg, pf, log, dev, n, graph):
     """ATE and scans/s (CUDA events) of whole runs for proposal seeds
-    0..n-1, with their median and range."""
+    0..n-1, with their median and range; host-gated, or device-gated
+    (one chunk graph replay a chunk) with `graph`."""
     ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
-    run_fastslam(log, cfg, pf, dev, seed=0)   # warm
+    run_fastslam(log, cfg, pf, dev, seed=0, host_gated=not graph)   # warm
     out = []
     for seed in range(n):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        _, traj, _, _ = run_fastslam(log, cfg, pf, dev, seed=seed)
+        _, traj, _, _ = run_fastslam(log, cfg, pf, dev, seed=seed,
+                                     host_gated=not graph)
         end.record()
         end.synchronize()
         sec = start.elapsed_time(end) / 1e3
@@ -386,6 +417,7 @@ def main():
     ap.add_argument("--scans", type=int)
     ap.add_argument("--seeds", type=int, default=0)
     ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--graph", action="store_true")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -414,7 +446,8 @@ def main():
         steps, step, counters = hier_steps(dev)
     else:
         cfg, pf = PF_CONFIGS[args.pipeline]()
-        steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds)
+        steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds,
+                                               args.graph)
 
     steps(0, warm)
     torch.cuda.synchronize()
@@ -440,6 +473,7 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(json.dumps(dict(
         card=bench_configs.card(), pipeline=args.pipeline, scans=n,
+        graph=args.graph,
         first_scan=warm, wall_ms=wall_us / 1e3, us_per_scan=wall_us / n,
         device_busy_us=busy, device_busy_share=busy / wall_us,
         device_kernels=sum(v[0] for v in kernels.values()),

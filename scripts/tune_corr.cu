@@ -150,7 +150,7 @@ int main(int argc, char** argv) {
       cudaMemcpy(e, ef.data(), 4 * n_e, cudaMemcpyHostToDevice);
     auto call = [&] {
       return slam2d_corr_scores(e, f.bf16, d_sp, d_out, P, T, H, W, R, R,
-                                nullptr);
+                                nullptr, nullptr);
     };
     std::vector<float> out(n_out), again(n_out);
     const int err = call();
@@ -193,7 +193,8 @@ int main(int argc, char** argv) {
     const int more = atoi(argv[2]);
     cudaEventRecord(ea);
     for (int i = 0; i < more; ++i)
-      slam2d_corr_scores(d_e, 1, d_sp, d_out, P, T, H, W, R, R, nullptr);
+      slam2d_corr_scores(d_e, 1, d_sp, d_out, P, T, H, W, R, R, nullptr,
+                         nullptr);
     cudaEventRecord(eb_);
     cudaEventSynchronize(eb_);
     float ms;

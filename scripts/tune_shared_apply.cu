@@ -89,7 +89,7 @@ int main(int argc, char** argv) {
     auto call = [&] {
       return slam2d_shared_apply(maps, 1, images, 0, anchors, slots, ep_r,
                                  ep_c, ep_w, P, H, W, win, G, B, l_clamp,
-                                 nullptr);
+                                 nullptr, nullptr);
     };
     const int err = call();
     const cudaError_t run = cudaDeviceSynchronize();

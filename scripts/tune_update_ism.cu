@@ -119,7 +119,7 @@ int main(int argc, char** argv) {
           k.gox, k.gox, (float)res, (float)(1.0 / res), (float)step,
           (float)(0.5 * (float)step), (float)a_min, (float)min_range,
           (float)max_range, (float)(0.75 * res), -0.4f, k.l_occ, 10.0f, 1.0f,
-          nullptr);
+          nullptr, nullptr);
     };
     const int err = call();
     const cudaError_t run = cudaDeviceSynchronize();
@@ -154,7 +154,7 @@ int main(int argc, char** argv) {
                         (float)step, (float)(0.5 * (float)step), (float)a_min,
                         (float)min_range, (float)max_range,
                         (float)(0.75 * res), -0.4f, 0.85f, 10.0f, 1.0f,
-                        nullptr);
+                        nullptr, nullptr);
     cudaEventRecord(b);
     cudaEventSynchronize(b);
     float ms;

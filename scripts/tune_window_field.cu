@@ -59,7 +59,7 @@ int main(int argc, char** argv) {
     cudaMemcpy(origins, org.data(), 8 * P, cudaMemcpyHostToDevice);
     auto call = [&] {
       return slam2d_window_field(maps, 1, origins, out, 1, P, H, W, win, taps,
-                                 9, 0.25f, -0.4f, 0.6f, nullptr);
+                                 9, 0.25f, -0.4f, 0.6f, nullptr, nullptr);
     };
     const int err = call();
     const cudaError_t run = cudaDeviceSynchronize();

@@ -42,6 +42,9 @@
 // half the time; the nonzero cells the rest. Lists shared by the block's
 // warps (barriers every step or after the stream), a cell a lane with
 // R*C accumulators, 1, 4 or 8 blocks an image, and 512 threads were slower.
+// A gate (the particle filter's device-gated refine): when the device byte
+// *gate is 0 every block of every cluster returns at once, before any
+// cluster barrier, and `out` is not written; a null gate is always on.
 
 #include <cooperative_groups.h>
 
@@ -99,7 +102,9 @@ __device__ __forceinline__ float unit_cell(const uint4& v, int j) {
 template <int R, typename TE, bool kVec>
 __global__ void __launch_bounds__(THREADS)
     corr_kernel(const TE* __restrict__ E, const float* __restrict__ Sp,
-                float* __restrict__ out, int T, int H, int W) {
+                float* __restrict__ out, const unsigned char* __restrict__ gate,
+                int T, int H, int W) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   constexpr int RC = R * R;
   constexpr int SLOTS = (RC + 31) / 32;  // lags a lane
   constexpr int N = kVec ? 16 / (int)sizeof(TE) : 1;  // cells a unit
@@ -255,8 +260,9 @@ __global__ void __launch_bounds__(THREADS)
 }
 
 template <int R, typename TE, bool kVec>
-int launch(const void* E, const float* Sp, float* out, int P, int T, int H,
-           int W, cudaStream_t s) {
+int launch(const void* E, const float* Sp, float* out,
+           const unsigned char* gate, int P, int T, int H, int W,
+           cudaStream_t s) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(BLOCKS, T, P);
   cfg.blockDim = dim3(THREADS);
@@ -269,44 +275,48 @@ int launch(const void* E, const float* Sp, float* out, int P, int T, int H,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, corr_kernel<R, TE, kVec>, (const TE*)E, Sp, out, T, H, W);
+      &cfg, corr_kernel<R, TE, kVec>, (const TE*)E, Sp, out, gate, T, H, W);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename TE, bool kVec>
-int dispatch(int R, const void* E, const float* Sp, float* out, int P, int T,
-             int H, int W, cudaStream_t s) {
+int dispatch(int R, const void* E, const float* Sp, float* out,
+             const unsigned char* gate, int P, int T, int H, int W,
+             cudaStream_t s) {
   switch (R) {
-    case 1: return launch<1, TE, kVec>(E, Sp, out, P, T, H, W, s);
-    case 3: return launch<3, TE, kVec>(E, Sp, out, P, T, H, W, s);
-    case 5: return launch<5, TE, kVec>(E, Sp, out, P, T, H, W, s);
-    case 7: return launch<7, TE, kVec>(E, Sp, out, P, T, H, W, s);
-    case 9: return launch<9, TE, kVec>(E, Sp, out, P, T, H, W, s);
-    case 11: return launch<11, TE, kVec>(E, Sp, out, P, T, H, W, s);
+    case 1: return launch<1, TE, kVec>(E, Sp, out, gate, P, T, H, W, s);
+    case 3: return launch<3, TE, kVec>(E, Sp, out, gate, P, T, H, W, s);
+    case 5: return launch<5, TE, kVec>(E, Sp, out, gate, P, T, H, W, s);
+    case 7: return launch<7, TE, kVec>(E, Sp, out, gate, P, T, H, W, s);
+    case 9: return launch<9, TE, kVec>(E, Sp, out, gate, P, T, H, W, s);
+    case 11: return launch<11, TE, kVec>(E, Sp, out, gate, P, T, H, W, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename TE>
-int dispatch_form(int R, const void* E, const float* Sp, float* out, int P,
-                  int T, int H, int W, cudaStream_t s) {
+int dispatch_form(int R, const void* E, const float* Sp, float* out,
+                  const unsigned char* gate, int P, int T, int H, int W,
+                  cudaStream_t s) {
   // the vector form needs every image's units 16-byte aligned
   const bool vec = (uintptr_t)E % 16 == 0 &&
                    (unsigned long long)H * W * sizeof(TE) % 16 == 0;
-  return vec ? dispatch<TE, true>(R, E, Sp, out, P, T, H, W, s)
-             : dispatch<TE, false>(R, E, Sp, out, P, T, H, W, s);
+  return vec ? dispatch<TE, true>(R, E, Sp, out, gate, P, T, H, W, s)
+             : dispatch<TE, false>(R, E, Sp, out, gate, P, T, H, W, s);
 }
 
 }  // namespace
 
 extern "C" int slam2d_corr_scores(const void* E, int e_bf16, const float* Sp,
                                   float* out, int P, int T, int H, int W,
-                                  int R, int C, void* stream) {
+                                  int R, int C, const unsigned char* gate,
+                                  void* stream) {
   // a cell's index in its image and its Sp offset are 32-bit ints
   if (P < 1 || P > 65535 || T < 1 || T > 65535 || H < 1 || W < 1 || R != C ||
       (long long)(H + R) * (W + C) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return e_bf16 ? dispatch_form<__nv_bfloat16>(R, E, Sp, out, P, T, H, W, s)
-                : dispatch_form<float>(R, E, Sp, out, P, T, H, W, s);
+  return e_bf16
+             ? dispatch_form<__nv_bfloat16>(R, E, Sp, out, gate, P, T, H, W, s)
+             : dispatch_form<float>(R, E, Sp, out, gate, P, T, H, W, s);
 }

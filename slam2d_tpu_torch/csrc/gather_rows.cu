@@ -26,6 +26,10 @@
 // shared memory with mbarriers, one issuing thread a block, over chunk
 // sizes, depths and grids, with and without one load feeding a run of equal
 // ancestors: scripts/tune_gather_rows.cu, PERF.md).
+//
+// A gate (the particle filter's device-gated resample): when the device
+// byte *gate is 0 every block returns at once and `out` keeps its bits; a
+// null gate is always on.
 
 #include <cstdint>
 
@@ -44,8 +48,10 @@ constexpr int MAX_BLOCKS_PER_ROW = 64;
 template <typename V>
 __global__ void __launch_bounds__(THREADS)
 gather_rows_vector_kernel(const V* __restrict__ x, V* __restrict__ out,
-                          const int* __restrict__ ancestors, int P,
+                          const int* __restrict__ ancestors,
+                          const unsigned char* __restrict__ gate, int P,
                           long long n) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   const int p = blockIdx.y;
   const V* src = x + (size_t)clamp_row(ancestors[p], P) * n;
   V* dst = out + (size_t)p * n;
@@ -67,15 +73,16 @@ gather_rows_vector_kernel(const V* __restrict__ x, V* __restrict__ out,
 }
 
 template <typename V>
-int launch_vector(const void* x, void* out, const int* anc, int P,
-                  long long row_bytes, cudaStream_t s) {
+int launch_vector(const void* x, void* out, const int* anc,
+                  const unsigned char* gate, int P, long long row_bytes,
+                  cudaStream_t s) {
   const long long n = row_bytes / (long long)sizeof(V);
   const long long span = (long long)THREADS * UNROLL;
   long long bx = (n + span - 1) / span;
   if (bx > MAX_BLOCKS_PER_ROW) bx = MAX_BLOCKS_PER_ROW;
   const dim3 blocks((unsigned)bx, P);
   gather_rows_vector_kernel<V><<<blocks, THREADS, 0, s>>>(
-      (const V*)x, (V*)out, anc, P, n);
+      (const V*)x, (V*)out, anc, gate, P, n);
   return (int)cudaGetLastError();
 }
 
@@ -87,9 +94,12 @@ int last_variant = -1;
 // 0 words of 16 bytes, 1 of 4 bytes, 2 single bytes
 extern "C" int slam2d_gather_rows_last_variant() { return last_variant; }
 
+// out[p] = x[ancestors[p]] when the device byte *gate (null: always) is
+// not 0
 extern "C" int slam2d_gather_rows(const void* x, void* out,
                                   const int* ancestors, int P,
-                                  long long row_bytes, void* stream) {
+                                  long long row_bytes,
+                                  const unsigned char* gate, void* stream) {
   if (P < 1 || P > 65535 || row_bytes < 0) return (int)cudaErrorInvalidValue;
   if (row_bytes == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
@@ -97,12 +107,12 @@ extern "C" int slam2d_gather_rows(const void* x, void* out,
   const uintptr_t align = (uintptr_t)x | (uintptr_t)out | (uintptr_t)row_bytes;
   if (align % 16 == 0) {
     last_variant = 0;
-    return launch_vector<uint4>(x, out, ancestors, P, row_bytes, s);
+    return launch_vector<uint4>(x, out, ancestors, gate, P, row_bytes, s);
   }
   if (align % 4 == 0) {
     last_variant = 1;
-    return launch_vector<uint32_t>(x, out, ancestors, P, row_bytes, s);
+    return launch_vector<uint32_t>(x, out, ancestors, gate, P, row_bytes, s);
   }
   last_variant = 2;
-  return launch_vector<uint8_t>(x, out, ancestors, P, row_bytes, s);
+  return launch_vector<uint8_t>(x, out, ancestors, gate, P, row_bytes, s);
 }

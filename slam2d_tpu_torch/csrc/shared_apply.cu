@@ -55,6 +55,10 @@
 // and 64; the image as words beat cell loads, and words shared between
 // lanes by shuffles lost 5%; adding the marks inside the dense pass (their
 // sums found before it) lost 2%.
+//
+// A gate (the particle filter's device-gated update): when the device byte
+// *gate is 0 every block returns before it touches memory, so the maps keep
+// their bits; a null gate is always on.
 
 #include <cstdint>
 
@@ -182,8 +186,10 @@ shared_apply_kernel(T* __restrict__ maps, const I* __restrict__ images,
                     const int* __restrict__ slots,
                     const int* __restrict__ ep_r,
                     const int* __restrict__ ep_c,
-                    const float* __restrict__ ep_w, int H, int W, int win,
-                    int G, int B, int bands, float l_clamp) {
+                    const float* __restrict__ ep_w,
+                    const unsigned char* __restrict__ gate, int H, int W,
+                    int win, int G, int B, int bands, float l_clamp) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   extern __shared__ int smem[];  // the band's live marks: [3, B]
   __shared__ int warp_live[WARPS];
   __shared__ uint4 stage[WARPS][STAGES * 32];  // the warps' body rings
@@ -354,8 +360,8 @@ shared_apply_kernel(T* __restrict__ maps, const I* __restrict__ images,
 template <typename T, typename I>
 int launch(void* maps, const void* images, const int* anchors,
            const int* slots, const int* ep_r, const int* ep_c,
-           const float* ep_w, int P, int H, int W, int win, int G, int B,
-           float l_clamp, cudaStream_t s) {
+           const float* ep_w, const unsigned char* gate, int P, int H, int W,
+           int win, int G, int B, float l_clamp, cudaStream_t s) {
   const int bands = (min(win, H) + BAND - 1) / BAND;
   if ((long long)P * bands > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const size_t smem = 3 * (size_t)B * sizeof(int);
@@ -368,8 +374,8 @@ int launch(void* maps, const void* images, const int* anchors,
     if (e != cudaSuccess) return (int)e;
   }
   shared_apply_kernel<T, I><<<P * bands, THREADS, smem, s>>>(
-      (T*)maps, (const I*)images, anchors, slots, ep_r, ep_c, ep_w, H, W, win,
-      G, B, bands, l_clamp);
+      (T*)maps, (const I*)images, anchors, slots, ep_r, ep_c, ep_w, gate, H, W,
+      win, G, B, bands, l_clamp);
   return (int)cudaGetLastError();
 }
 
@@ -381,22 +387,22 @@ extern "C" int slam2d_shared_apply(void* maps, int map_bf16,
                                    const int* ep_r, const int* ep_c,
                                    const float* ep_w, int P, int H, int W,
                                    int win, int G, int B, float l_clamp,
-                                   void* stream) {
+                                   const unsigned char* gate, void* stream) {
   if (P < 1 || H < 1 || W < 1 || win < 1 || G < 1 || B < 0 || B > 4096)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (map_bf16 && img_bf16)
     return launch<__nv_bfloat16, __nv_bfloat16>(
-        maps, images, anchors, slots, ep_r, ep_c, ep_w, P, H, W, win, G, B,
-        l_clamp, s);
+        maps, images, anchors, slots, ep_r, ep_c, ep_w, gate, P, H, W, win, G,
+        B, l_clamp, s);
   if (map_bf16)
     return launch<__nv_bfloat16, float>(maps, images, anchors, slots, ep_r,
-                                        ep_c, ep_w, P, H, W, win, G, B,
+                                        ep_c, ep_w, gate, P, H, W, win, G, B,
                                         l_clamp, s);
   if (img_bf16)
     return launch<float, __nv_bfloat16>(maps, images, anchors, slots, ep_r,
-                                        ep_c, ep_w, P, H, W, win, G, B,
+                                        ep_c, ep_w, gate, P, H, W, win, G, B,
                                         l_clamp, s);
   return launch<float, float>(maps, images, anchors, slots, ep_r, ep_c, ep_w,
-                              P, H, W, win, G, B, l_clamp, s);
+                              gate, P, H, W, win, G, B, l_clamp, s);
 }

@@ -14,7 +14,10 @@
 // E row is read R*C times) and writes one 16-byte vector, so a warp stores
 // 512 contiguous bytes. Rows whose length is not a multiple of V take the
 // one-value-per-thread form. Values are moved as bits, so the stack is
-// bit-exact with the plain version in every dtype.
+// bit-exact with the plain version in every dtype. A gate (the particle
+// filter's device-gated refine): when the device byte *gate is 0 every
+// block returns at once and `out` is not written; a null gate is always
+// on.
 
 #include <cstdint>
 
@@ -32,7 +35,9 @@ struct alignas(sizeof(T) * V) Vec {
 template <typename T, int V>
 __global__ void shift_stack_kernel(const T* __restrict__ E,
                                    T* __restrict__ out, int R, int C, int win,
-                                   long long n_vec) {
+                                   long long n_vec,
+                                   const unsigned char* __restrict__ gate) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
   if (i >= n_vec) return;
   const int per_row = win / V;
@@ -60,7 +65,7 @@ __global__ void shift_stack_kernel(const T* __restrict__ E,
 
 template <typename T>
 int launch(const void* E, void* out, int G, int R, int C, int win,
-           cudaStream_t s) {
+           const unsigned char* gate, cudaStream_t s) {
   constexpr int V = 16 / sizeof(T);
   const bool vec = win % V == 0;
   const long long n =
@@ -68,10 +73,10 @@ int launch(const void* E, void* out, int G, int R, int C, int win,
   const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
   if (vec) {
     shift_stack_kernel<T, V><<<blocks, THREADS, 0, s>>>(
-        (const T*)E, (T*)out, R, C, win, n);
+        (const T*)E, (T*)out, R, C, win, n, gate);
   } else {
     shift_stack_kernel<T, 1><<<blocks, THREADS, 0, s>>>(
-        (const T*)E, (T*)out, R, C, win, n);
+        (const T*)E, (T*)out, R, C, win, n, gate);
   }
   return (int)cudaGetLastError();
 }
@@ -79,14 +84,15 @@ int launch(const void* E, void* out, int G, int R, int C, int win,
 }  // namespace
 
 extern "C" int slam2d_shift_stack(const void* E, void* out, int elem_bytes,
-                                  int G, int R, int C, int win, void* stream) {
+                                  int G, int R, int C, int win,
+                                  const unsigned char* gate, void* stream) {
   if (G < 1 || R < 1 || C < 1 || win < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (elem_bytes) {
-    case 1: return launch<uint8_t>(E, out, G, R, C, win, s);
-    case 2: return launch<uint16_t>(E, out, G, R, C, win, s);
-    case 4: return launch<uint32_t>(E, out, G, R, C, win, s);
-    case 8: return launch<uint64_t>(E, out, G, R, C, win, s);
+    case 1: return launch<uint8_t>(E, out, G, R, C, win, gate, s);
+    case 2: return launch<uint16_t>(E, out, G, R, C, win, gate, s);
+    case 4: return launch<uint32_t>(E, out, G, R, C, win, gate, s);
+    case 8: return launch<uint64_t>(E, out, G, R, C, win, gate, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

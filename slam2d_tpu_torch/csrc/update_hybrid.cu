@@ -44,7 +44,8 @@
 //   (the pose's cell minus half the window, clamped into the map), so the
 //   cells get the bits of the single-map window form at that origin.
 //   Float32 or bfloat16 maps: the arithmetic is float32, a bfloat16 cell
-//   rounded once on the store.
+//   rounded once on the store. Its gate (the particle filter's
+//   device-gated step) is read from device memory as the window form's.
 // The TPU kernel's angular beam clip and range early-out only skip work and
 // never change the result, so they are not carried over, nor is its padding
 // of the beam table to a multiple of 8. The arithmetic follows the TPU
@@ -256,23 +257,24 @@ extern "C" int slam2d_update_hybrid_window(
 // Every particle's window at once, in place: `maps` holds P maps of H x W
 // (float32, or bfloat16 when is_bf16), `poses` P poses; particle z's h x w
 // window is placed around poses[z] (its cell minus half the window,
-// clamped into the map); (ox, oy) is the maps' origin.
+// clamped into the map), when the device byte *gate (null: always) is not
+// 0; (ox, oy) is the maps' origin.
 extern "C" int slam2d_update_hybrid_particles(
     void* maps, int is_bf16, const float* poses, const float* ranges,
     const float* angles, int P, int H, int W, int h, int w, int B, float ox,
     float oy, float res, float step, float angle_min, float min_range,
     float max_range, float l_free, float l_occ, float l_clamp, float enable,
-    void* stream) {
+    const unsigned char* gate, void* stream) {
   if (h < 1 || w < 1 || h > H || w > W || P < 1 || P > 65535)
     return (int)cudaErrorInvalidValue;
   const Params p{ox,     oy,    res,   step,    angle_min, min_range,
                  max_range, l_free, l_occ, l_clamp, enable};
   if (is_bf16) {
     auto* m = (__nv_bfloat16*)maps;
-    return launch(m, m, W, nullptr, nullptr, poses, ranges, angles, h, w, B,
-                  p, stream, P, H);
+    return launch(m, m, W, nullptr, gate, poses, ranges, angles, h, w, B, p,
+                  stream, P, H);
   }
   auto* m = (float*)maps;
-  return launch(m, m, W, nullptr, nullptr, poses, ranges, angles, h, w, B, p,
+  return launch(m, m, W, nullptr, gate, poses, ranges, angles, h, w, B, p,
                 stream, P, H);
 }

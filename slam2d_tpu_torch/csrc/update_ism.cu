@@ -52,6 +52,9 @@
 // moves a cell on a beam slot's edge by one l_free or l_occ. Accumulation
 // and the clamp run in float32; a bf16 map is rounded to nearest even once,
 // at the store.
+// A gate (the particle filter's device-gated step): when the device byte
+// *gate is 0, every block returns before it touches memory, so the maps
+// keep their bits; a null gate is always on.
 
 #include "common.cuh"
 
@@ -95,7 +98,9 @@ __device__ __forceinline__ float cell_bearing(const Params& p, float cx,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
     update_ism_kernel(T* __restrict__ maps, const float* __restrict__ poses,
-                      const float* __restrict__ ranges, Params p) {
+                      const float* __restrict__ ranges,
+                      const unsigned char* __restrict__ gate, Params p) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   extern __shared__ float smem[];
   float* rng = smem;                                    // [B] the scan
   float* r_hit = smem + p.B;                            // [B]
@@ -245,7 +250,8 @@ extern "C" int slam2d_update_ism(void* maps, int is_bf16, const float* poses,
                                  float half_step, float angle_min,
                                  float min_range, float max_range,
                                  float occ_tol, float l_free, float l_occ,
-                                 float l_clamp, float enable, void* stream) {
+                                 float l_clamp, float enable,
+                                 const unsigned char* gate, void* stream) {
   // the box holds 2 * occ_tol plus a cell on each side: fewer than BOX
   // cells' span while occ_tol < res (it is 0.75 res)
   const float box_half = 2.0f * occ_tol * inv_res + 1.0f;
@@ -263,10 +269,10 @@ extern "C" int slam2d_update_ism(void* maps, int is_bf16, const float* poses,
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     update_ism_kernel<__nv_bfloat16><<<blocks, block, smem, s>>>(
-        (__nv_bfloat16*)maps, poses, ranges, p);
+        (__nv_bfloat16*)maps, poses, ranges, gate, p);
   } else {
     update_ism_kernel<float><<<blocks, block, smem, s>>>((float*)maps, poses,
-                                                         ranges, p);
+                                                         ranges, gate, p);
   }
   return (int)cudaGetLastError();
 }

@@ -126,8 +126,10 @@ __global__ void __launch_bounds__(THREADS)
 update_ray_kernel(const T* grid, T* out, int pitch,
                   const float* __restrict__ pose,
                   const float* __restrict__ ranges,
-                  const float* __restrict__ angles, int H, int W, int B,
+                  const float* __restrict__ angles,
+                  const unsigned char* __restrict__ gate, int H, int W, int B,
                   int Bpad, Params p, int map_rows) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   if (map_rows > 0) {
     const size_t part = blockIdx.z;
     pose += 3 * part;
@@ -251,7 +253,7 @@ template <typename T>
 int launch(const T* grid, T* out, int pitch, const float* pose,
            const float* ranges, const float* angles, int H, int W, int B,
            const Params& p, void* stream, int particles = 1,
-           int map_rows = 0) {
+           int map_rows = 0, const unsigned char* gate = nullptr) {
   if (H < 1 || W < 1 || B < 1 || B > 1360 || particles < 1 ||
       particles > 65535)
     return (int)cudaErrorInvalidValue;
@@ -260,7 +262,8 @@ int launch(const T* grid, T* out, int pitch, const float* pose,
   const dim3 blocks((W + TX - 1) / TX, (H + TY - 1) / TY, particles);
   const size_t smem = 9 * (size_t)Bpad * sizeof(float);
   update_ray_kernel<T><<<blocks, block, smem, (cudaStream_t)stream>>>(
-      grid, out, pitch, pose, ranges, angles, H, W, B, Bpad, p, map_rows);
+      grid, out, pitch, pose, ranges, angles, gate, H, W, B, Bpad, p,
+      map_rows);
   return (int)cudaGetLastError();
 }
 
@@ -284,22 +287,26 @@ extern "C" int slam2d_update_ray(const float* grid, float* out,
 // Every particle's window at once, in place: `maps` holds P maps of H x W
 // (float32, or bfloat16 when is_bf16), `poses` P poses; particle z's h x w
 // window is placed around poses[z] (its cell minus half the window,
-// clamped into the map); (ox, oy) is the maps' origin.
+// clamped into the map), when the device byte *gate (null: always) is not
+// 0 (the particle filter's device-gated step: every block returns at once
+// on 0, so the maps keep their bits); (ox, oy) is the maps' origin.
 extern "C" int slam2d_update_ray_particles(
     void* maps, int is_bf16, const float* poses, const float* ranges,
     const float* angles, int P, int H, int W, int h, int w, int B, float ox,
     float oy, float res, float min_range, float max_range,
     float inv_samples, float half_res, float inv_res, float angle_min,
     float step, float l_free, float l_occ, float l_clamp, float enable,
-    void* stream) {
+    const unsigned char* gate, void* stream) {
   if (h > H || w > W) return (int)cudaErrorInvalidValue;
   const Params p{ox,      oy,        res,  min_range, max_range,
                  inv_samples, half_res, inv_res, angle_min, step,
                  l_free,  l_occ,     l_clamp, enable};
   if (is_bf16) {
     auto* m = (__nv_bfloat16*)maps;
-    return launch(m, m, W, poses, ranges, angles, h, w, B, p, stream, P, H);
+    return launch(m, m, W, poses, ranges, angles, h, w, B, p, stream, P, H,
+                  gate);
   }
   auto* m = (float*)maps;
-  return launch(m, m, W, poses, ranges, angles, h, w, B, p, stream, P, H);
+  return launch(m, m, W, poses, ranges, angles, h, w, B, p, stream, P, H,
+                gate);
 }

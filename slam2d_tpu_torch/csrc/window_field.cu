@@ -58,6 +58,9 @@
 //   double-buffered.
 // Anything but FAST_TAPS symmetric non-negative taps takes the "generic"
 // variant: one block per 32 x 32 tile, runtime tap loops.
+// A gate (the particle filter's device-gated refine): when the device byte
+// *gate is 0 every block of either variant returns at once, before its
+// barriers, and `out` is not written; a null gate is always on.
 
 #include <cuda.h>   // CUtensorMap and its enums; the encoder is fetched at run time
 
@@ -217,9 +220,11 @@ __global__ void __launch_bounds__(BLOCK)
 window_field_kernel(const __grid_constant__ CUtensorMap tmap,
                     const TIn* __restrict__ maps,
                     const int* __restrict__ origins, TOut* __restrict__ out,
+                    const unsigned char* __restrict__ gate,
                     int P, int Hm, int Wm, int win, int n_bands, int n_ctiles,
                     Taps taps, float inv_sat, float free_logit,
                     float free_penalty, int use_tma, int packed) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   using G = Geometry<NT>;
   extern __shared__ __align__(128) unsigned char smem[];
   // full[s]: the tile in ring slot s has landed; empty[s]: every computing
@@ -429,9 +434,11 @@ template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(GEN_THREADS)
 window_field_generic_kernel(const TIn* __restrict__ maps,
                             const int* __restrict__ origins,
-                            TOut* __restrict__ out, int Hm, int Wm, int win,
-                            Taps taps, float inv_sat, float free_logit,
-                            float free_penalty) {
+                            TOut* __restrict__ out,
+                            const unsigned char* __restrict__ gate, int Hm,
+                            int Wm, int win, Taps taps, float inv_sat,
+                            float free_logit, float free_penalty) {
+  if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   extern __shared__ float gsmem[];
   const int hw = taps.n / 2;
   const int ext = GEN_TILE + 2 * hw;
@@ -503,6 +510,7 @@ struct Args {
   const void* maps;
   const int* origins;
   void* out;
+  const unsigned char* gate;
   int P, Hm, Wm, win;
   Taps taps;
   float inv_sat, free_logit, free_penalty;
@@ -522,8 +530,8 @@ int launch_generic(const Args& a) {
   }
   const int tiles = (a.win + GEN_TILE - 1) / GEN_TILE;
   kernel<<<dim3(tiles, tiles, a.P), GEN_THREADS, smem, a.stream>>>(
-      (const TIn*)a.maps, a.origins, (TOut*)a.out, a.Hm, a.Wm, a.win, a.taps,
-      a.inv_sat, a.free_logit, a.free_penalty);
+      (const TIn*)a.maps, a.origins, (TOut*)a.out, a.gate, a.Hm, a.Wm, a.win,
+      a.taps, a.inv_sat, a.free_logit, a.free_penalty);
   return (int)cudaGetLastError();
 }
 
@@ -567,7 +575,8 @@ int launch(const Args& a, int variant) {
   const long long n_items = (long long)a.P * n_bands * n_ctiles;
   const int blocks = (int)std::min<long long>(resident[dev], n_items);
   kernel<<<blocks, BLOCK, smem, a.stream>>>(
-      tmap, (const TIn*)a.maps, a.origins, (TOut*)a.out, a.P, a.Hm, a.Wm, a.win,
+      tmap, (const TIn*)a.maps, a.origins, (TOut*)a.out, a.gate, a.P, a.Hm,
+      a.Wm, a.win,
       n_bands, n_ctiles, a.taps, a.inv_sat, free_logit, a.free_penalty,
       (int)use_tma, (int)(variant % 2 == 0));
   return (int)cudaGetLastError();
@@ -583,8 +592,9 @@ extern "C" int slam2d_window_field(const void* maps, int in_bf16,
                                    int P, int Hm, int Wm, int win,
                                    const float* taps_host, int n_taps,
                                    float inv_sat, float free_logit,
-                                   float free_penalty, void* stream) {
-  Args a{maps, origins, out, P, Hm, Wm, win, {}, inv_sat, free_logit,
+                                   float free_penalty,
+                                   const unsigned char* gate, void* stream) {
+  Args a{maps, origins, out, gate, P, Hm, Wm, win, {}, inv_sat, free_logit,
          free_penalty, (cudaStream_t)stream};
   if (!load_taps(&a.taps, taps_host, n_taps) || P < 1 || P > 65535 || win < 1 ||
       Hm < 1 || Wm < 1)

@@ -33,6 +33,7 @@ import torch
 
 from slam2d_tpu_torch.config import GridConfig, SensorConfig
 from slam2d_tpu_torch.core.numerics import inv_f32
+from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.ops.update import (
     update_hybrid,
     update_hybrid_window,
@@ -386,7 +387,8 @@ def _particle_windows(maps, poses, cfg: GridConfig, region):
 
 
 def raycast_update_particles(maps, poses, ranges, cfg: GridConfig,
-                             sensor: SensorConfig, region, enable=1.0):
+                             sensor: SensorConfig, region, enable=1.0,
+                             gate=None):
     """`raycast_update` of one scan into every particle's map, IN PLACE:
     particle p's scan is taken from `poses[p]` and updates the `region` =
     (Hr, Wr) window of maps[p] [P, H, W] around that pose (a region the
@@ -396,7 +398,9 @@ def raycast_update_particles(maps, poses, ranges, cfg: GridConfig,
     one index_put_(accumulate=True) into the flattened stack (a particle
     offset in the index; within a particle, in the single update's
     order); then the cells they touch are clamped (the rest of each
-    window holds clamped values already). Returns `maps`."""
+    window holds clamped values already). Where the bool device tensor
+    `gate` is false, -0.0 is added and nothing clamped, as in
+    `raycast_window`: the maps keep their bits. Returns `maps`."""
     P, H, W = maps.shape
     (r0, c0), _ = _particle_windows(maps, poses, cfg, region)
     rows, cols, w = _raycast_entries(poses, ranges, cfg, sensor, region,
@@ -405,18 +409,23 @@ def raycast_update_particles(maps, poses, ranges, cfg: GridConfig,
     idx = ((base + r0 * W + c0)[:, None]
            + rows.to(torch.int64) * W + cols.to(torch.int64)).reshape(-1)
     flat = maps.view(-1)
-    flat.index_put_((idx,), (w * enable).to(maps.dtype).reshape(-1),
-                    accumulate=True)
-    flat[idx] = torch.clamp(flat[idx], -cfg.l_clamp, cfg.l_clamp)
+    add = (w * enable).to(maps.dtype).reshape(-1)
+    flat.index_put_((idx,), _build.gated(gate, add, -0.0), accumulate=True)
+    v = flat[idx]
+    flat[idx] = _build.gated(gate, torch.clamp(v, -cfg.l_clamp, cfg.l_clamp),
+                             v)
     return maps
 
 
 def dense_update_particles(maps, poses, ranges, cfg: GridConfig,
-                           sensor: SensorConfig, region, enable=1.0):
+                           sensor: SensorConfig, region, enable=1.0,
+                           gate=None):
     """`raycast_update_dense` of one scan into every particle's map, IN
     PLACE: particle p's `region` window of maps[p] [P, H, W] around
     `poses[p]` (placed as in `raycast_update_particles`) at its float
-    origin ox + f32(c0) * res, every window at once. Returns `maps`."""
+    origin ox + f32(c0) * res, every window at once; the old cells written
+    back where the bool device tensor `gate` is false (the same bits).
+    Returns `maps`."""
     P = maps.shape[0]
     Hr, Wr = region
     dev = maps.device
@@ -424,13 +433,14 @@ def dense_update_particles(maps, poses, ranges, cfg: GridConfig,
     pidx = torch.arange(P, device=dev)[:, None, None]
     rows = (r0[:, None] + torch.arange(Hr, device=dev))[:, :, None]
     cols = (c0[:, None] + torch.arange(Wr, device=dev))[:, None, :]
-    g = maps[pidx, rows, cols].to(torch.float32)
+    old = maps[pidx, rows, cols]
     upd = _dense_increments(
         poses[:, 0, None, None], poses[:, 1, None, None],
         poses[:, 2, None, None], ox[:, None, None], oy[:, None, None],
         region, ranges, cfg, sensor)
-    out = torch.clamp(g + upd * enable, -cfg.l_clamp, cfg.l_clamp)
-    maps[pidx, rows, cols] = out.to(maps.dtype)
+    out = torch.clamp(old.to(torch.float32) + upd * enable, -cfg.l_clamp,
+                      cfg.l_clamp)
+    maps[pidx, rows, cols] = _build.gated(gate, out.to(maps.dtype), old)
     return maps
 
 

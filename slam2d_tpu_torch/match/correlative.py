@@ -29,6 +29,7 @@ from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.core.numerics import inv_f32
 from slam2d_tpu_torch.grid.occupancy import scan_endpoints_local
 from slam2d_tpu_torch.grid.window import blur_halo_cells
+from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space
@@ -154,12 +155,14 @@ def splat_inputs(shape, pos_row, pos_col, valid, R: int, C: int,
     return r0, c0, fr, fc, ok
 
 
-def splat_image(r0, c0, fr, fc, ok, shape, cdtype):
+def splat_image(r0, c0, fr, fc, ok, shape, cdtype, gate=None):
     """E [..., H, W] in `cdtype`: the bilinear four-corner splat of every
     beam of `splat_inputs` (leading axes [..., B]). The corner weights are
     rounded to `cdtype` first, as the JAX package's one-hot operands are,
     multiplied and summed in float32, and rounded to `cdtype` once
-    (ops/mxu_score.py:_endpoint_splat)."""
+    (ops/mxu_score.py:_endpoint_splat). The splat always runs (an
+    index_put_, no kernel); where the bool device tensor `gate` is false,
+    zeros are selected in its place."""
     H, W = shape
     lead = r0.shape[:-1]
     n = math.prod(lead)
@@ -182,18 +185,21 @@ def splat_image(r0, c0, fr, fc, ok, shape, cdtype):
     val = torch.stack([wr[i] * wc[j] for i in (0, 1) for j in (0, 1)], dim=-1)
     E = torch.zeros(n * H * W, dtype=torch.float32, device=r0.device)
     E.index_put_((idx.reshape(-1),), val.reshape(-1), accumulate=True)
-    return E.reshape(*lead, H, W).to(cdtype)
+    return _build.gated(gate, E.reshape(*lead, H, W).to(cdtype), 0.0)
 
 
 def score_cmx(S, pos_row, pos_col, valid, R: int, C: int, bilinear: bool,
-              use_bf16: bool = True, emx: bool = False, plain: bool = False):
+              use_bf16: bool = True, emx: bool = False, plain: bool = False,
+              gate=None):
     """Summed (not yet averaged) scores [P, T, R, C] of the correlation
     scorer for a batch of search spaces S [P, H, W] float32 and endpoint
     positions [P, T, B]: score[p, t, dr, dc] = <E[p, t], S[p] shifted by
     (dr, dc)>, with E the beams' splat (`splat_image`, bf16 weights when
     `use_bf16`) and S zero-padded on its high sides (kernel 5,
     ops/corr.py; ops/mxu_score.py:score_offsets_cmx). `emx` rounds S to
-    the splat's dtype first, as the JAX package's emx form does.
+    the splat's dtype first, as the JAX package's emx form does. `gate` (a
+    bool device tensor) zeroes the splat and lets the kernel return at
+    once when it is false; the scores are then not to be read.
     `plain=True` runs the kernel's plain version (checks only)."""
     P, H, W = S.shape
     T = pos_row.shape[1]
@@ -201,11 +207,12 @@ def score_cmx(S, pos_row, pos_col, valid, R: int, C: int, bilinear: bool,
     r0, c0, fr, fc, ok = splat_inputs(
         (H, W), pos_row, pos_col, valid, R, C, bilinear
     )
-    E = splat_image(r0, c0, fr, fc, ok, (H, W), cdtype)
+    E = splat_image(r0, c0, fr, fc, ok, (H, W), cdtype, gate=gate)
     if emx:
         S = S.to(cdtype).to(torch.float32)
     Sp = torch.nn.functional.pad(S, (0, C, 0, R)).contiguous()
-    return corr_scores(E, Sp, R, C, plain=plain).reshape(P, T, R, C)
+    return corr_scores(E, Sp, R, C, plain=plain, gate=gate).reshape(
+        P, T, R, C)
 
 
 def score_offsets(
@@ -224,8 +231,8 @@ def score_offsets(
     The gather scorer masks each tap outside S on its own; the correlation
     scorer drops a beam whose patch leaves S. Returns
     [T, 2*radius+1, 2*radius+1] float32 scores. `gate` (a bool device
-    tensor) lets the gather scorer's kernel return at once when it is
-    false (ops/score.py); the scores are then meaningless.
+    tensor) lets the scorer's kernel (ops/score.py, ops/corr.py) return at
+    once when it is false; the scores are then meaningless.
     """
     pos_row, pos_col = endpoint_positions(
         prior_pose, pts_local, valid, dthetas, cell_size, origin_xy
@@ -239,7 +246,7 @@ def score_offsets(
     denom = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
     return score_cmx(
         S[None], pos_row[None], pos_col[None], valid, n, n, bilinear,
-        use_bf16=use_bf16, emx=impl == "emx", plain=plain,
+        use_bf16=use_bf16, emx=impl == "emx", plain=plain, gate=gate,
     )[0] / denom
 
 
@@ -449,7 +456,7 @@ def _pick(x, idx):
 
 def match_scans(
     S, origin, ranges, priors, gcfg: GridConfig, mcfg: MatcherConfig,
-    sensor: SensorConfig, plain: bool = False,
+    sensor: SensorConfig, plain: bool = False, gate=None,
 ):
     """`match_scan` for a batch of particles, each against its own search
     space, with one scorer launch per pass for all of them (the JAX
@@ -466,12 +473,15 @@ def match_scans(
     to "cmx" or "emx"); "gather" (and "pallas"), whose scorer takes one
     search space a launch (kernel 2), runs `match_scan` particle by
     particle, the function of the JAX package's vmapped gather match.
-    Nothing is read back to the host."""
+    Nothing is read back to the host. `gate` (a bool device tensor) lets
+    the scorer's kernels return at once when it is false; the results are
+    then not to be read."""
     impl = resolve_score_impl(mcfg.score_impl)
     if impl == "gather":
         out = [
             match_scan(S[p], ranges, priors[p], gcfg, mcfg, sensor,
-                       search_space=S[p], origin_xy=origin[p], plain=plain)
+                       search_space=S[p], origin_xy=origin[p], plain=plain,
+                       gate=gate)
             for p in range(priors.shape[0])
         ]
         return (torch.stack([o[0] for o in out]),
@@ -493,6 +503,7 @@ def match_scans(
         return score_cmx(
             S_, pos_row, pos_col, valid, n, n, bilinear,
             use_bf16=mcfg.score_bf16, emx=impl == "emx", plain=plain,
+            gate=gate,
         ) / denom
 
     def penalty(dx_m, dy_m, dth):

@@ -49,8 +49,8 @@ _SIGNATURES = {
     "slam2d_update_hybrid_window": [_P] * 6 + [_I] * 5 + [_F] * 11 + [_P],
     # maps, is_bf16, poses, ranges, P, H, W, Hr, Wr, B, gox, goy, res,
     # inv_res, step, half_step, angle_min, min_range, max_range, occ_tol,
-    # l_free, l_occ, l_clamp, enable, stream
-    "slam2d_update_ism": [_P, _I, _P, _P] + [_I] * 6 + [_F] * 14 + [_P],
+    # l_free, l_occ, l_clamp, enable, gate, stream
+    "slam2d_update_ism": [_P, _I, _P, _P] + [_I] * 6 + [_F] * 14 + [_P, _P],
     # S, pos_row, pos_col, valid, out, H, W, T, B, R, C, bilinear, stream
     "slam2d_score_offsets": [_P] * 5 + [_I] * 7 + [_P],
     # S, pos_row, pos_col, valid, out, gate, H, W, T, B, R, C, bilinear,
@@ -66,36 +66,37 @@ _SIGNATURES = {
     "slam2d_search_space_window": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _P,
                                    _I, _F, _F, _F, _P],
     # maps, in_bf16, origins, out, out_bf16, P, Hm, Wm, win, taps (host
-    # array), n_taps, 1/occ_sat, free_logit, free_penalty, stream
+    # array), n_taps, 1/occ_sat, free_logit, free_penalty, gate, stream
     "slam2d_window_field": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _I]
-    + [_F] * 3 + [_P],
+    + [_F] * 3 + [_P, _P],
     # -> the variant its last launch ran
     "slam2d_window_field_last_variant": [],
-    # E, out, elem_bytes, G, R, C, win, stream
-    "slam2d_shift_stack": [_P, _P] + [_I] * 5 + [_P],
-    # x, out, ancestors, P, row_bytes, stream
-    "slam2d_gather_rows": [_P, _P, _P, _I, _L, _P],
+    # E, out, elem_bytes, G, R, C, win, gate, stream
+    "slam2d_shift_stack": [_P, _P] + [_I] * 5 + [_P, _P],
+    # x, out, ancestors, P, row_bytes, gate, stream
+    "slam2d_gather_rows": [_P, _P, _P, _I, _L, _P, _P],
     # -> the variant its last launch ran
     "slam2d_gather_rows_last_variant": [],
     # maps, map_bf16, images, img_bf16, anchors, slots, ep_r, ep_c, ep_w,
-    # P, H, W, win, G, B, l_clamp, stream
-    "slam2d_shared_apply": [_P, _I, _P, _I] + [_P] * 5 + [_I] * 6 + [_F, _P],
-    # E, e_bf16, Sp, out, P, T, H, W, R, C, stream
-    "slam2d_corr_scores": [_P, _I, _P, _P] + [_I] * 6 + [_P],
+    # P, H, W, win, G, B, l_clamp, gate, stream
+    "slam2d_shared_apply": [_P, _I, _P, _I] + [_P] * 5 + [_I] * 6
+    + [_F, _P, _P],
+    # E, e_bf16, Sp, out, P, T, H, W, R, C, gate, stream
+    "slam2d_corr_scores": [_P, _I, _P, _P] + [_I] * 6 + [_P, _P],
     # grid, out, pose, ranges, angles, H, W, B, ox, oy, res, min_range,
     # max_range, 1/ray_samples, res/2, 1/res, angle_min, step, l_free,
     # l_occ, l_clamp, enable, stream
     "slam2d_update_ray": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P],
     # maps, is_bf16, poses, ranges, angles, P, H, W, h, w, B, ox, oy,
     # res, step, angle_min, min_range, max_range, l_free, l_occ, l_clamp,
-    # enable, stream
+    # enable, gate, stream
     "slam2d_update_hybrid_particles": [_P, _I, _P, _P, _P] + [_I] * 6
-    + [_F] * 11 + [_P],
+    + [_F] * 11 + [_P, _P],
     # maps, is_bf16, poses, ranges, angles, P, H, W, h, w, B, ox, oy, res,
     # min_range, max_range, 1/ray_samples, res/2, 1/res, angle_min, step,
-    # l_free, l_occ, l_clamp, enable, stream
+    # l_free, l_occ, l_clamp, enable, gate, stream
     "slam2d_update_ray_particles": [_P, _I, _P, _P, _P] + [_I] * 6
-    + [_F] * 14 + [_P],
+    + [_F] * 14 + [_P, _P],
     # D, O, Cinv, K, stream
     "slam2d_tridiag_factor": [_P, _P, _P, _I, _P],
 }
@@ -181,3 +182,24 @@ def check(err: int, name: str) -> None:
 def stream_handle(device) -> int:
     """The raw handle of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_gate(gate, device) -> None:
+    """Raise unless `gate` is None or a one-element bool tensor on
+    `device`: the device gate a kernel reads (a byte: 0 returns every block
+    at once)."""
+    if gate is not None and (gate.dtype != torch.bool or gate.numel() != 1
+                             or gate.device != device):
+        raise ValueError("gate must be a one-element bool tensor on the "
+                         "operands' device")
+
+
+def gate_ptr(gate):
+    """The device address of a checked `gate` (None: no gate, always on)."""
+    return None if gate is None else gate.data_ptr()
+
+
+def gated(gate, new, old):
+    """A plain version's gate: `new` where the gate is true (or None),
+    `old` where it is false, selected on the device with the same bits."""
+    return new if gate is None else torch.where(gate.reshape(()), new, old)

@@ -35,8 +35,9 @@ _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def shared_apply_plain(maps, anchors, slots, images, l_clamp, ep_rows=None,
-                       ep_cols=None, ep_w=None):
-    """Plain PyTorch version of the kernel, same numerics, in place."""
+                       ep_cols=None, ep_w=None, gate=None):
+    """Plain PyTorch version of the kernel, same numerics, in place (the
+    old cells written back where the gate is 0: the same bits)."""
     P, H, W = maps.shape
     win = images.shape[-1]
     dev = maps.device
@@ -54,8 +55,9 @@ def shared_apply_plain(maps, anchors, slots, images, l_clamp, ep_rows=None,
     )[on]
     img = images.index_select(0, slots.to(torch.int64)).to(torch.float32)[on]
     m = maps.view(-1)
-    y = torch.clamp(m[flat].to(torch.float32) + img, -l_clamp, l_clamp)
-    m[flat] = y.to(maps.dtype)
+    old = m[flat]
+    y = torch.clamp(old.to(torch.float32) + img, -l_clamp, l_clamp)
+    m[flat] = _build.gated(gate, y.to(maps.dtype), old)
     if ep_rows is None:
         return maps
 
@@ -70,8 +72,9 @@ def shared_apply_plain(maps, anchors, slots, images, l_clamp, ep_rows=None,
     first = live & ~earlier
     pidx = torch.arange(P, device=dev)[:, None].expand_as(cell)
     idx = (pidx * (H * W) + cell)[first]
-    t = m[idx] + s[first].to(maps.dtype)
-    m[idx] = torch.clamp(t, -l_clamp, l_clamp)
+    old = m[idx]
+    t = old + s[first].to(maps.dtype)
+    m[idx] = _build.gated(gate, torch.clamp(t, -l_clamp, l_clamp), old)
     return maps
 
 
@@ -115,7 +118,7 @@ def _check(maps, anchors, slots, images, ep):
 
 
 def shared_apply(maps, anchors, slots, images, l_clamp: float, ep_rows=None,
-                 ep_cols=None, ep_w=None, plain: bool = False):
+                 ep_cols=None, ep_w=None, gate=None, plain: bool = False):
     """Add each particle's slot image and endpoint marks into `maps`
     [P, H, W] (float32 or bfloat16) IN PLACE and return it.
 
@@ -123,14 +126,17 @@ def shared_apply(maps, anchors, slots, images, l_clamp: float, ep_rows=None,
     win // 2 lands there), `slots` [P] int32 slot indices into `images`
     [G, win, win] (float32 or bfloat16). `ep_rows`, `ep_cols` [P, B] int32
     and `ep_w` [P, B] float32 are the endpoint marks (None: no marks);
-    rows and columns of a beam with w != 0 must lie on the map.
-    `plain=True` runs the plain version on a CUDA tensor too, for checks
-    of the kernel only."""
+    rows and columns of a beam with w != 0 must lie on the map. `gate`, a
+    one-element bool tensor on the maps' device (None: always), is read
+    there: a gate of 0 leaves the maps bit-identical. `plain=True` runs
+    the plain version on a CUDA tensor too, for checks of the kernel
+    only."""
     ep = None if ep_rows is None else (ep_rows, ep_cols, ep_w)
     _check(maps, anchors, slots, images, ep)
+    _build.check_gate(gate, maps.device)
     if plain or maps.device.type == "cpu":
         return shared_apply_plain(maps, anchors, slots, images, l_clamp,
-                                  ep_rows, ep_cols, ep_w)
+                                  ep_rows, ep_cols, ep_w, gate)
     if maps.device.type != "cuda":
         raise ValueError(f"no apply kernel for device {maps.device}")
     P, H, W = maps.shape
@@ -142,7 +148,7 @@ def shared_apply(maps, anchors, slots, images, l_clamp: float, ep_rows=None,
         maps.data_ptr(), int(maps.dtype == torch.bfloat16), images.data_ptr(),
         int(images.dtype == torch.bfloat16), anchors.data_ptr(),
         slots.data_ptr(), *ep_ptrs, P, H, W, win, G, B, l_clamp,
-        _build.stream_handle(maps.device),
+        _build.gate_ptr(gate), _build.stream_handle(maps.device),
     )
     _build.check(err, "slam2d_shared_apply")
     shared_apply.launches += 1

@@ -38,8 +38,11 @@ def corr_scores_plain(E, Sp, R: int, C: int):
     return out
 
 
-def corr_scores(E, Sp, R: int, C: int, plain: bool = False):
-    """Scores [P, T, R*C] float32 (see the module docstring). `plain=True`
+def corr_scores(E, Sp, R: int, C: int, plain: bool = False, gate=None):
+    """Scores [P, T, R*C] float32 (see the module docstring). `gate`, a
+    one-element bool tensor on E's device (None: always), is read there:
+    on a gate of 0 the kernel writes nothing and the scores are not to be
+    read (the plain version computes them all the same). `plain=True`
     runs the plain version on a CUDA tensor too, for checks of the kernel
     only."""
     if E.dim() != 4 or E.dtype not in (torch.float32, torch.bfloat16):
@@ -61,6 +64,7 @@ def corr_scores(E, Sp, R: int, C: int, plain: bool = False):
         raise ValueError(f"need R = C in {_SIZES}, got {R} x {C}")
     if not (1 <= P <= 65535 and 1 <= T <= 65535):
         raise ValueError(f"need 1..65535 particles and thetas, got {P}, {T}")
+    _build.check_gate(gate, E.device)
     if plain or E.device.type == "cpu":
         return corr_scores_plain(E, Sp, R, C)
     if E.device.type != "cuda":
@@ -69,7 +73,8 @@ def corr_scores(E, Sp, R: int, C: int, plain: bool = False):
     out = torch.empty((P, T, R * C), dtype=torch.float32, device=E.device)
     err = lib.slam2d_corr_scores(
         E.data_ptr(), int(E.dtype == torch.bfloat16), Sp.data_ptr(),
-        out.data_ptr(), P, T, H, W, R, C, _build.stream_handle(E.device),
+        out.data_ptr(), P, T, H, W, R, C, _build.gate_ptr(gate),
+        _build.stream_handle(E.device),
     )
     _build.check(err, "slam2d_corr_scores")
     corr_scores.launches += 1

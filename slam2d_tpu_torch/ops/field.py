@@ -74,12 +74,15 @@ def window_field_plain(
 def window_field(
     maps, origins, win: int, taps: np.ndarray, *, inv_sat: float,
     free_logit: float, free_penalty: float, out_dtype=torch.float32,
-    plain: bool = False,
+    gate=None, plain: bool = False,
 ):
     """Fields [P, win, win] of every particle's map window (see the module
     docstring). `maps` [P, H, W] float32 or bfloat16, `origins` [P, 2]
     int32 (row, col) on the same device, `taps` the odd-length float32
-    blur kernel (host numpy). `plain=True` runs the plain version on a
+    blur kernel (host numpy). `gate`, a one-element bool tensor on the
+    maps' device (None: always), is read there: on a gate of 0 the kernel
+    writes nothing and the fields are not to be read (the plain version
+    makes them all the same). `plain=True` runs the plain version on a
     CUDA tensor too, for checks of the kernel only."""
     taps = np.ascontiguousarray(taps, np.float32)
     if maps.dim() != 3 or maps.dtype not in _DTYPES:
@@ -101,6 +104,7 @@ def window_field(
         raise ValueError(f"need an odd number of taps up to {_MAX_TAPS}")
     if out_dtype not in _DTYPES or win < 1 or not 1 <= P <= 65535:
         raise ValueError(f"bad out_dtype {out_dtype}, win {win} or P {P}")
+    _build.check_gate(gate, maps.device)
     if plain or maps.device.type == "cpu":
         return window_field_plain(
             maps, origins, win, taps, inv_sat, free_logit, free_penalty,
@@ -114,7 +118,7 @@ def window_field(
         maps.data_ptr(), int(maps.dtype == torch.bfloat16), origins.data_ptr(),
         out.data_ptr(), int(out_dtype == torch.bfloat16), P, H, W, win,
         taps.ctypes.data, len(taps), inv_sat, free_logit, free_penalty,
-        _build.stream_handle(maps.device),
+        _build.gate_ptr(gate), _build.stream_handle(maps.device),
     )
     _build.check(err, "slam2d_window_field")
     window_field.launches += 1

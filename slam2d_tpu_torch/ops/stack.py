@@ -33,16 +33,20 @@ def shift_stack_plain(E, R: int, C: int):
     )
 
 
-def shift_stack(E, R: int, C: int, plain: bool = False):
+def shift_stack(E, R: int, C: int, plain: bool = False, gate=None):
     """[G, R*C, win, win] shifted copies of E [G, win, win] (see the
-    module docstring). `plain=True` runs the plain version on a CUDA
-    tensor too, for checks of the kernel only."""
+    module docstring). `gate`, a one-element bool tensor on E's device
+    (None: always), is read there: on a gate of 0 the kernel writes
+    nothing and the stack is not to be read (the plain version makes it
+    all the same). `plain=True` runs the plain version on a CUDA tensor
+    too, for checks of the kernel only."""
     if E.dim() != 3 or E.shape[1] != E.shape[2]:
         raise ValueError(f"E must be [G, win, win], got {tuple(E.shape)}")
     if not E.is_contiguous():
         raise ValueError("E must be contiguous")
     if R < 1 or C < 1:
         raise ValueError(f"need R, C >= 1, got {R}, {C}")
+    _build.check_gate(gate, E.device)
     if plain or E.device.type == "cpu":
         return shift_stack_plain(E, R, C)
     if E.device.type != "cuda":
@@ -52,7 +56,7 @@ def shift_stack(E, R: int, C: int, plain: bool = False):
     lib = _build.load_library()
     err = lib.slam2d_shift_stack(
         E.data_ptr(), out.data_ptr(), E.element_size(), G, R, C, win,
-        _build.stream_handle(E.device),
+        _build.gate_ptr(gate), _build.stream_handle(E.device),
     )
     _build.check(err, "slam2d_shift_stack")
     shift_stack.launches += 1

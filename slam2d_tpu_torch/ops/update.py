@@ -31,7 +31,10 @@ device memory. `update_hybrid_particles` and `update_ray_particles` are
 the particle filter's forms of kernels 1 `hybrid` and `ray`: every
 particle's window of a [P, H, W] map stack in one launch (a grid axis
 over the particles, as kernel 1 `ism` has), each window placed around
-its particle's pose as `window_origins` says.
+its particle's pose as `window_origins` says. `update_ism` and the
+particle forms take the particle filter's device gate (`gate=`, a bool
+tensor on the maps' device): on 0 every block returns at once and the
+maps keep their bits.
 """
 
 from __future__ import annotations
@@ -306,12 +309,13 @@ def ism_occ_tol(resolution) -> float:
 
 def update_ism_plain(
     maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
-    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
+    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, gate=None,
 ):
     """Plain PyTorch version of the kernel, same float32 operations, in
     place. The occupied test loops over every beam, as the TPU kernel
     does; the free test checks the two beams whose slots can hold the
-    cell's bearing (see update_hybrid_plain)."""
+    cell's bearing (see update_hybrid_plain). A gate of 0 writes the old
+    cells back: the same bits."""
     P, H, W = maps.shape
     Hr, Wr = region
     B = ranges.shape[0]
@@ -320,7 +324,8 @@ def update_ism_plain(
     pidx = torch.arange(P, device=dev)[:, None, None]
     rows = (r0[:, None] + torch.arange(Hr, device=dev))[:, :, None]
     cols = (c0[:, None] + torch.arange(Wr, device=dev))[:, None, :]
-    g = maps[pidx, rows, cols].to(torch.float32)            # [P, Hr, Wr]
+    old = maps[pidx, rows, cols]
+    g = old.to(torch.float32)                               # [P, Hr, Wr]
 
     r_hit, rmin3 = _beam_tables(ranges, min_range, max_range)
     d, phi = ism_cell_polar(
@@ -349,7 +354,7 @@ def update_ism_plain(
 
     upd = (l_free * free.to(torch.float32) + l_occ * occ.to(torch.float32))
     out = torch.clamp(g + upd * enable, -l_clamp, l_clamp)
-    maps[pidx, rows, cols] = out.to(maps.dtype)
+    maps[pidx, rows, cols] = _build.gated(gate, out.to(maps.dtype), old)
     return maps
 
 
@@ -417,7 +422,8 @@ def _check_ism(maps, poses, ranges, region):
 
 def update_ism(
     maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
-    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, plain=False,
+    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, gate=None,
+    plain=False,
 ):
     """Integrate one scan into every particle's map, IN PLACE; returns
     `maps` [P, H, W] (float32 or bfloat16).
@@ -426,14 +432,17 @@ def update_ism(
     `region` = (Hr, Wr) window of maps[p] around that pose, placed as
     `window_origins` says (a region the size of the map is the whole map).
     `origin_xy` is the float world origin of cell (0, 0) of the maps. The
-    other arguments are the sensor and grid constants. `plain=True` runs
-    the plain version on a CUDA tensor too: it is meant for checks of the
-    kernel against it, not for use."""
+    other arguments are the sensor and grid constants. `gate`, a
+    one-element bool tensor on the maps' device (None: always), is read
+    there: a gate of 0 leaves the maps bit-identical, with nothing read
+    back to the host. `plain=True` runs the plain version on a CUDA tensor
+    too: it is meant for checks of the kernel against it, not for use."""
     _check_ism(maps, poses, ranges, region)
+    _build.check_gate(gate, maps.device)
     kw = dict(
         region=region, origin_xy=origin_xy, resolution=resolution, step=step,
         angle_min=angle_min, min_range=min_range, max_range=max_range,
-        l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
+        l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable, gate=gate,
     )
     if plain or maps.device.type == "cpu":
         return update_ism_plain(maps, poses, ranges, **kw)
@@ -448,7 +457,7 @@ def update_ism(
         origin_xy[0], origin_xy[1], resolution, inv_f32(resolution), step,
         f32(0.5 * f32(step)), angle_min, min_range, max_range,
         ism_occ_tol(resolution), l_free, l_occ, l_clamp, enable,
-        _build.stream_handle(maps.device),
+        _build.gate_ptr(gate), _build.stream_handle(maps.device),
     )
     _build.check(err, "slam2d_update_ism")
     update_ism.launches += 1
@@ -697,11 +706,11 @@ def _check_particles(maps, poses, ranges, angles, region):
 
 
 def _per_particle_plain(update_one, maps, poses, region, origin_xy,
-                        resolution):
+                        resolution, gate=None):
     """The plain version of a particle-batched update: `update_one(window
     [Hr, Wr] float32, pose [3], window origin (x, y))` on each particle's
     window in turn (placed by `window_origins`), written back IN PLACE in
-    the maps' dtype."""
+    the maps' dtype (the old cells where `gate` is 0: the same bits)."""
     Hr, Wr = region
     (r0, c0), (ox, oy) = window_origins(
         poses, region, maps.shape[1:], origin_xy, resolution)
@@ -709,14 +718,14 @@ def _per_particle_plain(update_one, maps, poses, region, origin_xy,
                                          ox.tolist(), oy.tolist())):
         win = maps[p, r : r + Hr, c : c + Wr]
         new = update_one(win.to(torch.float32).contiguous(), poses[p], (x, y))
-        win.copy_(new.to(maps.dtype))
+        win.copy_(_build.gated(gate, new.to(maps.dtype), win))
     return maps
 
 
 def update_hybrid_particles(
     maps, poses, ranges, angles, *, region, origin_xy, resolution, step,
     angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
-    plain=False,
+    gate=None, plain=False,
 ):
     """Kernel 1 `hybrid` on every particle's map, IN PLACE; returns `maps`
     [P, H, W] (float32 or bfloat16, updated in float32).
@@ -726,10 +735,11 @@ def update_hybrid_particles(
     says (a region the size of the map is the whole map), with the bits of
     `update_hybrid` on that window at its float origin ox + f32(c0) * res.
     `angles` [B] is the float32 beam-angle table. One launch for all the
-    particles. The plain version loops over the particles with
-    `update_hybrid_plain`; `plain=True` runs it on a CUDA tensor too (for
-    checks)."""
+    particles; `gate` as for `update_ism`. The plain version loops over
+    the particles with `update_hybrid_plain`; `plain=True` runs it on a
+    CUDA tensor too (for checks)."""
     _check_particles(maps, poses, ranges, angles, region)
+    _build.check_gate(gate, maps.device)
     kw = dict(resolution=resolution, step=step, angle_min=angle_min,
               min_range=min_range, max_range=max_range, l_free=l_free,
               l_occ=l_occ, l_clamp=l_clamp, enable=enable)
@@ -737,7 +747,7 @@ def update_hybrid_particles(
         return _per_particle_plain(
             lambda g, pose, o: update_hybrid_plain(
                 g, pose, ranges, angles, origin_xy=o, **kw),
-            maps, poses, region, origin_xy, resolution)
+            maps, poses, region, origin_xy, resolution, gate)
     if maps.device.type != "cuda":
         raise ValueError(f"no update kernel for device {maps.device}")
     P, H, W = maps.shape
@@ -747,7 +757,7 @@ def update_hybrid_particles(
         ranges.data_ptr(), angles.data_ptr(), P, H, W, region[0], region[1],
         ranges.shape[0], origin_xy[0], origin_xy[1], resolution, step,
         angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable,
-        _build.stream_handle(maps.device),
+        _build.gate_ptr(gate), _build.stream_handle(maps.device),
     )
     _build.check(err, "slam2d_update_hybrid_particles")
     update_hybrid_particles.launches += 1
@@ -760,16 +770,18 @@ update_hybrid_particles.launches = 0
 def update_ray_particles(
     maps, poses, ranges, angles, *, region, origin_xy, resolution, min_range,
     max_range, angle_min, step, l_free, l_occ, l_clamp, ray_samples,
-    enable=1.0, plain=False,
+    enable=1.0, gate=None, plain=False,
 ):
     """Kernel 1 `ray` on every particle's map, IN PLACE; returns `maps`
     [P, H, W] (float32 or bfloat16, updated in float32): particle p's
     window placed around `poses[p]` as in `update_hybrid_particles`, with
     the bits of `update_ray` on that window at its float origin. One
-    launch for all the particles. The plain version loops over the
-    particles with `ray_tables` and `update_ray_plain`; `plain=True` runs
-    it on a CUDA tensor too (for checks)."""
+    launch for all the particles; `gate` as for `update_ism`. The plain
+    version loops over the particles with `ray_tables` and
+    `update_ray_plain`; `plain=True` runs it on a CUDA tensor too (for
+    checks)."""
     _check_particles(maps, poses, ranges, angles, region)
+    _build.check_gate(gate, maps.device)
     if ranges.shape[0] > _MAX_RAY_BEAMS:
         raise ValueError(f"need at most {_MAX_RAY_BEAMS} beams")
     if plain or maps.device.type == "cpu":
@@ -784,7 +796,7 @@ def update_ray_particles(
                 l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
             )
         return _per_particle_plain(one, maps, poses, region, origin_xy,
-                                   resolution)
+                                   resolution, gate)
     if maps.device.type != "cuda":
         raise ValueError(f"no update kernel for device {maps.device}")
     P, H, W = maps.shape
@@ -795,7 +807,7 @@ def update_ray_particles(
         ranges.shape[0], origin_xy[0], origin_xy[1], resolution, min_range,
         max_range, inv_f32(max(ray_samples, 1)), 0.5 * resolution,
         inv_f32(resolution), angle_min, step, l_free, l_occ, l_clamp, enable,
-        _build.stream_handle(maps.device),
+        _build.gate_ptr(gate), _build.stream_handle(maps.device),
     )
     _build.check(err, "slam2d_update_ray_particles")
     update_ray_particles.launches += 1

@@ -15,22 +15,28 @@ systematic resampling when N_eff falls below its threshold (kernel:
 ops/gather.py).
 
 The stage gates (refine, update, bootstrap) are functions of the odometry
-alone. `fastslam_step` takes them from the host, as a row of
+alone. `fastslam_step` has two forms, which give the same bits with the
+same draws. The host-gated form takes them from the host, as a row of
 `host_gate_flags` (a numpy copy of the JAX package's), so they cost no
-device read. Each scan then runs only the stages that fire,
-so no map-shaped select is ever made: this is the function of the JAX
-package's ungated `fastslam_step`, not its TPU dispatch machinery. The
-resample trigger, a function of the weights, is the one value a refine
-event reads back. The maps are updated IN PLACE (the JAX package returns
-new arrays); a resample makes a new map tensor.
+device read, and runs only the stages that fire; the resample trigger, a
+function of the weights, is the one value a refine event reads back. The
+device-gated form is the JAX package's ungated step (its `lax.cond`s):
+the gates and the trigger are computed on the device, every kernel of
+the step launches with its gate in device memory and returns at once on
+0, `torch.where` selects, and nothing is read back, so a chunk of steps
+can be one CUDA graph (run/fastslam_run.py). The maps are updated IN
+PLACE (the JAX package returns new arrays); the host-gated resample makes
+a new map tensor, the device-gated one copies into the same tensor.
 
 Random draws: JAX's threefry stream cannot be reproduced, so the standard
 normal proposal noise [P, 3] and the resample's uniform u come from a
 `torch.Generator`, or are passed in (the tests pass JAX's draws).
 
-Plain integers on `fastslam_step` count the host reads (`host_syncs`)
-and the scans that refined (`refines`), updated the maps (`updates`) and
-resampled (`resamples`); a caller may reset them.
+`fastslam_step` counts the host reads of the host-gated form
+(`host_syncs`, a plain integer) and the scans that refined (`refines`),
+updated the maps (`updates`) and resampled (`resamples`): the device-gated
+form adds those three on the device, and reading one of them reads the
+device counters back once; a caller may set them (to 0).
 """
 
 from __future__ import annotations
@@ -241,10 +247,12 @@ def per_particle_windows(priors, cfg, mcfg, H, W):
     return win, origins, origin_xy
 
 
-def per_particle_fields(logodds, priors, cfg, mcfg, plain=False):
+def per_particle_fields(logodds, priors, cfg, mcfg, plain=False, gate=None):
     """(S [P, h, w] float32, origins [P, 2] world x, y): each particle's
     search space over its scan window (per_particle_windows), all built in
-    one launch of the field kernel (ops/field.py)."""
+    one launch of the field kernel (ops/field.py), which returns at once
+    where the bool device tensor `gate` is false (S is then not to be
+    read)."""
     res = cfg.grid.resolution
     P, H, W = logodds.shape
     size, origins, origin_xy = per_particle_windows(priors, cfg, mcfg, H, W)
@@ -254,32 +262,36 @@ def per_particle_fields(logodds, priors, cfg, mcfg, plain=False):
         gaussian_kernel_1d(mcfg.sigma_m / res, blur_halo_cells(mcfg, res)),
         inv_sat=1.0 / mcfg.occ_evidence_sat,
         free_logit=math.log(thr / (1.0 - thr)),
-        free_penalty=mcfg.free_penalty, out_dtype=torch.float32, plain=plain,
+        free_penalty=mcfg.free_penalty, out_dtype=torch.float32, gate=gate,
+        plain=plain,
     )
     if size > min(H, W):
         S = S[:, :H, :W].contiguous()
     return S, origin_xy
 
 
-def _refine_all(logodds, ranges, priors, cfg, pf, plain=False):
+def _refine_all(logodds, ranges, priors, cfg, pf, plain=False, gate=None):
     """(matched poses [P, 3], scores [P]) of every particle's refine: the
     shared-anchor refine or the per-particle one, as `refine_mode`
-    resolves."""
+    resolves. Where the bool device tensor `gate` is false the kernels
+    return at once and the result is not to be read."""
     mcfg = refine_matcher(cfg, pf)
     mode = _resolve_refine_mode(pf, mcfg, pf.n_particles)
     if mode == "shared":
         return shared_refine(
-            logodds, ranges, priors, cfg, mcfg, pf, plain=plain
+            logodds, ranges, priors, cfg, mcfg, pf, plain=plain, gate=gate
         )
     # every particle's own match against its own map, batched (the JAX
     # package's vmap of _windowed_match), one scorer launch per pass
-    S, origin_xy = per_particle_fields(logodds, priors, cfg, mcfg, plain=plain)
+    S, origin_xy = per_particle_fields(logodds, priors, cfg, mcfg,
+                                       plain=plain, gate=gate)
     return match_scans(
-        S, origin_xy, ranges, priors, cfg.grid, mcfg, cfg.sensor, plain=plain
+        S, origin_xy, ranges, priors, cfg.grid, mcfg, cfg.sensor, plain=plain,
+        gate=gate,
     )
 
 
-def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
+def _update_all(logodds, poses, ranges, cfg, pf, plain=False, gate=None):
     """Integrate the scan into every particle's map at its pose, IN PLACE.
 
     PFConfig.update_mode picks the batching, "auto" as on the JAX
@@ -294,7 +306,10 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
     ("pallas_ray") or `hybrid` ("pallas_hybrid") with a grid axis over the
     particles; the sampled-ray update ("sparse", "sparse_mxu", the "auto"
     past pi) in one index_put_ over the stack; the dense one ("dense").
-    The quantized_* modes are diagnostics of the JAX package and raise."""
+    The quantized_* modes are diagnostics of the JAX package and raise.
+    Where the bool device tensor `gate` is false the maps keep their bits
+    (each form takes the gate: see pf/shared_update.py, ops/update.py,
+    grid/occupancy.py)."""
     mode = pf.update_mode
     if mode == "auto":
         mode = (
@@ -302,7 +317,8 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
             else "per_particle"
         )
     if mode == "shared":
-        return shared_update(logodds, poses, ranges, cfg, pf, plain=plain)
+        return shared_update(logodds, poses, ranges, cfg, pf, plain=plain,
+                             gate=gate)
     if mode != "per_particle":
         raise NotImplementedError(
             f"update_mode={mode!r}: the quantized_* update modes are "
@@ -314,15 +330,17 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
     win = update_window_cells(g, s)
     region = (win, win) if win < min(H, W) else (H, W)
     if impl in ("sparse", "sparse_mxu"):
-        return raycast_update_particles(logodds, poses, ranges, g, s, region)
+        return raycast_update_particles(logodds, poses, ranges, g, s, region,
+                                        gate=gate)
     if impl == "dense":
-        return dense_update_particles(logodds, poses, ranges, g, s, region)
+        return dense_update_particles(logodds, poses, ranges, g, s, region,
+                                      gate=gate)
     consts = update_constants(g, s)
     origin_xy = (g.origin_x, g.origin_y)
     if impl == "pallas":
         return update_ism(
             logodds, poses, ranges, region=region, origin_xy=origin_xy,
-            plain=plain, **consts,
+            gate=gate, plain=plain, **consts,
         )
     angles = beam_angles(s, logodds.device)
     if impl == "pallas_ray":
@@ -332,11 +350,11 @@ def _update_all(logodds, poses, ranges, cfg, pf, plain=False):
             min_range=s.min_range, max_range=s.max_range,
             angle_min=s.angle_min, step=consts["step"], l_free=g.l_free,
             l_occ=g.l_occ, l_clamp=g.l_clamp, ray_samples=g.ray_samples,
-            plain=plain,
+            gate=gate, plain=plain,
         )
     return update_hybrid_particles(
         logodds, poses, ranges, angles, region=region, origin_xy=origin_xy,
-        plain=plain, **consts,
+        gate=gate, plain=plain, **consts,
     )
 
 
@@ -379,35 +397,24 @@ def _noise_scale(pf: PFConfig, device) -> torch.Tensor:
     )
 
 
-def fastslam_step(
-    state: PFState, odom, ranges, cfg: FrontendConfig, pf: PFConfig,
-    gates, noise=None, u=None, generator=None, plain: bool = False,
-):
-    """One scan for all particles. Returns (state, (best_pose [3], n_eff,
-    best_score)) as tensors on the state's device.
-
-    `odom` [3] and `ranges` [B] are float32 tensors on that device.
-    `gates` is (do_refine, do_update, in_boot) as host bools: the scan's
-    row of `host_gate_flags`. `noise` [P, 3] is the standard normal proposal draw and `u` the
-    resample's uniform (0-d); None draws them from `generator`. The noise
-    is used on refine and bootstrap scans, u on resampling scans. The
-    maps of `state` are updated in place. `plain=True` runs every
-    kernel's plain version even on a CUDA device (for checks).
-
-    FastSLAM-2.0-flavoured proposal: each particle refines its odometry +
-    noise proposal against its own map; the match score is the
-    likelihood-field weight update. Between refines the particles
-    dead-reckon on odometry; during bootstrap they propagate with noise.
-    """
-    P = pf.n_particles
-    dev = state.poses.device
+def _motion(state, odom, cfg):
+    """(delta [3], step length, motion since the last refine and since the
+    last update, each with this scan's) of the odometry step."""
     delta = se2.between(state.prev_odom, odom)
     step_len = torch.hypot(delta[0], delta[1])
     rot_equiv = torch.abs(se2.wrap_angle(delta[2])) * (
         cfg.match_min_motion / max(cfg.match_min_rot, 1e-6)
     )
-    since_m = state.since_match + step_len + rot_equiv
-    since = state.since_update + step_len
+    return (delta, step_len, state.since_match + step_len + rot_equiv,
+            state.since_update + step_len)
+
+
+def _step_host_gated(state, odom, ranges, cfg, pf, gates, noise, u,
+                     generator, plain, count):
+    """`fastslam_step` with the gates as host bools (its docstring)."""
+    P = pf.n_particles
+    dev = state.poses.device
+    delta, step_len, since_m, since = _motion(state, odom, cfg)
     do_refine, do_update, boot = (bool(g) for g in gates)
 
     if do_refine or boot:
@@ -417,16 +424,14 @@ def fastslam_step(
     log_w = state.log_w
     scores = torch.full((P,), -1.0, dtype=torch.float32, device=dev)
     if do_refine:
-        fastslam_step.refines += 1
+        count("refines")
         priors = se2.compose(state.poses, delta[None, :] + noise)
         poses, scores = _refine_all(
             state.logodds, ranges, priors, cfg, pf, plain=plain
         )
         # log-space likelihood-field weights, normalized (logsumexp's
         # operations: log(sum(exp(x - max))) + max)
-        log_w = log_w + pf.weight_sharpness * scores
-        m = log_w.max()
-        log_w = log_w - (torch.log(torch.exp(log_w - m).sum()) + m)
+        log_w = _normalized(log_w + pf.weight_sharpness * scores)
         since_m = torch.zeros_like(since_m)
     elif boot:
         # bootstrap: noisy propagation builds particle diversity
@@ -436,7 +441,7 @@ def fastslam_step(
 
     logodds = state.logodds
     if do_update:
-        fastslam_step.updates += 1
+        count("updates")
         _update_all(logodds, poses, ranges, cfg, pf, plain=plain)
         since = torch.zeros_like(since)
 
@@ -445,16 +450,104 @@ def fastslam_step(
     if do_refine:
         fastslam_step.host_syncs += 1
         if bool(n_eff < pf.resample_threshold * P):
-            fastslam_step.resamples += 1
+            count("resamples")
             if u is None:
                 u = torch.rand((), generator=generator, device=dev)
             ancestors = systematic_ancestors(log_w, u)
             logodds = _resample_copy(logodds, ancestors, plain=plain)
             poses = poses.index_select(0, ancestors)
-            log_w = torch.full_like(
-                log_w, -float(np.log(np.float32(P), dtype=np.float32))
-            )
+            log_w = torch.full_like(log_w, _uniform_log_w(P))
 
+    return _finish(state, logodds, poses, log_w, odom, step_len, since,
+                   since_m, n_eff, scores)
+
+
+def _step_device_gated(state, odom, ranges, cfg, pf, noise, u, generator,
+                       plain, host_branch, counts, scratch):
+    """`fastslam_step` with the gates on the device (its docstring)."""
+    P = pf.n_particles
+    dev = state.poses.device
+    if host_branch is None:
+        host_branch = dev.type == "cpu"
+    delta, step_len, since_m, since = _motion(state, odom, cfg)
+    in_boot = state.dist < cfg.bootstrap_dist
+    do_refine = ~in_boot & (since_m >= cfg.match_min_motion)
+    do_update = in_boot | (since >= cfg.map_update_min_motion)
+
+    # JAX's draws: noise and a uniform every scan, whatever fires
+    if noise is None:
+        noise = torch.randn((P, 3), generator=generator, device=dev)
+    if u is None:
+        u = torch.rand((), generator=generator, device=dev)
+    proposal = se2.compose(
+        state.poses, delta[None, :] + noise * _noise_scale(pf, dev)
+    )
+    poses = torch.where(
+        in_boot, proposal, se2.compose(state.poses, delta[None, :])
+    )
+    log_w = state.log_w
+    scores = torch.full((P,), -1.0, dtype=torch.float32, device=dev)
+    if not host_branch or bool(do_refine):
+        refined, sc = _refine_all(
+            state.logodds, ranges, proposal, cfg, pf, plain=plain,
+            gate=do_refine,
+        )
+        poses = torch.where(do_refine, refined, poses)
+        log_w = torch.where(
+            do_refine, _normalized(log_w + pf.weight_sharpness * sc), log_w
+        )
+        scores = torch.where(do_refine, sc, scores)
+    since_m = torch.where(do_refine, 0.0, since_m)
+
+    logodds = state.logodds
+    if not host_branch or bool(do_update):
+        _update_all(logodds, poses, ranges, cfg, pf, plain=plain,
+                    gate=do_update)
+    since = torch.where(do_update, 0.0, since)
+
+    n_eff = effective_sample_size(log_w)
+    trigger = do_refine & (n_eff < pf.resample_threshold * P)
+    if not host_branch or bool(trigger):
+        ancestors = systematic_ancestors(log_w, u)
+        # out[p] = maps[anc[p]] through a scratch stack and back, each copy
+        # gated on the trigger, so the maps keep their address
+        if scratch is None:
+            scratch = torch.empty_like(logodds)
+        gather_rows(logodds, ancestors, plain=plain, gate=trigger,
+                    out=scratch)
+        gather_rows(scratch, _identity(P, dev), plain=plain, gate=trigger,
+                    out=logodds)
+        poses = torch.where(trigger, poses.index_select(0, ancestors), poses)
+        log_w = torch.where(trigger, _uniform_log_w(P), log_w)
+    if counts is None:
+        counts = fastslam_step.counter(dev)
+    counts += torch.stack([do_refine, do_update, trigger])
+    return _finish(state, logodds, poses, log_w, odom, step_len, since,
+                   since_m, n_eff, scores)
+
+
+def _normalized(log_w):
+    """log_w - logsumexp(log_w), with logsumexp's operations:
+    log(sum(exp(x - max))) + max."""
+    m = log_w.max()
+    return log_w - (torch.log(torch.exp(log_w - m).sum()) + m)
+
+
+def _uniform_log_w(P: int) -> float:
+    """-log(P) in float32, the weights after a resample."""
+    return -float(np.log(np.float32(P), dtype=np.float32))
+
+
+@functools.cache
+def _identity(P: int, device) -> torch.Tensor:
+    """int32 [0, P) on `device` (the copy back of the gated resample),
+    cached so a step makes nothing. Callers must not write into it."""
+    return torch.arange(P, dtype=torch.int32, device=device)
+
+
+def _finish(state, logodds, poses, log_w, odom, step_len, since, since_m,
+            n_eff, scores):
+    """The new state and the scan's (best pose, N_eff, best score)."""
     best = torch.argmax(log_w).reshape(1)
     new_state = PFState(
         logodds, poses, log_w, odom, state.dist + step_len, since, since_m
@@ -464,10 +557,94 @@ def fastslam_step(
     )
 
 
-fastslam_step.host_syncs = 0
-fastslam_step.refines = 0
-fastslam_step.updates = 0
-fastslam_step.resamples = 0
+_COUNTS = ("refines", "updates", "resamples")
+
+
+class _FastslamStep:
+    """`fastslam_step`: one scan, with its counters (see the module doc)."""
+
+    def __init__(self):
+        self.host_syncs = 0
+        self._ints = dict.fromkeys(_COUNTS, 0)
+        self._pending = {}   # device -> int64 [3] (refines, updates, resamples)
+
+    def __call__(self, state, odom, ranges, cfg, pf, gates=None, noise=None,
+                 u=None, generator=None, plain=False, host_branch=None,
+                 counts=None, scratch=None):
+        if gates is not None:
+            return _step_host_gated(state, odom, ranges, cfg, pf, gates,
+                                    noise, u, generator, plain, self._count)
+        return _step_device_gated(state, odom, ranges, cfg, pf, noise, u,
+                                  generator, plain, host_branch, counts,
+                                  scratch)
+
+    def _count(self, name):
+        self._ints[name] += 1
+
+    def counter(self, device) -> torch.Tensor:
+        """The device's int64 [3] (refines, updates, resamples) accumulator
+        that device-gated steps given no `counts` add to (made on first
+        use: outside a graph capture)."""
+        key = torch.device(device)
+        if key not in self._pending:
+            self._pending[key] = torch.zeros(3, dtype=torch.int64, device=key)
+        return self._pending[key]
+
+    def _flush(self):
+        for acc in self._pending.values():
+            for name, n in zip(_COUNTS, acc.cpu().tolist()):
+                self._ints[name] += n
+            acc.zero_()
+
+    def _get(name):
+        def get(self):
+            self._flush()
+            return self._ints[name]
+
+        def set_(self, value):
+            self._flush()
+            self._ints[name] = int(value)
+
+        return property(get, set_)
+
+    refines = _get("refines")
+    updates = _get("updates")
+    resamples = _get("resamples")
+    del _get
+
+
+fastslam_step = _FastslamStep()
+fastslam_step.__doc__ = """One scan for all particles. Returns (state, (best_pose [3], n_eff,
+best_score)) as tensors on the state's device.
+
+`odom` [3] and `ranges` [B] are float32 tensors on that device. `noise`
+[P, 3] is the standard normal proposal draw and `u` the resample's
+uniform (0-d); None draws them from `generator`. The maps of `state` are
+updated in place. `plain=True` runs every kernel's plain version even
+on a CUDA device (for checks).
+
+Two forms, with the same bits given the same draws:
+- `gates` = (do_refine, do_update, in_boot) as host bools, the scan's row
+  of `host_gate_flags`: only the stages that fire run; the noise is drawn
+  and used on refine and bootstrap scans, u on resampling scans; a refine
+  reads the resample trigger back (`host_syncs`); a resample makes a new
+  map tensor.
+- `gates=None`, the JAX package's ungated step: the gates and the
+  resample trigger are computed on the device from the state, the noise
+  and u drawn on every scan; the refine, the update and the resample's
+  row gathers launch on every scan with the gate in device memory
+  (their kernels return at once on 0) and `torch.where` selects. The
+  maps keep their address: the resample gathers into `scratch` (None: a
+  new stack) and back, both gated. Nothing is read to the host, and the
+  gates are added to `counts` (int64 [3] on the device; None: the step's
+  own accumulator). `host_branch` (default: on the CPU) reads each gate
+  and skips the gated-off work instead, with the same bits.
+
+FastSLAM-2.0-flavoured proposal: each particle refines its odometry +
+noise proposal against its own map; the match score is the
+likelihood-field weight update. Between refines the particles dead-reckon
+on odometry; during bootstrap they propagate with noise.
+"""
 
 
 def _to_torch(a, device):

@@ -21,6 +21,11 @@ sub-bin peak, keep-the-prior rule) follows the JAX function line by line.
 
 Only the unpadded window frame of the JAX package's stack is ported: the
 fused field kernel, which the port always runs, emits that frame.
+
+The device-gated step passes its refine gate (a bool device tensor): the
+field and stack kernels return at once when it is false, the splat's
+zeros and the product's zeros are selected by `torch.where`, and the
+product itself still runs (no GEMM here takes a gate).
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from slam2d_tpu_torch.match.correlative import (
     splat_image,
     splat_inputs,
 )
+from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.stack import shift_stack
 
@@ -68,14 +74,15 @@ def aligned_origins(priors, gcfg, win: int):
 
 
 def endpoint_splat(ranges, sensor, thetas, win: int, R: int, C: int,
-                   res: float, cdtype):
+                   res: float, cdtype, gate=None):
     """E [G, win, win] in `cdtype`: the bilinear four-corner splat of every
     valid beam endpoint of the scan rotated by each of `thetas`, placed so
     that the window's center cell center is the sensor, shifted by
     (-(R//2), -(C//2)) cells (ops/mxu_score.py:_endpoint_splat with
     _splat_inputs). A beam whose (R+1) x (C+1) patch leaves the window is
     dropped whole. The corner weights are rounded to `cdtype` first, as
-    the JAX package's one-hot operands are, and summed in float32."""
+    the JAX package's one-hot operands are, and summed in float32. Zeros
+    where the bool device tensor `gate` is false."""
     pts_local, valid = scan_endpoints_local(ranges, sensor)
     pts = se2.rotate_points(thetas, pts_local[None, :, :])      # [G, B, 2]
     inv_res = inv_f32(res)
@@ -84,17 +91,19 @@ def endpoint_splat(ranges, sensor, thetas, win: int, R: int, C: int,
     r0, c0, fr, fc, ok = splat_inputs(
         (win, win), pos_row, pos_col, valid, R, C, bilinear=True
     )
-    return splat_image(r0, c0, fr, fc, ok, (win, win), cdtype)
+    return splat_image(r0, c0, fr, fc, ok, (win, win), cdtype, gate=gate)
 
 
 def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,
-                         res: float, cdtype, plain: bool = False):
+                         res: float, cdtype, plain: bool = False, gate=None):
     """The scan-shared scorer weights [G*R*C, win*win] in `cdtype`:
     stack[g, dr*C + dc][h, w] = E_g[h - dr, w - dc], zero where the shift
     runs off the low edge, so <stack[g, l], S> scores the shift (dr, dc).
+    Not to be read where the bool device tensor `gate` is false.
     `plain=True` runs the stack kernel's plain version (checks only)."""
-    E = endpoint_splat(ranges, sensor, thetas, win, R, C, res, cdtype)
-    return shift_stack(E, R, C, plain=plain).reshape(
+    E = endpoint_splat(ranges, sensor, thetas, win, R, C, res, cdtype,
+                       gate=gate)
+    return shift_stack(E, R, C, plain=plain, gate=gate).reshape(
         thetas.shape[0] * R * C, win * win
     )
 
@@ -106,10 +115,13 @@ def _product_f32(a, b):
 
 
 def shared_scores(grids, ranges, priors, cfg: FrontendConfig,
-                  mcfg: MatcherConfig, pf: PFConfig, plain: bool = False):
+                  mcfg: MatcherConfig, pf: PFConfig, plain: bool = False,
+                  gate=None):
     """Raw scores [P, G, R, C] of every particle's candidates, the anchors
     [P, 2] (world xy of each prior's cell center) and the global thetas
-    [G]. `plain=True` runs every kernel's plain version (checks only)."""
+    [G]. The scores are zeros where the bool device tensor `gate` is
+    false. `plain=True` runs every kernel's plain version (checks
+    only)."""
     gcfg = cfg.grid
     res = gcfg.resolution
     P = grids.shape[0]
@@ -136,7 +148,8 @@ def shared_scores(grids, ranges, priors, cfg: FrontendConfig,
     thetas = theta_ref + dthg                                    # [G]
 
     stack = endpoint_shift_stack(
-        ranges, cfg.sensor, thetas, win, R, C, res, cdtype, plain=plain
+        ranges, cfg.sensor, thetas, win, R, C, res, cdtype, plain=plain,
+        gate=gate,
     )
     origins, anchors = aligned_origins(priors, gcfg, win)        # [P, 2]
     thr = mcfg.free_threshold
@@ -145,16 +158,18 @@ def shared_scores(grids, ranges, priors, cfg: FrontendConfig,
         gaussian_kernel_1d(mcfg.sigma_m / res, blur_halo_cells(mcfg, res)),
         inv_sat=1.0 / mcfg.occ_evidence_sat,
         free_logit=math.log(thr / (1.0 - thr)),
-        free_penalty=mcfg.free_penalty, out_dtype=cdtype, plain=plain,
+        free_penalty=mcfg.free_penalty, out_dtype=cdtype, gate=gate,
+        plain=plain,
     )
     raw = _product_f32(
         Sp.reshape(P, win * win).to(torch.float32), stack.to(torch.float32)
     ) / denom
-    return raw.reshape(P, G, R, C), anchors, thetas
+    return _build.gated(gate, raw, 0.0).reshape(P, G, R, C), anchors, thetas
 
 
 def shared_refine(grids, ranges, priors, cfg: FrontendConfig,
-                  mcfg: MatcherConfig, pf: PFConfig, plain: bool = False):
+                  mcfg: MatcherConfig, pf: PFConfig, plain: bool = False,
+                  gate=None):
     """Batched refine of all particles against their own maps.
 
     `grids` [P, Hm, Wm] (float32 or bfloat16), `ranges` [B] (the shared
@@ -163,12 +178,14 @@ def shared_refine(grids, ranges, priors, cfg: FrontendConfig,
     pose (its prior where the best raw score is below mcfg.min_score or
     the chosen theta slot is outside its own theta range) and the raw
     field score at the chosen candidate (the weight's input). Nothing is
-    read back to the host. `plain=True` runs every kernel's plain version
-    (checks only)."""
+    read back to the host. Where the bool device tensor `gate` is false
+    the kernels return at once and the result is not to be read (the
+    device-gated step selects its prior). `plain=True` runs every kernel's
+    plain version (checks only)."""
     res = cfg.grid.resolution
     P = grids.shape[0]
     raw, anchor_xy, thetas = shared_scores(
-        grids, ranges, priors, cfg, mcfg, pf, plain=plain
+        grids, ranges, priors, cfg, mcfg, pf, plain=plain, gate=gate
     )
     _, G, R, C = raw.shape
     ra, ca = R // 2, C // 2

@@ -20,6 +20,9 @@ is exact fused endpoints, update_subcell 1, no bilinear placement, no
 dither and no carve shrink; the other settings are the JAX package's
 diagnostics and raise NotImplementedError here, as do the quantized_*
 update modes.
+
+The device-gated step passes its update gate (a bool device tensor): both
+launches return at once when it is false, and the maps keep their bits.
 """
 
 from __future__ import annotations
@@ -77,8 +80,9 @@ def slot_grid(poses, cfg: FrontendConfig, pf: PFConfig):
     )
     dth = se2.wrap_angle(theta - mean_t)
     qstep = 2.0 * pf.update_qstep_cells * res / max(cfg.sensor.max_range, res)
+    # a fill, not a copy from the host: a CUDA graph captures it
     step = torch.maximum(
-        torch.tensor(np.float32(qstep), device=poses.device),
+        torch.full((), np.float32(qstep), device=poses.device),
         2.0 * dth.abs().max() * inv_f32(max(G - 1, 1)),
     )
     slot = torch.clamp(
@@ -106,10 +110,11 @@ def carve_operands(slot_theta, cfg: FrontendConfig, win: int):
 
 
 def carve_images(ranges, slot_theta, cfg: FrontendConfig, win: int,
-                 plain: bool = False):
+                 plain: bool = False, gate=None):
     """[G, win, win] float32 free-carve images of the scan, one per slot
     heading, from one launch of the ISM update on a zero stack, with the
-    operands of carve_operands."""
+    operands of carve_operands (zeros where the bool device tensor `gate`
+    is false)."""
     poses, origin_xy, consts = carve_operands(slot_theta, cfg, win)
     images = torch.zeros(
         (slot_theta.shape[0], win, win), dtype=torch.float32,
@@ -117,7 +122,7 @@ def carve_images(ranges, slot_theta, cfg: FrontendConfig, win: int,
     )
     return update_ism(
         images, poses, ranges, region=(win, win), origin_xy=origin_xy,
-        plain=plain, **consts,
+        gate=gate, plain=plain, **consts,
     )
 
 
@@ -153,14 +158,15 @@ def endpoint_operands(poses, anchors, ranges, cfg: FrontendConfig, win: int,
 
 
 def apply_operands(poses, ranges, cfg: FrontendConfig, pf: PFConfig, H: int,
-                   W: int, plain: bool = False):
+                   W: int, plain: bool = False, gate=None):
     """The operands of the apply kernel for maps of H x W: (anchors [P, 2]
     int32, slots [P] int32, images [G, win, win] (float32, or bfloat16
     past IMAGE_F32_BYTES unless pf.update_images_f32), (rows, cols,
     weights) of the endpoint marks)."""
     win = min(update_window_cells(cfg.grid, cfg.sensor), H, W)
     slot, slot_theta = slot_grid(poses, cfg, pf)
-    images = carve_images(ranges, slot_theta, cfg, win, plain=plain)
+    images = carve_images(ranges, slot_theta, cfg, win, plain=plain,
+                          gate=gate)
     if images.numel() * 4 > IMAGE_F32_BYTES and not pf.update_images_f32:
         images = images.to(torch.bfloat16)
     anchors = world_to_cell(poses[:, :2], cfg.grid).contiguous()     # [P, 2]
@@ -169,19 +175,20 @@ def apply_operands(poses, ranges, cfg: FrontendConfig, pf: PFConfig, H: int,
 
 
 def shared_update(logodds, poses, ranges, cfg: FrontendConfig, pf: PFConfig,
-                  plain: bool = False):
+                  plain: bool = False, gate=None):
     """Update every particle's map with one scan, IN PLACE (module
     docstring); returns `logodds` [P, H, W] (float32 or bfloat16).
 
     `poses` [P, 3] and `ranges` [B] float32 on the maps' device. Nothing
-    is read back to the host. `plain=True` runs every kernel's plain
+    is read back to the host. Where the bool device tensor `gate` is false
+    the maps keep their bits. `plain=True` runs every kernel's plain
     version (checks only)."""
     check_production_mode(pf)
     H, W = logodds.shape[1:]
     anchors, slots, images, ep = apply_operands(
-        poses, ranges, cfg, pf, H, W, plain=plain
+        poses, ranges, cfg, pf, H, W, plain=plain, gate=gate
     )
     return shared_apply(
         logodds, anchors, slots, images, float(cfg.grid.l_clamp), *ep,
-        plain=plain,
+        gate=gate, plain=plain,
     )

@@ -14,8 +14,12 @@ metrics.json and metrics.jsonl (map.png with --save-viz). The metrics
 are printed as one JSON line.
 
 Everything runs on --device (default "cuda"); without a card it raises
-unless --device cpu is given. --score-impl mxu|mxu_int8|emx|cmx (TPU
-workarounds, ROADMAP queue 1 "Not ported on purpose") raise.
+unless --device cpu is given. --score-impl cmx|emx run the correlation
+scorer (kernel 5) in the frontend's match as in the particle filter's;
+mxu|mxu_int8 (TPU workarounds, ROADMAP queue 1 "Not ported on purpose")
+raise. --mode fastslam runs the host-gated strategy at every particle
+count (run_fastslam(host_gated=True)), where JAX's CLI takes
+run_fastslam's default rule; ROADMAP queue 1 item 7 says why.
 
 Multi-device (parallel/mesh.py): `--mode fastslam --shard` splits the
 particles over the ranks, `--mode full --optimizer schur_sharded` the
@@ -95,9 +99,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["auto", "gather", "mxu", "mxu_int8", "emx",
                             "cmx", "pallas"],
                    help="candidate-scoring kernel (auto: the gather "
-                        "scorer; PF refinement auto-picks cmx). mxu, "
-                        "mxu_int8, emx and cmx are TPU workarounds, not "
-                        "ported, and raise")
+                        "scorer; PF refinement auto-picks cmx; cmx and emx: "
+                        "the correlation scorer). mxu and mxu_int8 are TPU "
+                        "workarounds, not ported, and raise")
     p.add_argument("--update-impl", default="auto",
                    choices=["auto", "sparse", "sparse_mxu", "dense",
                             "pallas", "pallas_ray", "pallas_hybrid"],
@@ -220,7 +224,7 @@ def load_any_log(path: str, sensor_cfg):
     return load_carmen_log(path)
 
 
-_TPU_SCORERS = ("mxu", "mxu_int8", "emx", "cmx")
+_TPU_SCORERS = ("mxu", "mxu_int8")
 
 
 def _check_ported(args) -> None:
@@ -229,7 +233,7 @@ def _check_ported(args) -> None:
         raise SystemExit(
             f"--score-impl {args.score_impl} is a TPU workaround, not ported "
             "by design (ROADMAP queue 1, 'Not ported on purpose'); use auto, "
-            "gather or pallas"
+            "gather, pallas, cmx or emx"
         )
 
 
@@ -496,9 +500,10 @@ def _run(args, device, mesh) -> int:
                 save(gather_state(state, mesh))
             grid = best_map(state, mesh)
         else:
+            # host-gated at every particle count (ROADMAP queue 1 item 7)
             state, traj, n_eff, scores = run_fastslam(
                 log, cfg, pf, device, seed=args.seed, state=init_state,
-                frame_cb=recorder.add if recorder else None,
+                frame_cb=recorder.add if recorder else None, host_gated=True,
             )
             save(state)
             best = int(torch.argmax(state.log_w))

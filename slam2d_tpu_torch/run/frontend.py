@@ -63,6 +63,7 @@ from slam2d_tpu_torch.match.correlative import (
     gaussian_kernel_1d,
     match_scan,
 )
+from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space, search_space_window
 from slam2d_tpu_torch.ops.update import update_hybrid
@@ -375,7 +376,8 @@ class ChunkGraph:
                 self._one(k, self.state)
         torch.cuda.current_stream(device).wait_stream(side)
         torch.cuda.synchronize(device)
-        counters = (update_hybrid, search_space, score_window)
+        # corr_scores: the match under score_impl "cmx" / "emx"
+        counters = (update_hybrid, search_space, score_window, corr_scores)
         before = [fn.launches for fn in counters]
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):

@@ -12,8 +12,9 @@ FastSLAM, whose random streams differ, to the JAX CLI test's bounds
 --save-state/--resume-state equal to the single run (frontend 1e-4 and
 full SLAM 1e-3 after the cut, tests/test_resume.py's tolerances); the
 outputs written (trajectory, map, grid.json, the ROS pair, metrics,
-map.png, a GIF); the TPU scorer workarounds, which are not ported,
-raise.
+map.png, a GIF); --score-impl cmx and emx, the frontend's match through
+the correlation scorer, within the frontend tolerance of JAX's; the TPU
+scorer workarounds mxu and mxu_int8, which are not ported, raise.
 """
 
 import json
@@ -36,6 +37,7 @@ SMALL = ["--log", "synth", "--grid-size", "256", "--resolution", "0.1",
          "--chunk", "16", "--update-impl", "sparse", "--score-impl",
          "gather", "--gt-ate"]
 TOL = 5e-3
+CORR_SCANS = 256  # --score-impl cmx / emx: JAX's kernel runs interpreted
 
 
 def _port(argv, capsys):
@@ -225,11 +227,25 @@ def test_carmen_and_json_logs_with_relations(tmp_path, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["--score-impl", "mxu"], ["--score-impl", "mxu_int8"],
-    ["--score-impl", "emx"], ["--score-impl", "cmx"],
 ])
 def test_unported_options_raise(argv):
     with pytest.raises(SystemExit, match="ROADMAP"):
         tcli.main(["--device", "cpu", "--log", "synth", *argv])
+
+
+@pytest.mark.parametrize("impl", ["cmx", "emx"])
+def test_correlation_scorers_match_jax(tmp_path, capsys, impl):
+    """--score-impl cmx and emx (the correlation scorer, kernel 5's plain
+    version here; JAX's Pallas kernel in interpret mode) in the frontend's
+    match: the same JSON keys and the trajectory within the frontend
+    parity's tolerance of JAX's."""
+    argv = [*SMALL, "--score-impl", impl, "--mode", "frontend",
+            "--scan-range", "0", str(CORR_SCANS)]
+    m = _port([*argv, "--out", str(tmp_path / "p")], capsys)
+    mj = _jax([*argv, "--out", str(tmp_path / "j")], capsys)
+    _same_keys(m, mj)
+    assert m["scans"] == CORR_SCANS
+    _close(_traj(tmp_path / "p"), _traj(tmp_path / "j"))
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

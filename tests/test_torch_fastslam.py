@@ -123,7 +123,7 @@ def test_run_fastslam_matches_jax():
     draws = pf_draws(jax.random.PRNGKey(0), T)
     _reset_counts()
     state, traj, n_eff, scores = run_fastslam(
-        log, TCFG, to_port(PF), CPU, draws=draws
+        log, TCFG, to_port(PF), CPU, draws=draws, host_gated=True
     )
     flags = tfs.host_gate_flags(log["odom"], TCFG, log["odom"][0], 0.0, np.inf)
 
@@ -159,7 +159,7 @@ def test_run_fastslam_resumes_a_split_run():
     log = {k: v[:STEP_SCANS] for k, v in pf_log().items()}
     noise, u = pf_draws(jax.random.PRNGKey(0), STEP_SCANS)
     _, traj, n_eff, _ = run_fastslam(log, TCFG, to_port(PF), CPU,
-                                     draws=(noise, u))
+                                     draws=(noise, u), host_gated=True)
     cut = STEP_SCANS // 2 + 2
     parts = [slice(0, cut), slice(cut, STEP_SCANS)]
     state, trajs, n_effs = None, [], []
@@ -168,7 +168,7 @@ def test_run_fastslam_resumes_a_split_run():
         state, tr, ne, _ = run_fastslam(
             {k: v[part] for k, v in log.items()}, TCFG, to_port(PF), CPU,
             state=state,
-            draws=(noise[part], u[part]),
+            draws=(noise[part], u[part]), host_gated=True,
         )
         trajs.append(tr)
         n_effs.append(ne)

@@ -79,7 +79,7 @@ def _log(wp=((3.0, 3.0), (3.0, 7.0), (6.5, 7.0))):
 def _warm_state():
     log = _log()
     state, *_ = run_fastslam({k: v[:WARM] for k, v in log.items()}, TCFG,
-                             TPF, CPU, seed=5)
+                             TPF, CPU, seed=5, host_gated=True)
     return tfs.pf_state_to_numpy(state)._asdict(), log
 
 
@@ -256,7 +256,8 @@ def test_world_of_one_matches_single_device_run():
     (one,) = pmesh.spawn(torch_dist.pf_run, 1, "gloo", "cpu",
                          args=(log, TCFG, pf, 2))
     tfs.fastslam_step.resamples = 0
-    state, traj, n_eff, _ = run_fastslam(log, TCFG, pf, CPU, seed=2)
+    state, traj, n_eff, _ = run_fastslam(log, TCFG, pf, CPU, seed=2,
+                                         host_gated=True)
     assert one["resamples"] == tfs.fastslam_step.resamples >= 1
     diff = np.hypot(*(one["traj"] - traj)[:, :2].T)
     # only the resample scans report another particle

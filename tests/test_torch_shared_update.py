@@ -296,7 +296,7 @@ def test_image_dtype_rule(monkeypatch, G, win, images_f32, want):
     update_images_f32; the images reach the apply in that dtype."""
     seen = {}
 
-    def fake_images(ranges, slot_theta, cfg, win_, plain=False):
+    def fake_images(ranges, slot_theta, cfg, win_, plain=False, gate=None):
         seen["win"] = win_
         return torch.zeros((slot_theta.shape[0], win_, win_))
 
