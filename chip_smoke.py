@@ -49,7 +49,14 @@ Phases, each of which raises on failure:
    each corner of the map and inside it, with gate 1 against their plain
    versions and against the host-origin path (extract, the out-of-place
    kernel, write back): 0 cells off; with gate 0 the map and S
-   bit-identical; kernel 2 with gate 0 leaves its output as it was (these
+   bit-identical; kernel 2 with gate 0 leaves its output as it was; kernel
+   1 `ray` in place on the exact-ray frontend's 520^2 window at the same
+   origins (ray_window_check: 0 cells off its plain version and the
+   host-origin path with gate 1, the map bit-identical with gate 0, the
+   gate-0 launch timed) and kernel 1 `ism`'s window form at the same
+   origins against its plain version (phase 3's map tolerance at gate 1,
+   both maps bit-identical at gate 0) and its pose-placed launch (the
+   same bits), under update_ism.frontend_window (the `ray` and `hybrid`
    forms take each entry's top level, the host-origin forms go under
    "out_of_place"). Timed three
    ways: `ms`, `plain_ms`, `library_ms`, one call alone between two CUDA
@@ -99,11 +106,14 @@ Phases, each of which raises on failure:
    calls whose best candidate differs counted), and once more with the
    plain version in its place, each run's ATE at most 1 m; then kernel
    step against plain step at its first 8 refine events;
-11. the frontend with update_impl="pallas_ray" (kernel 1 "ray") over
-   bench.py's log, eagerly (the exact-ray update reads its gate on the
-   host, one read a scan): finite trajectory, one ray launch per update
-   event, two scorer launches a scan run, ATE at most 1 m, printed beside
-   odometry's and phase 4's;
+11. the frontend with update_impl="pallas_ray" (kernel 1 "ray" in place
+   with its gate on the device) over bench.py's log, one ChunkGraph
+   replay a chunk, then eagerly: finite trajectory, the eager run's bits,
+   no host read during the scans, one ray and one search-space launch a
+   scan run (+1 build) and two scorer launches, ATE at most 1 m, printed
+   beside odometry's and phase 4's; then the first 256 scans with
+   update_impl "pallas" (kernel 1 `ism`'s window form) and "dense"
+   through the graph and eagerly: the same bits, no host read;
 12. localization (run_localization) on phase 4's final map over a second
    traversal of bench.py's world (its route reversed, twice its odometry
    noise): finite trajectory, ATE below odometry's and at most phase 4's
@@ -115,13 +125,20 @@ Phases, each of which raises on failure:
 13. the tiled frontend (run_tiled_frontend) at the CLI's tile defaults
    (512^2 tiles, 64 slots, 0.05 m) with bench.py's sensor, matcher and
    chunk over a lap of the 60 m corridor world (4,551 scans; one 544^2
-   window for the match and the update): finite trajectory, ATE below
-   odometry's, 4 to 64 active tiles, one update and one search-space
-   build an update event, two scorer launches a match, two host reads a
-   scan and one a chunk; scans/s, peak memory; the first 256 scans again
-   through the plain versions (phase 5's tolerances); one gather_region /
-   scatter_region round trip on the final pool, bit-exact against numpy
-   on the stitched pool;
+   window for the match and the update), one TiledChunkGraph replay a
+   chunk (gates, window origins and tile slots on the device): finite
+   trajectory, ATE below odometry's, 4 to 64 active tiles; its first 1024
+   scans through the graph and eagerly through the same steps: the same
+   bits (trajectory, scores and both pools); one update and one
+   search-space build a scan run and two
+   scorer launches, one host read a chunk (the forecast's pose) and none
+   a scan; scans/s, capture s, peak memory; the first 256 scans again
+   through the plain versions (phase 5's tolerances); region round trips
+   on the final pool through the host-origin and the device-origin ops,
+   bit-exact against numpy on the stitched pool, a gated-off scatter
+   leaving it bit-identical; kernels 1 `hybrid` and `ray` on the
+   gathered window at its device lattice cell against the out-of-place
+   kernel (the same bits);
 14. relocalization on phase 4's final map: global_localize from 8 scans of
    phase 12's log drawn with the seed, each within 0.15 m and 0.1 rad of
    the pose phase 12 tracked for it on the same map (the ground truth's
@@ -176,10 +193,12 @@ Phases, each of which raises on failure:
    below odometry's / 3, at least 6 active tiles, at least one loop
    where JAX's run closed one (at the test's config also the test's
    bounds: kf ATE below 2 m and odometry's / 5), every launch accounted
-   for (kernel 1 `hybrid`: the tracking's updates, the submaps' and the
-   rebuilds' scans; kernel 3: the tracking's updates, a submap each, the
-   rebuilds' builds; kernel 2: a match's passes and an attempt's three);
-   scans/s, host reads a scan, peak memory; the test's config again with
+   for (the tracking replays a TiledChunkGraph a chunk, its kernels
+   launched once a scan run and none of its reads on the host; kernel 1
+   `hybrid`: a scan run, the submaps' and the rebuilds' scans; kernel 3:
+   a scan run, a submap each, the rebuilds' builds; kernel 2: a match's
+   passes a scan run and an attempt's three); scans/s, host reads a scan,
+   peak memory; the test's config again with
    every solve, accept and rebuild synced and timed; the first 256 scans
    at the CLI's defaults, and the whole lap at the test's config (its
    loop attempts and the accept's tiled rebuild), through the kernels
@@ -344,10 +363,12 @@ from slam2d_tpu_torch.graph import schur, se2_graph, sparse
 from slam2d_tpu_torch.grid import occupancy
 from slam2d_tpu_torch.grid.tiles import (
     FREE_SLOT,
-    TiledGrid,
     TileTable,
+    TiledGrid,
     gather_region,
+    gather_region_t,
     scatter_region,
+    scatter_region_t,
     stitch_tiles,
     world_to_cell_global,
 )
@@ -509,6 +530,9 @@ L2_BYTES = 50e6
 DEVICE_TIMING_CALLS = 50  # back-to-back calls between two events
 HOST_BOUND_SHARE = 0.8    # enqueue time above this share of the quotient:
                           # the host sets the pace, take the profiler's time
+EDGE_SPINS = 16           # spin kernels launched on each side of a trace's
+EDGE_SPIN_CYCLES = 250_000  # calls (_device_events), ~0.13 ms each
+EDGE_TRACES = 5           # traces taken for one that kept both edges
 
 
 def _cuda_ms(fn, runs: int = KERNEL_TIMING_RUNS, warmup: int = 3) -> float:
@@ -566,23 +590,50 @@ def _cuda_device_ms(fn, n: int = DEVICE_TIMING_CALLS, runs: int = 5,
 
 def _device_events(fn, n: int) -> list:
     """The device activities of `n` calls of `fn` in a torch.profiler trace,
-    without the profiler's own "ProfilerStep*" records. A trace on the card
-    can come back without device records now and then (seen once in some
-    ten runs of this script): such a trace is taken again, at most three
-    times."""
+    without the profiler's own "ProfilerStep*" records. A trace can lose a
+    run of device records at either edge, of no set length (seen: the
+    first of 20 calls in three traces of one run; up to all 16 spins of
+    ~10 us, and 15 of ~0.13 ms, at one edge). So `EDGE_SPINS` spin
+    kernels (torch.cuda._sleep) are launched before the calls and after
+    them, and their records are dropped: a trace that kept a spin on each
+    side kept every record of the calls between them. A trace that lost
+    every spin of an edge, or came back without device records (seen once
+    in some ten runs of this script), is taken again, at most
+    `EDGE_TRACES` times; then the last trace with records is used."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(3):
+    last = None
+    for _ in range(EDGE_TRACES):
         with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(EDGE_SPINS):
+                torch.cuda._sleep(EDGE_SPIN_CYCLES)
             for _ in range(n):
                 fn()
+            for _ in range(EDGE_SPINS):
+                torch.cuda._sleep(EDGE_SPIN_CYCLES)
             torch.cuda.synchronize()
         events = [e for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA
                   and not e.name.startswith("ProfilerStep")]
-        if events:
+        spins = [e for e in events if "spin_kernel" in e.name]
+        events = [e for e in events if "spin_kernel" not in e.name]
+        if not events:
+            continue
+        last = events
+        if len(spins) == 2 * EDGE_SPINS:
             return events
-    raise AssertionError("torch.profiler recorded no device activity")
+        first = min(e.time_range.start for e in events)
+        before = sum(e.time_range.start < first for e in spins)
+        after = len(spins) - before
+        print(f"trace edges: {before} of {EDGE_SPINS} spin kernels recorded "
+              f"before the calls, {after} of {EDGE_SPINS} after")
+        if before and after:
+            return events
+    if last is None:
+        raise AssertionError("torch.profiler recorded no device activity")
+    print(f"trace edges: no trace of {EDGE_TRACES} kept a spin on each side; "
+          "the last is used")
+    return last
 
 
 def _bound(n_bytes: float, n_ops: float) -> dict:
@@ -1494,12 +1545,16 @@ def run_localize(cfg, log, device, logodds, slice_ate):
 
 
 def _tiled_region_check(state, tcfg, table, win, pose, device):
-    """One gather_region / scatter_region round trip on a tiled frontend's
-    final log-odds pool, held bit for bit against numpy on the stitched
-    pool (stitch_tiles): the gathered window is the stitched slice (0 in
-    tiles that are not active); after a scatter of a seeded window into a
-    copy of the pool, each active tile's piece holds t + (w - t) in
-    float32 and every other cell is as it was."""
+    """Region round trips on a tiled frontend's final log-odds pool, held
+    bit for bit against numpy on the stitched pool (stitch_tiles): the
+    host-origin ops (gather_region / scatter_region with the host table)
+    and the device-origin ops (gather_region_t / scatter_region_t, the
+    slots from the device coords, the frontend's), at the window of the
+    final pose: the gathered window is the stitched slice (0 in tiles
+    that are not active); after a scatter of a seeded window into a copy
+    of the pool, each active tile's piece holds t + (w - t) in float32
+    and every other cell is as it was; a gated-off device scatter leaves
+    the pool bit-identical."""
     dense, (ox, oy) = stitch_tiles(state.grid, tcfg)
     active = np.zeros_like(dense, dtype=bool)
     coords = state.grid.coords[:-1].cpu().numpy()
@@ -1512,40 +1567,93 @@ def _tiled_region_check(state, tcfg, table, win, pose, device):
     center = world_to_cell_global(torch.as_tensor(pose[:2], device=device),
                                   tcfg).cpu().tolist()
     orc = (center[0] - win // 2, center[1] - win // 2)
+    orc_t = torch.tensor(orc, dtype=torch.int32, device=device)
     r0, c0 = orc[0] - r_min * t, orc[1] - c_min * t
     if not (0 <= r0 and 0 <= c0 and r0 + win <= dense.shape[0]
             and c0 + win <= dense.shape[1]):
         raise AssertionError(f"tiled region check: window {orc} outside the "
                              f"stitched pool {dense.shape}")
-    got = gather_region(state.grid, tcfg, orc, win, table).cpu().numpy()
     ref = dense[r0:r0 + win, c0:c0 + win]
-    gather_ok = np.array_equal(got, ref)
     w = np.random.default_rng(SEED).normal(0.0, 3.0, (win, win)).astype(
         np.float32)
-    grid = TiledGrid(state.grid.tiles.clone(), state.grid.coords)
-    scatter_region(grid, tcfg, torch.as_tensor(w, device=device), orc, table)
-    after, _ = stitch_tiles(grid, tcfg)
     expect = dense.copy()
     sl = (slice(r0, r0 + win), slice(c0, c0 + win))
     piece = expect[sl]
     expect[sl] = np.where(active[sl], piece + (w - piece), piece)
-    scatter_ok = np.array_equal(after, expect)
-    print(f"tiled region round trip, {win}^2 at {orc}: gather bit-exact "
-          f"{gather_ok}, scatter bit-exact {scatter_ok}")
-    if not (gather_ok and scatter_ok):
-        raise AssertionError("gather_region / scatter_region disagree with "
-                             "the stitched numpy reference")
-    return dict(window=[win, win], origin_rc=list(orc), gather_bit_exact=True,
-                scatter_bit_exact=True)
+    w_t = torch.as_tensor(w, device=device)
+    out = {}
+    for form, gather, scatter in (
+            ("host_origin",
+             lambda g: gather_region(g, tcfg, orc, win, table),
+             lambda g: scatter_region(g, tcfg, w_t, orc, table)),
+            ("device_origin",
+             lambda g: gather_region_t(g, tcfg, orc_t, win),
+             lambda g: scatter_region_t(g, tcfg, w_t, orc_t,
+                                        gate=torch.tensor(True,
+                                                          device=device)))):
+        gather_ok = np.array_equal(gather(state.grid).cpu().numpy(), ref)
+        grid = TiledGrid(state.grid.tiles.clone(), state.grid.coords)
+        scatter(grid)
+        scatter_ok = np.array_equal(stitch_tiles(grid, tcfg)[0], expect)
+        print(f"tiled region round trip ({form}), {win}^2 at {orc}: gather "
+              f"bit-exact {gather_ok}, scatter bit-exact {scatter_ok}")
+        if not (gather_ok and scatter_ok):
+            raise AssertionError(f"{form} region ops disagree with the "
+                                 "stitched numpy reference")
+        out[form] = dict(gather_bit_exact=True, scatter_bit_exact=True)
+    grid = TiledGrid(state.grid.tiles.clone(), state.grid.coords)
+    scatter_region_t(grid, tcfg, w_t, orc_t,
+                     gate=torch.tensor(False, device=device))
+    kept = torch.equal(grid.tiles[:-1].view(torch.int32),
+                       state.grid.tiles[:-1].view(torch.int32))
+    print(f"tiled region gated-off scatter: pool bit-identical {kept}")
+    if not kept:
+        raise AssertionError("a gated-off scatter_region_t moved a tile")
+    return dict(window=[win, win], origin_rc=list(orc), gate_off_kept=kept,
+                **out)
 
 
-def run_tiled(cfg, tcfg, log, device):
-    """Phase 13: the tiled frontend (run_tiled_frontend) over a lap of the
-    corridor world through the kernels; the first scans again through the
-    plain versions; one region round trip against numpy."""
-    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
-    run_tiled_frontend(warm, cfg, tcfg, device)
-    torch.cuda.synchronize()
+def _tiled_cell_check(cfg, tcfg, state, log, device):
+    """Kernel 1 `hybrid` and `ray` on the tiled frontend's gathered window
+    (`cell=`: the window's float origin from its device lattice cell)
+    against the out-of-place kernel at window_origin_xy's host floats: the
+    same bits; gate 0 bit-identical."""
+    win = tiled_window_cells(tcfg, cfg.sensor, cfg.matcher)
+    i = len(log["odom"]) // 2
+    pose = torch.as_tensor(np.asarray(log["gt_poses"][i], np.float32),
+                           device=device)
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    orc_t = world_to_cell_global(pose[:2], tcfg) - win // 2
+    orc = tuple(orc_t.tolist())
+    gw = gather_region_t(state.grid, tcfg, orc_t, win)
+    out = {}
+    for impl in ("pallas_hybrid", "pallas_ray"):
+        g = dataclasses.replace(cfg.grid, resolution=tcfg.resolution,
+                                update_impl=impl)
+        ref = occupancy.integrate_scan(
+            gw, pose, ranges, g, cfg.sensor,
+            origin_xy=occupancy.window_origin_xy(tcfg, orc))
+        res = []
+        for gate in (True, False):
+            a = gw.clone()
+            occupancy.integrate_scan_window(
+                a, pose, ranges, g, cfg.sensor, origin=None, cell=orc_t,
+                size=(win, win), gate=torch.tensor(gate, device=device),
+                origin_xy=(tcfg.origin_x, tcfg.origin_y))
+            res.append(torch.equal(a, ref if gate else gw))
+        print(f"{impl} on the tiled window at cell {orc}: the out-of-place "
+              f"bits {res[0]}, gate 0 bit-identical {res[1]}")
+        if not all(res):
+            raise AssertionError(f"{impl}: the tiled window form parts from "
+                                 "the out-of-place kernel")
+        out[impl] = dict(shape=[win, win], cell=list(orc),
+                         same_bits_as_out_of_place=True, gate_off_kept=True)
+    return out
+
+
+def _tiled_run(cfg, tcfg, log, device, graph):
+    """run_tiled_frontend over `log` with the counts set to 0 just before
+    it: (state, traj, scores, result dict)."""
     for fn in _counters().values():
         fn.launches = 0
     for name in ("host_syncs", "matches", "updates"):
@@ -1555,32 +1663,72 @@ def run_tiled(cfg, tcfg, log, device):
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    state, traj, scores = run_tiled_frontend(log, cfg, tcfg, device)
+    state, traj, scores = run_tiled_frontend(log, cfg, tcfg, device,
+                                             graph=graph)
     end.record()
     end.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in _counters().items()}
-    peak = torch.cuda.max_memory_allocated(device)
+    elapsed = start.elapsed_time(end) / 1e3
+    T = len(traj)
+    result = dict(
+        scans=T, scans_per_sec=T / elapsed, seconds_cuda_events=elapsed,
+        seconds_host=wall,
+        launches={k: fn.launches for k, fn in _counters().items()},
+        host_syncs=tiled_frontend_step.host_syncs,
+        matches=tiled_frontend_step.matches,
+        updates=tiled_frontend_step.updates,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+    )
+    return state, traj, scores, result
+
+
+TILED_EAGER_SCANS = 1024   # phase 13: graph against eager (16 chunks)
+
+
+def run_tiled(cfg, tcfg, log, device):
+    """Phase 13: the tiled frontend (run_tiled_frontend) over a lap of the
+    corridor world through the kernels, as it runs on CUDA (one
+    TiledChunkGraph replay a chunk, the gates, window origins and tile
+    slots on the device): one host read a chunk (the forecast's pose) and
+    none a scan, one update and one search-space build a scan run and two
+    scorer launches; the first TILED_EAGER_SCANS scans through the graph
+    and through the same device-gated steps eagerly: the same bits
+    (trajectory, scores, both pools) and counts; the first scans again
+    through the plain versions; the region ops and the tiled window's
+    kernel forms held bit for bit."""
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    t0 = time.perf_counter()
+    run_tiled_frontend(warm, cfg, tcfg, device)   # builds the chunk graph
+    capture_s = time.perf_counter() - t0
+    run_tiled_frontend(warm, cfg, tcfg, device, graph=False)
+    torch.cuda.synchronize()
+    state, traj, scores, result = _tiled_run(cfg, tcfg, log, device, None)
     T = len(traj)
     n_chunks = -(-T // cfg.chunk)
     scans_run = n_chunks * cfg.chunk
-    counts = dict(host_syncs=tiled_frontend_step.host_syncs,
-                  matches=tiled_frontend_step.matches,
-                  updates=tiled_frontend_step.updates)
     if not np.isfinite(traj).all():
         raise AssertionError("tiled frontend: trajectory is not finite")
     ate = ate_rmse(traj, log["gt_poses"], align=False)
     ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
     coords = state.grid.coords[:-1].cpu().numpy()
     n_active = int((coords[:, 0] > FREE_SLOT).sum())
-    elapsed = start.elapsed_time(end) / 1e3
-    result = dict(
-        scans=T, scans_run=scans_run, scans_per_sec=T / elapsed,
-        seconds_cuda_events=elapsed, seconds_host=wall, ate_m=ate,
-        ate_odom_m=ate_odom, active_tiles=n_active,
+    head = {k: np.asarray(v)[:TILED_EAGER_SCANS] for k, v in log.items()}
+    runs = [_tiled_run(cfg, tcfg, head, device, g) for g in (None, False)]
+    (st_g, tr_g, sc_g, head_g), (st_e, tr_e, sc_e, eager) = runs
+    same = bool(np.array_equal(tr_g, tr_e) and np.array_equal(sc_g, sc_e)
+                and np.array_equal(tr_g, traj[:TILED_EAGER_SCANS])
+                and torch.equal(st_g.grid.coords, st_e.grid.coords)
+                and torch.equal(st_g.grid.tiles[:-1], st_e.grid.tiles[:-1])
+                and torch.equal(st_g.sgrid.tiles[:-1], st_e.sgrid.tiles[:-1]))
+    result.update(
+        scans_run=scans_run, ate_m=ate, ate_odom_m=ate_odom,
+        active_tiles=n_active,
         window=tiled_window_cells(tcfg, cfg.sensor, cfg.matcher),
-        host_reads_per_scan=counts["host_syncs"] / T, launches=launches,
-        peak_memory_bytes=peak, **counts,
+        capture_s=capture_s, host_reads_per_scan=result["host_syncs"] / T,
+        host_reads_per_chunk=result["host_syncs"] / n_chunks,
+        eager_scans=TILED_EAGER_SCANS,
+        eager_scans_per_sec=eager["scans_per_sec"],
+        eager_launches=eager["launches"], same_bits_as_eager=same,
     )
     print("tiled frontend:", json.dumps(result))
     if not ate < ate_odom:
@@ -1588,15 +1736,23 @@ def run_tiled(cfg, tcfg, log, device):
                              f"odometry's {ate_odom}")
     if not 4 <= n_active <= tcfg.n_slots:
         raise AssertionError(f"tiled frontend: {n_active} active tiles")
-    expect = {"update_hybrid": counts["updates"],
-              "search_space": counts["updates"],
-              "score_offsets": 2 * counts["matches"]}
-    if launches != expect or min(launches.values()) <= 0:
-        raise AssertionError(f"tiled frontend: launches {launches}, "
-                             f"expected {expect}")
-    if counts["host_syncs"] != 2 * scans_run + n_chunks:
-        raise AssertionError(f"tiled frontend: {counts['host_syncs']} host "
-                             f"reads, expected two a scan and one a chunk")
+    if not same:
+        raise AssertionError("tiled frontend: the graph and eager runs "
+                             "differ")
+    passes = _match_passes(cfg.matcher, tcfg.resolution)
+    for r, n in ((result, scans_run), (head_g, TILED_EAGER_SCANS),
+                 (eager, TILED_EAGER_SCANS)):
+        expect = {"update_hybrid": n, "search_space": n,
+                  "score_offsets": passes * n}
+        if r["launches"] != expect:
+            raise AssertionError(f"tiled frontend: launches {r['launches']}, "
+                                 f"expected {expect}")
+        if r["host_syncs"] != n // cfg.chunk:
+            raise AssertionError(f"tiled frontend: {r['host_syncs']} host "
+                                 "reads, expected one a chunk")
+    counts = (head_g["matches"], head_g["updates"])
+    if counts != (eager["matches"], eager["updates"]) or min(counts) <= 0:
+        raise AssertionError(f"tiled frontend: device counters {counts}")
 
     part = {k: np.asarray(v)[:PARITY_SCANS] for k, v in log.items()}
     _, traj_plain, _ = run_tiled_frontend(part, cfg, tcfg, device, plain=True)
@@ -1609,7 +1765,8 @@ def run_tiled(cfg, tcfg, log, device):
     table = TileTable.from_coords(tcfg, state.grid.coords)
     _tiled_region_check(state, tcfg, table, result["window"], traj[-1],
                         device)
-    return launches, traj
+    _tiled_cell_check(cfg, tcfg, state, log, device)
+    return result["launches"], traj
 
 
 def run_global(cfg, loc_log, loc_traj, kidnap, device, logodds):
@@ -2455,8 +2612,8 @@ def _device_activities(fn, kernel: str, n: int = 20) -> dict:
     trace of `n` calls (kernels, copies and fills alike), which must hold
     the kernel whose name contains `kernel` once a call and nothing else.
     Any other activity, or more than `n` of the kernel, fails at once. A
-    trace can lose a record at its edges (seen once: 0.9 a call): a trace
-    with fewer than `n` is taken again, at most three times."""
+    trace with fewer than `n` (records lost in spite of _device_events'
+    edge spins) is taken again, at most three times."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -2526,6 +2683,151 @@ def ray_check(cfg, log, device):
                  _bound(2 * gw.numel() * 4 + 8 * B + 12,
                         16 * pairs + 10 * gw.numel())),
     )
+
+
+def ray_window_check(cfg, log, device):
+    """Phase 3, the frontend step's form of kernel 1 `ray`
+    (update_ray_window: in place on the 520^2 update window, the gate and
+    the window origin read from device memory), at origins clamped into
+    each corner of the 1024^2 map and inside it (the log's middle scan),
+    each with gate 1 against its plain version and against the
+    host-origin path (extract_window, the out-of-place kernel,
+    write_window): 0 cells off (the kernel is bit-exact); with gate 0 the
+    map bit-identical. Timed as phase 3 times the kernels (gate 1), with
+    the gate-0 launch's device time beside it. Kernel 1 `ism`'s form
+    (update_ism with origin=, the frontend's update_impl="pallas") at the
+    same origins and gates against its plain version: at gate 1 at most
+    0.05% of the window's cells off, each by one l_free or l_occ, and
+    nothing outside the window; at gate 0 both maps bit-identical. At the
+    interior origin it is also held to the pose-placed launch of the same
+    window: the same bits. Returns (the `ray` entry, the `ism` form's)."""
+    rng = np.random.default_rng(SEED + 12)
+    g, m, s = cfg.grid, cfg.matcher, cfg.sensor
+    H, W = g.height, g.width
+    uwin = update_window_cells(g, s, m)
+    i = len(log["odom"]) // 2
+    scan_pose = np.asarray(log["gt_poses"][i], np.float32)
+    ranges = torch.as_tensor(log["ranges"][i], device=device)
+    full = torch.as_tensor(
+        rng.uniform(-6.0, 6.0, (H, W)).astype(np.float32), device=device)
+    on, off = (torch.tensor(v, device=device) for v in (True, False))
+    res = np.float32(g.resolution)
+    centers = dict(GATED_CENTERS)
+    centers["interior"] = tuple(int(v) for v in occupancy.world_to_cell(
+        torch.as_tensor(scan_pose[:2]), g).tolist())
+    ism_cfg = dataclasses.replace(g, update_impl="pallas")
+    checked, off_plain, ism_off, ism_err = [], 0, 0, 0.0
+    for name, (row, col) in centers.items():
+        pose = torch.tensor(
+            [np.float32(g.origin_x) + (np.float32(col) + np.float32(0.5)) * res,
+             np.float32(g.origin_y) + (np.float32(row) + np.float32(0.5)) * res,
+             scan_pose[2]], dtype=torch.float32, device=device)
+        center = occupancy.world_to_cell(pose[:2], g)
+        origin = window_origin_t(center, uwin, H, W)
+        orc = tuple(origin.tolist())
+        for gate in (on, off):
+            a, b = full.clone(), full.clone()
+            for plain, m_ in ((False, a), (True, b)):
+                occupancy.integrate_scan_window(
+                    m_, pose, ranges, g, s, origin=origin, size=(uwin, uwin),
+                    gate=gate, plain=plain)
+            today = full.clone()
+            if bool(gate):
+                gw, _ = extract_window(today, center.tolist(), uwin)
+                write_window(today, occupancy.integrate_scan(
+                    gw, pose, ranges, g, s, origin_rc=orc), orc)
+            n_host, n_plain = int((a != today).sum()), int((a != b).sum())
+            off_plain += n_plain
+            print(f"ray window {name} origin {orc} gate {int(gate)}: "
+                  f"{n_host} cells off the host-origin path, {n_plain} off "
+                  "plain")
+            if n_host or n_plain:
+                raise AssertionError(f"update_ray window {name}: the in-place "
+                                     "form parts from the host-origin path "
+                                     "or its plain version")
+            if not bool(gate) and not torch.equal(a, full):
+                raise AssertionError(f"update_ray window {name}: gate 0 "
+                                     "changed the map")
+            # kernel 1 `ism` at the same device origin and gate
+            a, b = full.clone(), full.clone()
+            for plain, m_ in ((False, a), (True, b)):
+                occupancy.integrate_scan_window(
+                    m_, pose, ranges, ism_cfg, s, origin=origin,
+                    size=(uwin, uwin), gate=gate, plain=plain)
+            if not bool(gate):
+                kept = torch.equal(a, full) and torch.equal(b, full)
+                print(f"ism window {name} origin {orc} gate 0: both maps "
+                      f"bit-identical {kept}")
+                if not kept:
+                    raise AssertionError(f"update_ism window {name}: gate 0 "
+                                         "changed the map")
+                continue
+            win_sl = (slice(orc[0], orc[0] + uwin),
+                      slice(orc[1], orc[1] + uwin))
+            outside = a != b
+            outside[win_sl] = False
+            if outside.any():
+                raise AssertionError(f"update_ism window {name}: cells "
+                                     "outside the window differ")
+            n_diff, err = _map_cells_ok(a[win_sl], b[win_sl], g,
+                                        f"update_ism window {name}")
+            print(f"ism window {name} origin {orc} gate 1: {n_diff} of "
+                  f"{uwin * uwin} cells off plain (tolerance: <= "
+                  f"{MAP_CELL_SHARE:.2%}, each by one l_free or l_occ)")
+            ism_off, ism_err = ism_off + n_diff, max(ism_err, err)
+        checked.append(name)
+
+    pose = torch.as_tensor(scan_pose, device=device)
+    origin = window_origin_t(occupancy.world_to_cell(pose[:2], g), uwin, H, W)
+    buf = full.clone()
+
+    def upd(gate, plain=False):
+        return occupancy.integrate_scan_window(
+            buf, pose, ranges, g, s, origin=origin, size=(uwin, uwin),
+            gate=gate, plain=plain)
+
+    B = ranges.numel()
+    r_free = torch.clamp(ranges.clamp(max=s.max_range) - g.resolution, min=0)
+    pairs = float((r_free / g.resolution * 1.5 + 2).sum())
+    n_cells = uwin * uwin
+    ray = dict(
+        shape=[uwin, uwin], in_place_of=[H, W], origins_checked=checked,
+        cells_off_host_origin_path=0, cells_off_plain=off_plain,
+        max_abs_err=0.0, tolerance="bit-exact",
+        gate_off_device_ms=_cuda_device_ms(lambda: upd(off))[0],
+        # ray_check's bound: the window read and written once, the scan,
+        # its angles and the pose read once; ~16 operations a touched
+        # (cell, beam) pair and ~10 a cell
+        **_times(lambda: upd(on), lambda: upd(on, True),
+                 _bound(2 * n_cells * 4 + 8 * B + 12 + 9,
+                        16 * pairs + 10 * n_cells)),
+    )
+
+    # kernel 1 `ism` at a device origin against its pose-placed launch
+    consts = occupancy.update_constants(ism_cfg, s)
+    a, b = full.clone(), full.clone()
+    occupancy.integrate_scan_window(a, pose, ranges, ism_cfg, s,
+                                    origin=origin, size=(uwin, uwin),
+                                    gate=on)
+    update_ism(b[None], pose[None], ranges, region=(uwin, uwin),
+               origin_xy=(g.origin_x, g.origin_y), **consts)
+    same = torch.equal(a, b)
+    c = full.clone()
+    occupancy.integrate_scan_window(c, pose, ranges, ism_cfg, s,
+                                    origin=origin, size=(uwin, uwin),
+                                    gate=off)
+    kept = torch.equal(c, full)
+    print(f"update_ism window at {tuple(origin.tolist())}: the pose-placed "
+          f"launch's bits {same}, gate 0 bit-identical {kept}")
+    if not (same and kept):
+        raise AssertionError("update_ism: the frontend's window form "
+                             "misbehaves")
+    ism = dict(shape=[uwin, uwin], in_place_of=[H, W], origins_checked=checked,
+               cells_off_plain=ism_off, max_abs_err=ism_err,
+               tolerance="<=0.05% of window cells, each by one l_free or "
+                         "l_occ; gate 0 bit-identical",
+               same_bits_as_pose_placed=same, gate_off_kept=kept)
+    return ray, ism
 
 
 PARTICLE_PLAIN_RUNS = 3  # phase 3: lone calls timed for the plain loop of
@@ -2819,14 +3121,12 @@ def corr_held_runs(cfg, pf, log, device, ate):
     return result
 
 
-def run_ray(cfg, log, device, hybrid_ate):
-    """Phase 11: the frontend with update_impl="pallas_ray" over bench.py's
-    log through the kernels."""
-    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
-    run_frontend(warm, cfg, device)
-    torch.cuda.synchronize()
-    counters = {"update_ray": update_ray, **_counters()}
-    del counters["update_hybrid"]
+RAY_GRAPH_SCANS = 256   # phase 11: the ISM and dense frontends' scans
+
+
+def _frontend_run(cfg, log, device, graph, counters):
+    """run_frontend over `log` with the counts set to 0 just before it:
+    (traj, scores, final state, dict of launches, counters and times)."""
     for fn in counters.values():
         fn.launches = 0
     for name in ("host_syncs", "matches", "updates"):
@@ -2834,37 +3134,95 @@ def run_ray(cfg, log, device, hybrid_ate):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    _, traj, _ = run_frontend(log, cfg, device)
+    state, traj, scores = run_frontend(log, cfg, device, graph=graph)
     end.record()
     end.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
-    updates, matches = frontend_step.updates, frontend_step.matches
+    elapsed = start.elapsed_time(end) / 1e3
+    return traj, scores, state, dict(
+        scans=len(traj), scans_per_sec=len(traj) / elapsed,
+        seconds_cuda_events=elapsed,
+        launches={k: fn.launches for k, fn in counters.items()},
+        host_syncs=frontend_step.host_syncs, matches=frontend_step.matches,
+        updates=frontend_step.updates)
+
+
+def run_ray(cfg, log, device, hybrid_ate):
+    """Phase 11: the frontend with update_impl="pallas_ray" over bench.py's
+    log through the kernels, as run_frontend runs it on CUDA (one
+    ChunkGraph replay a chunk: kernel 1 `ray` in place with its gate and
+    window origin on the device), then the same steps eagerly: no host
+    read a scan, the eager run's bits, one `ray` and one search-space
+    launch a scan run (+1 build at the start) and two scorer launches;
+    then the first RAY_GRAPH_SCANS scans with update_impl "pallas" (kernel
+    1 `ism`'s window form) and "dense" through the graph and eagerly: the
+    same bits, no host read. Returns {path: launches}."""
+    counters = {"update_ray": update_ray, "update_ism": update_ism,
+                "update_hybrid": update_hybrid, "search_space": search_space,
+                "score_offsets": score_window}
+    warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
+    t0 = time.perf_counter()
+    run_frontend(warm, cfg, device)   # builds the chunk graph
+    capture_s = time.perf_counter() - t0
+    run_frontend(warm, cfg, device, graph=False)
+    torch.cuda.synchronize()
+    traj, scores, _, res = _frontend_run(cfg, log, device, None, counters)
+    traj_e, scores_e, _, eager = _frontend_run(cfg, log, device, False,
+                                               counters)
     if not np.isfinite(traj).all():
         raise AssertionError("ray frontend: trajectory is not finite")
     ate = ate_rmse(traj, log["gt_poses"], align=False)
     ate_odom = ate_rmse(log["odom"], log["gt_poses"], align=False)
-    elapsed = start.elapsed_time(end) / 1e3
-    print("ray frontend:", json.dumps(dict(
-        scans=len(traj), scans_per_sec=len(traj) / elapsed,
-        seconds_cuda_events=elapsed, ate_m=ate, ate_odom_m=ate_odom,
-        ate_hybrid_m=hybrid_ate, launches=launches, updates=updates,
-        matches=matches, host_syncs=frontend_step.host_syncs,
-    )))
-    # the match gate is on the device (both scorer passes launch every
-    # scan run); the exact-ray update has no gated in-place form, so its
-    # gate is read on the host, one read a scan run, and it launches once
-    # an update
-    scans_run = -(-len(traj) // cfg.chunk) * cfg.chunk
-    expect = {"update_ray": updates, "search_space": updates + 1,
-              "score_offsets": 2 * scans_run}
-    if launches != expect or min(launches.values()) <= 0:
-        raise AssertionError(f"ray frontend: launches {launches}, expected {expect}")
-    if frontend_step.host_syncs != scans_run:
-        raise AssertionError(f"ray frontend: {frontend_step.host_syncs} host "
-                             f"reads, expected one a scan run")
+    same = bool(np.array_equal(traj, traj_e)
+                and np.array_equal(scores, scores_e))
+    T = len(traj)
+    scans_run = -(-T // cfg.chunk) * cfg.chunk
+    res.update(ate_m=ate, ate_odom_m=ate_odom, ate_hybrid_m=hybrid_ate,
+               capture_s=capture_s, host_reads_per_scan=res["host_syncs"] / T,
+               eager_scans_per_sec=eager["scans_per_sec"],
+               eager_launches=eager["launches"], same_bits_as_eager=same)
+    print("ray frontend:", json.dumps(res))
+    expect = {"update_ray": scans_run, "update_ism": 0, "update_hybrid": 0,
+              "search_space": scans_run + 1, "score_offsets": 2 * scans_run}
+    for r in (res, eager):
+        if r["launches"] != expect:
+            raise AssertionError(f"ray frontend: launches {r['launches']}, "
+                                 f"expected {expect}")
+        if r["host_syncs"]:
+            raise AssertionError("ray frontend: the host read during the "
+                                 "scans")
+    if not same:
+        raise AssertionError("ray frontend: the graph and eager runs differ")
+    if (res["matches"], res["updates"]) != (eager["matches"],
+                                            eager["updates"]):
+        raise AssertionError("ray frontend: device counters differ")
     if not ate <= PF_MAX_ATE_M:
         raise AssertionError(f"ray frontend: ATE {ate} m above {PF_MAX_ATE_M} m")
-    return {"update_ray": launches["update_ray"]}
+    paths = {"11 ray frontend": {"update_ray": res["launches"]["update_ray"]}}
+
+    part = {k: np.asarray(v)[:RAY_GRAPH_SCANS] for k, v in log.items()}
+    for impl, kernel in (("pallas", "update_ism"), ("dense", None)):
+        c = dataclasses.replace(
+            cfg, grid=dataclasses.replace(cfg.grid, update_impl=impl))
+        run_frontend(warm, c, device)
+        t, sc, st, r = _frontend_run(c, part, device, None, counters)
+        t_e, sc_e, st_e, r_e = _frontend_run(c, part, device, False,
+                                             counters)
+        same = bool(np.array_equal(t, t_e) and np.array_equal(sc, sc_e)
+                    and torch.equal(st.logodds, st_e.logodds))
+        r.update(update_impl=impl, same_bits_as_eager=same,
+                 eager_scans_per_sec=r_e["scans_per_sec"])
+        print(f"{impl} frontend, {RAY_GRAPH_SCANS} scans:", json.dumps(r))
+        want = {k: 0 for k in ("update_ray", "update_ism", "update_hybrid")}
+        if kernel:
+            want[kernel] = RAY_GRAPH_SCANS
+        got = {k: r["launches"][k] for k in want}
+        if not same or r["host_syncs"] or r_e["host_syncs"] or got != want:
+            raise AssertionError(f"{impl} frontend: graph bits {same}, "
+                                 f"launches {got} (expected {want}), host "
+                                 f"reads {r['host_syncs']}")
+        if kernel:
+            paths[f"11 {impl} frontend"] = {kernel: got[kernel]}
+    return paths
 
 
 def fullslam_kernel_checks(cfg, gcfg, log, device, tcfg=None, tag=""):
@@ -3385,19 +3743,24 @@ def _tiled_fullslam_run(cfg, tcfg, gcfg, log, device, ref_file, label):
             f"odometry's / 3 ({result['ate_odom_m'] / 3.0})")
     if n_active < 6:
         raise AssertionError(f"{label}: {n_active} active tiles")
+    # the tracking's kernels launch once a scan run (their gates are on
+    # the device, a gated-off launch returns at once)
+    scans_run = -(-T // cfg.chunk) * cfg.chunk
     expect = {
-        "update_hybrid": counts["updates"] + counts["submap_scans"]
+        "update_hybrid": scans_run + counts["submap_scans"]
         + counts["rebuilt_scans"],
-        "search_space": counts["updates"] + counts["submaps"]
+        "search_space": scans_run + counts["submaps"]
         + counts["rebuilt_fields"],
         "score_offsets": _match_passes(cfg.matcher, tcfg.resolution)
-        * counts["matches"]
+        * scans_run
         + (_match_passes(default_loop_matcher(gcfg), cfg.grid.resolution)
            + 1) * counts["attempts"],
     }
     if launches != expect or min(launches.values()) <= 0:
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{expect}")
+    if counts["host_syncs"]:
+        raise AssertionError(f"{label}: the tracking read the host")
     if counts["corrections"] != res.n_loops:
         raise AssertionError(f"{label}: {counts['corrections']} "
                              f"corrections for {res.n_loops} loops")
@@ -5215,6 +5578,14 @@ def main(kernels_only: bool = False, multi_device_only: bool = False,
     )
     checks["window_field"]["at_fastslam16"] = checks["corr_scores"].pop("field")
     checks["update_ray"] = ray_check(ray_cfg, log, device)
+    # the frontend step's form takes the entry's top level, as `hybrid`'s
+    e = checks["update_ray"]
+    e["out_of_place"] = {k: e.pop(k) for k in FORM_FIELDS if k in e}
+    e["out_of_place"]["device_kernels_per_call"] = e.pop(
+        "device_kernels_per_call")
+    ray_form, checks["update_ism"]["frontend_window"] = ray_window_check(
+        ray_cfg, log, device)
+    e.update(ray_form)
     fs_cfg, fs_gcfg = fullslam_bench_config()
     fs_log = fullslam_bench_log(fs_cfg.sensor)
     at_fullslam = fullslam_kernel_checks(fs_cfg, fs_gcfg, fs_log, device)
@@ -5282,7 +5653,7 @@ def main(kernels_only: bool = False, multi_device_only: bool = False,
     pf_parity(cfg16, pf16, pf_log, device, 0, PF_PARITY_REFINES,
               "fastslam-16")
     hybrid_ate = ate_rmse(traj, log["gt_poses"], align=False)
-    by_path["11 ray frontend"] = run_ray(ray_cfg, log, device, hybrid_ate)
+    by_path.update(run_ray(ray_cfg, log, device, hybrid_ate))
     loc_log = localization_log(cfg.sensor)
     by_path["12 localization"], loc_traj = run_localize(
         cfg, loc_log, device, slice_state.logodds, hybrid_ate)

@@ -126,9 +126,9 @@ def chunks(update: str):
         tr, sc, est = (np.asarray(x) for x in jax.device_get(
             (tr, sc, state.pose)))
         base = o[-1]
-        pst, ptab = tft.tiled_state_from_numpy(list(start), tcfg, "cpu")
+        pst, _ = tft.tiled_state_from_numpy(list(start), tcfg, "cpu")
         out = torch.empty((K, 4))
-        tft.run_tiled_chunk(pst, ptab, o, r, cfg, tcfg, out, plain=True)
+        tft.run_tiled_chunk(pst, o, r, cfg, tcfg, out, plain=True)
         d = np.abs(out[:n, :3].numpy() - tr[:n])
         at = int(np.argmax(d.max(axis=1)))
         print(json.dumps(dict(

@@ -6,6 +6,8 @@
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
         [--warm 128] [--scans 192] [--seeds N] [--graph]
     python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
+    python3 scripts/profile_torch.py fullslam_tiled [--warm 448]
+        [--scans 256] [--eager]
     python3 scripts/profile_torch.py schur [--warm 2] [--scans 3]
     python3 scripts/profile_torch.py hier [--warm 1] [--scans 1]
     (all: [--out profile_out])
@@ -17,7 +19,8 @@ tiled: the tiled frontend at the CLI's tile defaults over a lap of the
 corridor world, its host loop included; fullslam: full SLAM at the CLI's
 `--mode full` defaults over two laps of bench.py's world, run_full_slam
 over the warmup scans and then over the traced ones resumed from its
-checkpoint; schur: `--scans` Schur solves (graph/schur.py, 4 blocks,
+checkpoint; fullslam_tiled: tiled full SLAM at the CLI's tile defaults
+over the corridor lap, resumed so as fullslam is; schur: `--scans` Schur solves (graph/schur.py, 4 blocks,
 the host's plan and tables included) of that run's final graph, after
 `--warm` untraced ones, with the plan, the tables and the iterations
 timed apart first; hier: `--scans` optimize_hier solves of the 4096-node
@@ -28,9 +31,10 @@ bench_pf.py's default config and log with 100, 1000
 or 16 particles (fastslam, fastslam1000, fastslam16; bf16 512^2 maps): a
 warmup over the first `--warm` scans, then a torch.profiler
 trace (CPU and CUDA activities) of the next `--scans` scans. The
-frontend and localization run as run_frontend runs them on CUDA, one
-CUDA graph replay a chunk (`--warm` and `--scans` whole chunks);
-`--eager` steps them one by one instead. FastSLAM runs host-gated
+frontend (any update_impl), localization, the tiled frontend and tiled
+full SLAM's tracking run as their runners run them on CUDA, one CUDA
+graph replay a chunk (`--warm` and `--scans` whole chunks); `--eager`
+steps them one by one instead. FastSLAM runs host-gated
 (fastslam_step with the host's gates), or with `--graph` as
 run_fastslam(host_gated=False) runs it on CUDA: the device-gated steps,
 one PFChunkGraph replay a chunk of 32 (`--warm` and `--scans` whole
@@ -76,7 +80,6 @@ from slam2d_tpu_torch.run.frontend import (  # noqa: E402
     chunk_graph,
     frontend_init,
     frontend_step,
-    graph_capturable,
     localization_init,
     run_frontend,
 )
@@ -88,13 +91,15 @@ from slam2d_tpu_torch.run import full_slam  # noqa: E402
 
 DEFAULTS = {  # warm, scans
     "frontend": (256, 256), "ray": (256, 256), "localize": (256, 256),
-    "tiled": (256, 256), "fastslam": (128, 192),
+    "tiled": (256, 256), "fullslam_tiled": (448, 256), "fastslam": (128, 192),
     "fastslam1000": (128, 192), "fastslam16": (128, 192),
     # the second lap, where the loops close (715 scans in all)
     "fullslam": (384, 331),
     "schur": (2, 3),   # solves, not scans
     "hier": (1, 1),    # solves, not scans
 }
+# the pipelines that replay a CUDA graph a chunk unless --eager
+GRAPH_PIPELINES = ("frontend", "ray", "localize", "tiled", "fullslam_tiled")
 PF_CONFIGS = {
     "fastslam": bench_configs.pf_bench_config,
     "fastslam1000": bench_configs.pf1000_bench_config,
@@ -124,9 +129,9 @@ def _busy_us(events) -> float:
 def _step_runner(dev, cfg, state, log, eager):
     """steps(lo, hi) over scans lo..hi-1 of `log` from `state`: replays of
     the config's CUDA graph, one a chunk, as run_frontend runs them (lo
-    and hi multiples of cfg.chunk), or with `eager` (or an update that
-    reads its gate on the host) the steps one by one."""
-    if eager or not graph_capturable(cfg):
+    and hi multiples of cfg.chunk), or with `eager` the steps one by
+    one."""
+    if eager:
         odom = torch.as_tensor(log["odom"], device=dev)
         ranges = torch.as_tensor(log["ranges"], device=dev)
 
@@ -175,7 +180,7 @@ def localize_steps(dev, cfg, eager=False):
     return steps, frontend_step, ("host_syncs", "matches", "updates")
 
 
-def tiled_steps(dev):
+def tiled_steps(dev, eager=False):
     """(steps, counters) of the tiled frontend: run_tiled_frontend over
     scans lo..hi-1 (whole chunks) with the state carried, so its host loop
     (forecast, activation, one pose read a chunk) is in the trace."""
@@ -186,7 +191,28 @@ def tiled_steps(dev):
     def steps(lo, hi):
         nonlocal state
         part = {k: np.asarray(v)[lo:hi] for k, v in log.items()}
-        state, _, _ = run_tiled_frontend(part, cfg, tcfg, dev, state=state)
+        state, _, _ = run_tiled_frontend(part, cfg, tcfg, dev, state=state,
+                                         graph=False if eager else None)
+
+    return steps, tiled_frontend_step, ("host_syncs", "matches", "updates")
+
+
+def fullslam_tiled_steps(dev, eager=False):
+    """(steps, counters) of tiled full SLAM at the CLI's tile defaults over
+    the corridor lap: run_full_slam_tiled over scans lo..hi-1, resumed
+    from the previous part's checkpoint."""
+    from slam2d_tpu_torch.run.full_slam_tiled import run_full_slam_tiled
+
+    cfg, tcfg, gcfg = bench_configs.fullslam_tiled_bench_config()
+    log = bench_configs.fullslam_tiled_bench_log(cfg.sensor)
+    ckpt = None
+
+    def steps(lo, hi):
+        nonlocal ckpt
+        part = {k: np.asarray(v)[lo:hi] for k, v in log.items()}
+        ckpt = run_full_slam_tiled(
+            part, cfg, tcfg, gcfg, device=dev, resume=ckpt,
+            scan_index_offset=lo, graph=False if eager else None).ckpt
 
     return steps, tiled_frontend_step, ("host_syncs", "matches", "updates")
 
@@ -366,9 +392,7 @@ def fastslam_steps(dev, cfg, pf, seeds, graph):
                     odom_p[s : s + K], ranges_p[s : s + K],
                     torch.randn((K, P, 3), generator=gen, device=dev),
                     torch.rand(K, generator=gen, device=dev), out)
-            # the replays' counts into fastslam_step's (no host read)
-            fastslam_step.counter(dev).add_(g.counts)
-            g.counts.zero_()
+            g.flush_counts()
 
         return replays, fastslam_step, counters
 
@@ -431,13 +455,14 @@ def main():
             dev, bench_configs.bench_config(), args.eager)
     elif args.pipeline == "ray":
         steps, step, counters = frontend_steps(
-            dev, bench_configs.ray_bench_config()
-        )
+            dev, bench_configs.ray_bench_config(), args.eager)
     elif args.pipeline == "localize":
         steps, step, counters = localize_steps(
             dev, bench_configs.bench_config(), args.eager)
     elif args.pipeline == "tiled":
-        steps, step, counters = tiled_steps(dev)
+        steps, step, counters = tiled_steps(dev, args.eager)
+    elif args.pipeline == "fullslam_tiled":
+        steps, step, counters = fullslam_tiled_steps(dev, args.eager)
     elif args.pipeline == "fullslam":
         steps, step, counters = fullslam_steps(dev)
     elif args.pipeline == "schur":
@@ -473,13 +498,16 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(json.dumps(dict(
         card=bench_configs.card(), pipeline=args.pipeline, scans=n,
-        graph=args.graph,
+        # whether the traced scans replayed CUDA graphs
+        graph=(args.graph if args.pipeline in PF_CONFIGS
+               else args.pipeline == "fullslam"
+               or args.pipeline in GRAPH_PIPELINES and not args.eager),
         first_scan=warm, wall_ms=wall_us / 1e3, us_per_scan=wall_us / n,
         device_busy_us=busy, device_busy_share=busy / wall_us,
         device_kernels=sum(v[0] for v in kernels.values()),
         **{name: getattr(step, name) for name in counters},
         **({"fetch_reads": full_slam.fetch.reads}
-           if args.pipeline == "fullslam" else {}),
+           if args.pipeline in ("fullslam", "fullslam_tiled") else {}),
         top_kernels=[dict(name=k[:90], launches=v[0], us=v[1])
                      for k, v in top[:14]],
         # the port's own kernels (csrc/: anonymous namespaces outside at::)

@@ -36,7 +36,10 @@
 //   ox + (float)c0 * res, two roundings as grid/occupancy.py:
 //   window_origin_xy makes it, so a cell's arithmetic is that of the
 //   extracted window's. Writing in place is safe: a cell's new value is
-//   clip(g + upd) of its own old value alone.
+//   clip(g + upd) of its own old value alone. With origin_in_map 0 the
+//   array is itself the window (the tiled frontend's window gathered from
+//   its tile pool): (r0, c0) is then the window's cell on the lattice of
+//   (ox, oy), which places its float origin alone.
 // - Every particle's window at once (slam2d_update_hybrid_particles, the
 //   particle filter's update_impl="pallas_hybrid"): blockIdx.z is the
 //   particle; its pose and its map are that particle's, and its window's
@@ -73,7 +76,8 @@ struct Params {
 
 // grid and out may be one array (in place); `pitch` is their row length,
 // (H, W) the updated window's size; `origin` (the window's top-left cell in
-// the array) and `gate` may be null: no offset, no gate. With map_rows > 0
+// the array, or with origin_in_map 0 on the lattice alone) and `gate` may
+// be null: no offset, no gate. With map_rows > 0
 // blockIdx.z picks a particle: its pose (pose + 3 z), its map of map_rows x
 // pitch cells, and its window's origin computed from its pose (`origin` is
 // then unused).
@@ -81,6 +85,7 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     update_hybrid_kernel(const T* grid, T* out, int pitch,
                          const int* __restrict__ origin,
+                         int origin_in_map,
                          const unsigned char* __restrict__ gate,
                          const float* __restrict__ pose,
                          const float* __restrict__ ranges,
@@ -105,9 +110,11 @@ __global__ void __launch_bounds__(THREADS)
   if (map_rows > 0 || origin != nullptr) {
     p.ox = F_ADD(p.ox, F_MUL((float)c0, p.res));
     p.oy = F_ADD(p.oy, F_MUL((float)r0, p.res));
-    const size_t base = (size_t)r0 * pitch + c0;
-    grid += base;
-    out += base;
+    if (map_rows > 0 || origin_in_map) {
+      const size_t base = (size_t)r0 * pitch + c0;
+      grid += base;
+      out += base;
+    }
   }
   extern __shared__ float smem[];
   float* rng = smem;        // [B] the scan
@@ -210,15 +217,16 @@ __global__ void __launch_bounds__(THREADS)
 
 template <typename T>
 int launch(const T* grid, T* out, int pitch, const int* origin,
-           const unsigned char* gate, const float* pose, const float* ranges,
+           int origin_in_map, const unsigned char* gate, const float* pose,
+           const float* ranges,
            const float* angles, int H, int W, int B, const Params& p,
            void* stream, int particles = 1, int map_rows = 0) {
   const dim3 block(BX, BY);
   const dim3 blocks((W + TW - 1) / TW, (H + TH - 1) / TH, particles);
   const size_t smem = 2 * (size_t)B * sizeof(float);
   update_hybrid_kernel<T><<<blocks, block, smem, (cudaStream_t)stream>>>(
-      grid, out, pitch, origin, gate, pose, ranges, angles, H, W, B, p,
-      map_rows);
+      grid, out, pitch, origin, origin_in_map, gate, pose, ranges, angles, H,
+      W, B, p, map_rows);
   return (int)cudaGetLastError();
 }
 
@@ -234,24 +242,29 @@ extern "C" int slam2d_update_hybrid(const float* grid, float* out,
                                     void* stream) {
   const Params p{ox,     oy,    res,   step,    angle_min, min_range,
                  max_range, l_free, l_occ, l_clamp, enable};
-  return launch(grid, out, W, nullptr, nullptr, pose, ranges, angles, H, W, B,
-                p, stream);
+  return launch(grid, out, W, nullptr, 1, nullptr, pose, ranges, angles, H, W,
+                B, p, stream);
 }
 
 // In place on the h x w window of the H x W map `map` whose top-left cell
 // is origin[0..1] (device int32; null: the map's own cell (0, 0)), when the
 // device byte *gate (null: always) is not 0; (ox, oy) is the map's origin.
+// With origin_in_map 0 the map is the window (h = H, w = W) and origin is
+// its cell on the lattice of (ox, oy), which places its float origin.
 extern "C" int slam2d_update_hybrid_window(
-    float* map, const int* origin, const unsigned char* gate,
+    float* map, const int* origin, int origin_in_map,
+    const unsigned char* gate,
     const float* pose, const float* ranges, const float* angles, int H, int W,
     int h, int w, int B, float ox, float oy, float res, float step,
     float angle_min, float min_range, float max_range, float l_free,
     float l_occ, float l_clamp, float enable, void* stream) {
-  if (h < 1 || w < 1 || h > H || w > W) return (int)cudaErrorInvalidValue;
+  if (h < 1 || w < 1 || h > H || w > W ||
+      (!origin_in_map && (h != H || w != W)))
+    return (int)cudaErrorInvalidValue;
   const Params p{ox,     oy,    res,   step,    angle_min, min_range,
                  max_range, l_free, l_occ, l_clamp, enable};
-  return launch(map, map, W, origin, gate, pose, ranges, angles, h, w, B, p,
-                stream);
+  return launch(map, map, W, origin, origin_in_map, gate, pose, ranges,
+                angles, h, w, B, p, stream);
 }
 
 // Every particle's window at once, in place: `maps` holds P maps of H x W
@@ -271,10 +284,10 @@ extern "C" int slam2d_update_hybrid_particles(
                  max_range, l_free, l_occ, l_clamp, enable};
   if (is_bf16) {
     auto* m = (__nv_bfloat16*)maps;
-    return launch(m, m, W, nullptr, gate, poses, ranges, angles, h, w, B, p,
-                  stream, P, H);
+    return launch(m, m, W, nullptr, 1, gate, poses, ranges, angles, h, w, B,
+                  p, stream, P, H);
   }
   auto* m = (float*)maps;
-  return launch(m, m, W, nullptr, gate, poses, ranges, angles, h, w, B, p,
+  return launch(m, m, W, nullptr, 1, gate, poses, ranges, angles, h, w, B, p,
                 stream, P, H);
 }

@@ -55,6 +55,12 @@
 // A gate (the particle filter's device-gated step): when the device byte
 // *gate is 0, every block returns before it touches memory, so the maps
 // keep their bits; a null gate is always on.
+//
+// The frontend step's form (slam2d_update_ism_window, one map): the
+// window's top-left cell (r0, c0) is read from device memory instead of
+// computed from the pose, in the map when origin_in_map, else on the
+// lattice alone (the map is then the window itself, the tiled frontend's
+// window gathered from its tile pool), which places its float origin.
 
 #include "common.cuh"
 
@@ -99,7 +105,8 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
     update_ism_kernel(T* __restrict__ maps, const float* __restrict__ poses,
                       const float* __restrict__ ranges,
-                      const unsigned char* __restrict__ gate, Params p) {
+                      const unsigned char* __restrict__ gate, Params p,
+                      const int* __restrict__ origin, int origin_in_map) {
   if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   extern __shared__ float smem[];
   float* rng = smem;                                    // [B] the scan
@@ -127,14 +134,20 @@ __global__ void __launch_bounds__(THREADS)
               pth = poses[3 * part + 2];
   // window origin: world_to_cell of the pose (x / res as x * (1/res), as
   // XLA compiles it), minus half the window, clamped into the map
-  const int cr = (int)floorf(F_MUL(F_SUB(py, p.goy), p.inv_res));
-  const int cc = (int)floorf(F_MUL(F_SUB(px, p.gox), p.inv_res));
-  const int r0 = min(max(cr - p.Hr / 2, 0), p.H - p.Hr);
-  const int c0 = min(max(cc - p.Wr / 2, 0), p.W - p.Wr);
+  int r0, c0;
+  if (origin != nullptr) {
+    r0 = origin[0], c0 = origin[1];
+  } else {
+    const int cr = (int)floorf(F_MUL(F_SUB(py, p.goy), p.inv_res));
+    const int cc = (int)floorf(F_MUL(F_SUB(px, p.gox), p.inv_res));
+    r0 = min(max(cr - p.Hr / 2, 0), p.H - p.Hr);
+    c0 = min(max(cc - p.Wr / 2, 0), p.W - p.Wr);
+  }
   const float ox = F_ADD(p.gox, F_MUL((float)c0, p.res));
   const float oy = F_ADD(p.goy, F_MUL((float)r0, p.res));
   // the tile's map cells, in flight while the beams are sorted out
-  T* base = maps + (size_t)part * p.H * p.W + (size_t)r0 * p.W + c0;
+  T* base = maps + (size_t)part * p.H * p.W;
+  if (origin == nullptr || origin_in_map) base += (size_t)r0 * p.W + c0;
   float g[CY][CX];
 #pragma unroll
   for (int y = 0; y < CY; ++y)
@@ -241,17 +254,13 @@ __global__ void __launch_bounds__(THREADS)
     }
 }
 
-}  // namespace
-
-extern "C" int slam2d_update_ism(void* maps, int is_bf16, const float* poses,
-                                 const float* ranges, int P, int H, int W,
-                                 int Hr, int Wr, int B, float gox, float goy,
-                                 float res, float inv_res, float step,
-                                 float half_step, float angle_min,
-                                 float min_range, float max_range,
-                                 float occ_tol, float l_free, float l_occ,
-                                 float l_clamp, float enable,
-                                 const unsigned char* gate, void* stream) {
+int launch(void* maps, int is_bf16, const float* poses, const float* ranges,
+           int P, int H, int W, int Hr, int Wr, int B, float gox, float goy,
+           float res, float inv_res, float step, float half_step,
+           float angle_min, float min_range, float max_range, float occ_tol,
+           float l_free, float l_occ, float l_clamp, float enable,
+           const int* origin, int origin_in_map, const unsigned char* gate,
+           void* stream) {
   // the box holds 2 * occ_tol plus a cell on each side: fewer than BOX
   // cells' span while occ_tol < res (it is 0.75 res)
   const float box_half = 2.0f * occ_tol * inv_res + 1.0f;
@@ -269,10 +278,46 @@ extern "C" int slam2d_update_ism(void* maps, int is_bf16, const float* poses,
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     update_ism_kernel<__nv_bfloat16><<<blocks, block, smem, s>>>(
-        (__nv_bfloat16*)maps, poses, ranges, gate, p);
+        (__nv_bfloat16*)maps, poses, ranges, gate, p, origin, origin_in_map);
   } else {
-    update_ism_kernel<float><<<blocks, block, smem, s>>>((float*)maps, poses,
-                                                         ranges, gate, p);
+    update_ism_kernel<float><<<blocks, block, smem, s>>>(
+        (float*)maps, poses, ranges, gate, p, origin, origin_in_map);
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int slam2d_update_ism(void* maps, int is_bf16, const float* poses,
+                                 const float* ranges, int P, int H, int W,
+                                 int Hr, int Wr, int B, float gox, float goy,
+                                 float res, float inv_res, float step,
+                                 float half_step, float angle_min,
+                                 float min_range, float max_range,
+                                 float occ_tol, float l_free, float l_occ,
+                                 float l_clamp, float enable,
+                                 const unsigned char* gate, void* stream) {
+  return launch(maps, is_bf16, poses, ranges, P, H, W, Hr, Wr, B, gox, goy,
+                res, inv_res, step, half_step, angle_min, min_range,
+                max_range, occ_tol, l_free, l_occ, l_clamp, enable, nullptr,
+                1, gate, stream);
+}
+
+// One float32 map's h x w window at origin[0..1] (device int32), in place,
+// when the device byte *gate (null: always) is not 0; with origin_in_map 0
+// the map is the window (h = H, w = W) and origin its cell on the lattice
+// of (gox, goy), which places its float origin.
+extern "C" int slam2d_update_ism_window(
+    float* map, const int* origin, int origin_in_map, const float* pose,
+    const float* ranges, int H, int W, int h, int w, int B, float gox,
+    float goy, float res, float inv_res, float step, float half_step,
+    float angle_min, float min_range, float max_range, float occ_tol,
+    float l_free, float l_occ, float l_clamp, float enable,
+    const unsigned char* gate, void* stream) {
+  if (origin == nullptr || (!origin_in_map && (h != H || w != W)))
+    return (int)cudaErrorInvalidValue;
+  return launch(map, 0, pose, ranges, 1, H, W, h, w, B, gox, goy, res,
+                inv_res, step, half_step, angle_min, min_range, max_range,
+                occ_tol, l_free, l_occ, l_clamp, enable, origin,
+                origin_in_map, gate, stream);
 }

@@ -44,6 +44,15 @@
 // window_origin_xy makes it. Float32 or bfloat16 maps: the arithmetic is
 // float32, a bfloat16 cell rounded once on the store.
 //
+// In place on a window of one map (slam2d_update_ray_window, the frontend
+// step's update_impl="pallas_ray"): the window's top-left cell (r0, c0)
+// and a gate are read from device memory, as update_hybrid.cu's window
+// form reads them: a gate of 0 returns every block before it touches
+// memory; the float origin is ox + (float)c0 * res in two roundings. With
+// origin_in_map 0 the array is itself the window (the tiled frontend's
+// window gathered from its tile pool) and (r0, c0) places the float origin
+// alone.
+//
 // What bounds it on the H100: at the frontend's 520^2 window the map is
 // read and written once (2.2 MB, ~0.6 us at 3.35 TB/s) while each cell of a
 // tile evaluates ~16 float operations for each beam of its chunks: it is
@@ -120,7 +129,9 @@ __device__ void chunk_bounds(float x0, float x1, float y0, float y1,
 // (H, W) is the updated window's size and `pitch` the maps' row length;
 // grid and out may be one array (in place). With map_rows > 0 blockIdx.z
 // picks a particle: its pose (pose + 3 z), its map of map_rows x pitch
-// cells, and its window placed around its pose.
+// cells, and its window placed around its pose. Else a non-null `origin`
+// is the window's top-left cell, in the array when origin_in_map, else on
+// the lattice alone.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 update_ray_kernel(const T* grid, T* out, int pitch,
@@ -128,7 +139,8 @@ update_ray_kernel(const T* grid, T* out, int pitch,
                   const float* __restrict__ ranges,
                   const float* __restrict__ angles,
                   const unsigned char* __restrict__ gate, int H, int W, int B,
-                  int Bpad, Params p, int map_rows) {
+                  int Bpad, Params p, int map_rows,
+                  const int* __restrict__ origin, int origin_in_map) {
   if (gate != nullptr && *gate == 0) return;  // uniform: the whole grid
   if (map_rows > 0) {
     const size_t part = blockIdx.z;
@@ -145,6 +157,15 @@ update_ray_kernel(const T* grid, T* out, int pitch,
     const size_t base = (size_t)r0 * pitch + c0;
     grid += base;
     out += base;
+  } else if (origin != nullptr) {
+    const int r0 = origin[0], c0 = origin[1];
+    p.ox = F_ADD(p.ox, F_MUL((float)c0, p.res));
+    p.oy = F_ADD(p.oy, F_MUL((float)r0, p.res));
+    if (origin_in_map) {
+      const size_t base = (size_t)r0 * pitch + c0;
+      grid += base;
+      out += base;
+    }
   }
   extern __shared__ float tab[];  // [9, Bpad]
   __shared__ float warp_rmax[THREADS / 32];
@@ -253,7 +274,8 @@ template <typename T>
 int launch(const T* grid, T* out, int pitch, const float* pose,
            const float* ranges, const float* angles, int H, int W, int B,
            const Params& p, void* stream, int particles = 1,
-           int map_rows = 0, const unsigned char* gate = nullptr) {
+           int map_rows = 0, const unsigned char* gate = nullptr,
+           const int* origin = nullptr, int origin_in_map = 1) {
   if (H < 1 || W < 1 || B < 1 || B > 1360 || particles < 1 ||
       particles > 65535)
     return (int)cudaErrorInvalidValue;
@@ -263,7 +285,7 @@ int launch(const T* grid, T* out, int pitch, const float* pose,
   const size_t smem = 9 * (size_t)Bpad * sizeof(float);
   update_ray_kernel<T><<<blocks, block, smem, (cudaStream_t)stream>>>(
       grid, out, pitch, pose, ranges, angles, gate, H, W, B, Bpad, p,
-      map_rows);
+      map_rows, origin, origin_in_map);
   return (int)cudaGetLastError();
 }
 
@@ -282,6 +304,28 @@ extern "C" int slam2d_update_ray(const float* grid, float* out,
                  inv_samples, half_res, inv_res, angle_min, step,
                  l_free,  l_occ,     l_clamp, enable};
   return launch(grid, out, W, pose, ranges, angles, H, W, B, p, stream);
+}
+
+// In place on the h x w window of the H x W map `map` whose top-left cell
+// is origin[0..1] (device int32; null: the map's own cell (0, 0)), when the
+// device byte *gate (null: always) is not 0; (ox, oy) is the map's origin.
+// With origin_in_map 0 the map is the window (h = H, w = W) and origin is
+// its cell on the lattice of (ox, oy), which places its float origin.
+extern "C" int slam2d_update_ray_window(
+    float* map, const int* origin, int origin_in_map,
+    const unsigned char* gate, const float* pose, const float* ranges,
+    const float* angles, int H, int W, int h, int w, int B, float ox,
+    float oy, float res, float min_range, float max_range, float inv_samples,
+    float half_res, float inv_res, float angle_min, float step, float l_free,
+    float l_occ, float l_clamp, float enable, void* stream) {
+  if (h < 1 || w < 1 || h > H || w > W ||
+      (!origin_in_map && (h != H || w != W)))
+    return (int)cudaErrorInvalidValue;
+  const Params p{ox,      oy,        res,  min_range, max_range,
+                 inv_samples, half_res, inv_res, angle_min, step,
+                 l_free,  l_occ,     l_clamp, enable};
+  return launch(map, map, W, pose, ranges, angles, h, w, B, p, stream, 1, 0,
+                gate, origin, origin_in_map);
 }
 
 // Every particle's window at once, in place: `maps` holds P maps of H x W

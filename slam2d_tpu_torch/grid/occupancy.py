@@ -34,12 +34,15 @@ import torch
 from slam2d_tpu_torch.config import GridConfig, SensorConfig
 from slam2d_tpu_torch.core.numerics import inv_f32
 from slam2d_tpu_torch.ops import _build
+from slam2d_tpu_torch.grid.window import window_origin_xy_t
 from slam2d_tpu_torch.ops.update import (
     update_hybrid,
     update_hybrid_window,
     update_ism,
     update_ray,
+    update_ray_window,
     window_origins,
+    window_plain,
 )
 
 
@@ -258,7 +261,8 @@ def raycast_update(logodds, pose, ranges, cfg: GridConfig,
 
 
 def raycast_window(logodds, pose, ranges, cfg: GridConfig,
-                   sensor: SensorConfig, *, origin, size, gate):
+                   sensor: SensorConfig, *, origin, size, gate, cell=None,
+                   origin_xy=None):
     """`raycast_update` in place on the (h, w) = `size` window of the map
     `logodds` [H, W] at the int32 device origin `origin` (None: the map's
     cell (0, 0)), when the bool device tensor `gate` is true: the window's
@@ -267,14 +271,24 @@ def raycast_window(logodds, pose, ranges, cfg: GridConfig,
     entries are added into the map in place (a gate of 0 adds -0.0, the
     additive identity, so the map keeps its bits), then the cells they
     touch are clamped (the rest of the window holds clamped values
-    already). Returns `logodds`."""
+    already). `cell` (no origin, a window the size of the map): the map is
+    a window whose top-left cell on the lattice of world origin
+    `origin_xy` (default cfg's) is `cell`, and its cells are floored from
+    its float origin, the bits of raycast_update(...,
+    origin_xy=window_origin_xy(lattice, cell)). Returns `logodds`."""
     H, W = logodds.shape
     dev = logodds.device
-    if origin is None:
+    if cell is not None:
+        lx, ly = (cfg.origin_x, cfg.origin_y) if origin_xy is None else origin_xy
+        ox, oy = window_origin_xy_t(lx, ly, cfg.resolution, cell)
         origin = torch.zeros(2, dtype=torch.int32, device=dev)
+        roff = coff = 0
+    else:
+        if origin is None:
+            origin = torch.zeros(2, dtype=torch.int32, device=dev)
+        ox, oy, roff, coff = cfg.origin_x, cfg.origin_y, origin[0], origin[1]
     rows, cols, w = _raycast_entries(pose, ranges, cfg, sensor, size,
-                                     cfg.origin_x, cfg.origin_y,
-                                     origin[0], origin[1])
+                                     ox, oy, roff, coff)
     idx = ((rows + origin[0]).to(torch.int64) * W
            + (cols + origin[1]).to(torch.int64))
     flat = logodds.view(-1)
@@ -544,12 +558,9 @@ def integrate_scan(
     )
 
 
-WINDOW_IMPLS = ("pallas_hybrid", "sparse", "sparse_mxu")
-
-
 def integrate_scan_window(
     logodds, pose, ranges, cfg: GridConfig, sensor: SensorConfig, *,
-    origin, size, gate, plain: bool = False,
+    origin, size, gate, cell=None, origin_xy=None, plain: bool = False,
 ):
     """`integrate_scan` in place on the (h, w) = `size` window of the
     map `logodds` [H, W] at the int32 device origin `origin` (None: the
@@ -557,25 +568,53 @@ def integrate_scan_window(
     frontend step's update, with nothing read back to the host. The
     window's cells get the bits of extract_window -> integrate_scan(...,
     origin_rc) -> write_window; a gate of 0 leaves the map bit-identical.
-    Two updates have this form: the hybrid one (update_impl
-    "pallas_hybrid", the frontend's "auto"; kernel 1 `hybrid`,
-    ops/update.py:update_hybrid_window) and the sampled-ray one ("sparse",
-    "sparse_mxu", and "auto" past a field of view of pi;
-    `raycast_window`). Returns `logodds`."""
+    With `cell` in place of `origin` the map is itself the window (the
+    tiled frontend's, gathered from its tile pool; `size` its shape) and
+    `cell` its top-left cell on the lattice whose cell (0, 0) lies at
+    the world point `origin_xy` (default cfg's origin; the tiled world's
+    is its TileConfig's): the bits of integrate_scan(...,
+    origin_xy=window_origin_xy(lattice, cell)).
+
+    Every update has this form: kernel 1 `hybrid`, `ray` and `ism` read
+    the window origin and the gate from device memory
+    (ops/update.py:update_hybrid_window, update_ray_window, update_ism
+    with origin=), the sampled-ray update adds its entries in place
+    (`raycast_window`), and the dense one computes the window out of place
+    and selects it with the gate (ops/update.py:window_plain). Returns
+    `logodds`."""
     impl = resolve_update_impl(cfg, sensor)
     if impl in ("sparse", "sparse_mxu"):
         return raycast_window(logodds, pose, ranges, cfg, sensor,
-                              origin=origin, size=size, gate=gate)
-    if impl != "pallas_hybrid":
-        raise NotImplementedError(
-            f"update_impl {impl!r} has no in-place gated form; the hybrid "
-            "and the sampled-ray updates do"
+                              origin=origin, size=size, gate=gate, cell=cell,
+                              origin_xy=origin_xy)
+    oxy = (cfg.origin_x, cfg.origin_y) if origin_xy is None else origin_xy
+    if impl == "dense":
+        return window_plain(
+            logodds, lambda g, o: raycast_update_dense(
+                g, pose, ranges, cfg, sensor, origin_xy=o),
+            origin=origin, cell=cell, size=tuple(size), gate=gate,
+            origin_xy=oxy, resolution=cfg.resolution)
+    consts = update_constants(cfg, sensor)
+    angles = beam_angles(sensor, logodds.device)
+    if impl == "pallas":
+        if origin is None and cell is None:
+            origin = torch.zeros(2, dtype=torch.int32, device=logodds.device)
+        update_ism(logodds[None], pose[None], ranges, region=tuple(size),
+                   origin_xy=oxy, gate=gate, origin=origin, cell=cell,
+                   plain=plain, **consts)
+        return logodds
+    if impl == "pallas_ray":
+        return update_ray_window(
+            logodds, pose, ranges, angles, origin=origin, size=size,
+            gate=gate, origin_xy=oxy, cell=cell, resolution=cfg.resolution,
+            min_range=sensor.min_range, max_range=sensor.max_range,
+            angle_min=sensor.angle_min, step=consts["step"],
+            l_free=cfg.l_free, l_occ=cfg.l_occ, l_clamp=cfg.l_clamp,
+            ray_samples=cfg.ray_samples, plain=plain,
         )
     return update_hybrid_window(
-        logodds, pose, ranges, beam_angles(sensor, logodds.device),
-        origin=origin, size=size, gate=gate,
-        origin_xy=(cfg.origin_x, cfg.origin_y), plain=plain,
-        **update_constants(cfg, sensor),
+        logodds, pose, ranges, angles, origin=origin, size=size, gate=gate,
+        origin_xy=oxy, cell=cell, plain=plain, **consts,
     )
 
 

@@ -11,13 +11,25 @@ and is discarded; its content is unspecified. A tile that is not active
 reads as 0 and the trash slot is never read.
 
 Activating a tile (`TileTable.activate`) is a host table update: a free
-slot gets the tile's coordinates, and the device `coords` is replaced by a
-copy of the host table, so the two stay equal. The window origin of a
-region op is a host integer (the frontend reads the window center with
-its gate), so `TileTable` also knows, on the host, which slot holds each
-tile a window overlaps. `gather_region` and `scatter_region` are then
-plain copies of the overlapping tile pieces, one to three a side; the
-JAX package's one-hot matmul form was a TPU workaround for slow gathers.
+slot gets the tile's coordinates, and the host table is copied into the
+device `coords` in place (the buffer keeps its address, so a captured
+CUDA graph that reads it stays valid), so the two stay equal.
+
+The region ops gather and scatter a [h, w] window whose global top-left
+cell is given. The frontend's (`gather_region_t`, `scatter_region_t`)
+take it as an int32 device tensor and find the slots from the device
+`coords`, as the JAX package's `lookup_slot` does, with nothing read to
+the host: each window row and column splits into a tile index (floor
+division) and an offset (`torch.remainder`: global cells go negative),
+each of the ceil((h - 1) / t) + 1 by ceil((w - 1) / t) + 1 tiles the
+window can overlap gets its slot, and the window is one flat gather, or
+one flat `index_put_`, of the pool. The host forms (`gather_region`,
+`scatter_region`) take a host origin and the host `TileTable`, and copy
+the overlapping tile pieces, one to three a side: full SLAM's rebuild
+places its windows on the host, and run eagerly the host forms' few
+copies a window cost less than the device forms' index arithmetic
+(scripts/bench_tiled_rebuild_torch.py). The JAX package's one-hot matmul form
+was a TPU workaround for slow gathers; both forms give its bits.
 """
 
 from __future__ import annotations
@@ -121,11 +133,12 @@ class TileTable:
         return table
 
     def activate(self, grid: TiledGrid, tiles_needed) -> TiledGrid:
-        """Assign free slots to any unseen tiles; returns the grid with
-        its device `coords` replaced by the host table's. Raises if the
-        pool is exhausted (capacity is a config decision). The lowest free
-        slot is taken: a table built by `activate` fills slots 0, 1, ...
-        as the JAX package's does."""
+        """Assign free slots to any unseen tiles and copy the host table
+        into the grid's device `coords` IN PLACE (the JAX package returns
+        a grid with new coords); returns the grid. Raises if the pool is
+        exhausted (capacity is a config decision). The lowest free slot is
+        taken: a table built by `activate` fills slots 0, 1, ... as the
+        JAX package's does."""
         changed = False
         for rc in tiles_needed:
             rc = (int(rc[0]), int(rc[1]))
@@ -142,8 +155,7 @@ class TileTable:
             self.coords[slot] = rc
             changed = True
         if changed:
-            grid = grid._replace(coords=torch.as_tensor(
-                self.coords.copy(), device=grid.coords.device))
+            grid.coords.copy_(torch.from_numpy(self.coords.copy()))
         return grid
 
     def slot(self, rc):
@@ -234,3 +246,61 @@ def scatter_region(grid: TiledGrid, cfg: TileConfig, window, origin_rc,
         dst = grid.tiles[trash if slot is None else slot, qr, qc]
         dst += window[wr, wc] - dst
     return grid
+
+
+def _region_index(coords, origin, size, tile: int, gate=None):
+    """([h, w] int64 flat indices into a pool's tiles of the cells of the
+    (h, w) = `size` window whose global top-left cell is the int32 device
+    tensor `origin` [2], [h, w] bool: the cell's tile is active). A cell
+    of a tile that is not active, or any cell where the bool device tensor
+    `gate` is false, indexes the trash slot. Nothing is read to the host."""
+    h, w = size
+    n = coords.shape[0] - 1
+    dev = coords.device
+    o = origin.to(torch.int64)
+    rows = o[0] + torch.arange(h, dtype=torch.int64, device=dev)
+    cols = o[1] + torch.arange(w, dtype=torch.int64, device=dev)
+    base = torch.div(o, tile, rounding_mode="floor")
+    # the tiles the window can overlap, and their slots (lookup_slot's)
+    nr, nc = -(-(h - 1) // tile) + 1, -(-(w - 1) // tile) + 1
+    cand = torch.stack(torch.broadcast_tensors(
+        base[0] + torch.arange(nr, device=dev)[:, None],
+        base[1] + torch.arange(nc, device=dev)[None, :]), dim=-1)
+    hit = torch.all(coords[None, None, :n].to(torch.int64)
+                    == cand[:, :, None, :], dim=-1)        # [nr, nc, n]
+    found = torch.any(hit, dim=-1)
+    live = found if gate is None else found & gate.reshape(())
+    slot = torch.where(live, torch.argmax(hit.to(torch.int32), dim=-1), n)
+    ar = (torch.div(rows, tile, rounding_mode="floor") - base[0])[:, None]
+    ac = (torch.div(cols, tile, rounding_mode="floor") - base[1])[None, :]
+    flat = (slot[ar, ac] * (tile * tile)
+            + torch.remainder(rows, tile)[:, None] * tile
+            + torch.remainder(cols, tile)[None, :])
+    return flat, found[ar, ac]
+
+
+def gather_region_t(grid: TiledGrid, cfg: TileConfig, origin, size: int):
+    """`gather_region` at the int32 device origin `origin` [2], the slots
+    from the device coords: the [size, size] window, a new tensor (one
+    gather of the pool); missing tiles read as zeros."""
+    flat, found = _region_index(grid.coords, origin, (size, size), cfg.tile)
+    return torch.where(found, torch.take(grid.tiles, flat), 0.0)
+
+
+def scatter_region_t(grid: TiledGrid, cfg: TileConfig, window, origin,
+                     gate=None) -> TiledGrid:
+    """`scatter_region` at the int32 device origin `origin` [2], the slots
+    from the device coords, IN PLACE in `grid.tiles`, when the bool device
+    tensor `gate` is true (None: always): each active tile's cells become
+    t + (window - t) in float32; a cell of a tile that is not active, and
+    every cell on a gate of 0, goes to the trash slot, so a gated-off
+    scatter leaves every tile bit-identical. One flat index_put_ of the
+    pool. Returns the grid."""
+    flat, _ = _region_index(grid.coords, origin, tuple(window.shape),
+                            cfg.tile, gate)
+    flat = flat.reshape(-1)
+    pool = grid.tiles.view(-1)
+    t = pool[flat]
+    pool.index_put_((flat,), t + (window.reshape(-1) - t))
+    return grid
+

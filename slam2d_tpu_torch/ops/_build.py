@@ -43,14 +43,20 @@ _SIGNATURES = {
     # angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable, stream
     "slam2d_update_hybrid": [_P, _P, _P, _P, _P, _I, _I, _I]
     + [_F] * 11 + [_P],
-    # map, origin, gate, pose, ranges, angles, H, W, h, w, B, ox, oy, res,
-    # step, angle_min, min_range, max_range, l_free, l_occ, l_clamp,
-    # enable, stream
-    "slam2d_update_hybrid_window": [_P] * 6 + [_I] * 5 + [_F] * 11 + [_P],
+    # map, origin, origin_in_map, gate, pose, ranges, angles, H, W, h, w,
+    # B, ox, oy, res, step, angle_min, min_range, max_range, l_free, l_occ,
+    # l_clamp, enable, stream
+    "slam2d_update_hybrid_window": [_P, _P, _I] + [_P] * 4 + [_I] * 5
+    + [_F] * 11 + [_P],
     # maps, is_bf16, poses, ranges, P, H, W, Hr, Wr, B, gox, goy, res,
     # inv_res, step, half_step, angle_min, min_range, max_range, occ_tol,
     # l_free, l_occ, l_clamp, enable, gate, stream
     "slam2d_update_ism": [_P, _I, _P, _P] + [_I] * 6 + [_F] * 14 + [_P, _P],
+    # map, origin, origin_in_map, pose, ranges, H, W, h, w, B, gox, goy,
+    # res, inv_res, step, half_step, angle_min, min_range, max_range,
+    # occ_tol, l_free, l_occ, l_clamp, enable, gate, stream
+    "slam2d_update_ism_window": [_P, _P, _I, _P, _P] + [_I] * 5 + [_F] * 14
+    + [_P, _P],
     # S, pos_row, pos_col, valid, out, H, W, T, B, R, C, bilinear, stream
     "slam2d_score_offsets": [_P] * 5 + [_I] * 7 + [_P],
     # S, pos_row, pos_col, valid, out, gate, H, W, T, B, R, C, bilinear,
@@ -87,6 +93,11 @@ _SIGNATURES = {
     # max_range, 1/ray_samples, res/2, 1/res, angle_min, step, l_free,
     # l_occ, l_clamp, enable, stream
     "slam2d_update_ray": [_P] * 5 + [_I] * 3 + [_F] * 14 + [_P],
+    # map, origin, origin_in_map, gate, pose, ranges, angles, H, W, h, w,
+    # B, ox, oy, res, min_range, max_range, 1/ray_samples, res/2, 1/res,
+    # angle_min, step, l_free, l_occ, l_clamp, enable, stream
+    "slam2d_update_ray_window": [_P, _P, _I] + [_P] * 4 + [_I] * 5
+    + [_F] * 14 + [_P],
     # maps, is_bf16, poses, ranges, angles, P, H, W, h, w, B, ox, oy,
     # res, step, angle_min, min_range, max_range, l_free, l_occ, l_clamp,
     # enable, gate, stream

@@ -34,7 +34,12 @@ over the particles, as kernel 1 `ism` has), each window placed around
 its particle's pose as `window_origins` says. `update_ism` and the
 particle forms take the particle filter's device gate (`gate=`, a bool
 tensor on the maps' device): on 0 every block returns at once and the
-maps keep their bits.
+maps keep their bits. `update_ray_window` and `update_ism` with
+`origin=` are kernel 1 `ray`'s and `ism`'s forms of the frontend step,
+as `update_hybrid_window` is `hybrid`'s. With `cell=` in place of
+`origin=`, each of the three takes a map that is itself the window (the
+tiled frontend's window, gathered from its tile pool), `cell` its
+top-left cell on the lattice, which places its float origin alone.
 """
 
 from __future__ import annotations
@@ -179,39 +184,48 @@ def update_hybrid(
 update_hybrid.launches = 0
 
 
-def update_hybrid_window_plain(
-    grid, pose, ranges, angles, *, origin, size, gate, origin_xy,
-    resolution, step, angle_min, min_range, max_range, l_free, l_occ,
-    l_clamp, enable=1.0,
-):
-    """Plain version of the window form, in place: the window gathered at
-    the device origin, `update_hybrid_plain` at its float origin (as
-    window_origin_xy rounds it), and the window written back selected by
-    the gate (a gate of 0 writes the old cells back: the same bits)."""
+def window_operands(grid, origin, cell, gate, size):
+    """Check the operands of a window form (grid/window.py:
+    check_window_operands; `cell`, which excludes `origin`, is checked as
+    an origin and needs a window the size of the map) and return the
+    kernel's (origin pointer, origin_in_map)."""
+    check_window_operands(grid, origin, gate, size)
+    if cell is None:
+        return (None if origin is None else origin.data_ptr()), 1
+    if origin is not None or tuple(size) != tuple(grid.shape):
+        raise ValueError("cell= takes no origin and a window the size of "
+                         "the map")
+    check_window_operands(grid, cell, None, size)
+    return cell.data_ptr(), 0
+
+
+def window_plain(grid, update, *, origin, cell, size, gate, origin_xy,
+                 resolution):
+    """The plain version of a window form, in place: the window gathered at
+    the device origin (the map itself with `cell`), `update(window, float
+    origin)` at its float origin (as window_origin_xy rounds it), and the
+    window written back selected by the gate (a gate of 0 writes the old
+    cells back: the same bits)."""
     ox, oy = origin_xy
-    if origin is None:
-        g = grid[: size[0], : size[1]]
-    else:
+    if origin is not None:
         g = take_window(grid, origin, size)
         origin_xy = tuple(window_origin_xy_t(ox, oy, resolution, origin))
-    new = update_hybrid_plain(
-        g, pose, ranges, angles, origin_xy=origin_xy, resolution=resolution,
-        step=step, angle_min=angle_min, min_range=min_range,
-        max_range=max_range, l_free=l_free, l_occ=l_occ, l_clamp=l_clamp,
-        enable=enable,
-    )
-    if gate is not None:
-        new = torch.where(gate.reshape(()), new, g)
-    if origin is None:
-        grid[: size[0], : size[1]] = new
-        return grid
-    return put_window(grid, new, origin)
+    elif cell is not None:
+        g = grid
+        origin_xy = tuple(window_origin_xy_t(ox, oy, resolution, cell))
+    else:
+        g = grid[: size[0], : size[1]]
+    new = _build.gated(gate, update(g, origin_xy), g)
+    if origin is not None:
+        return put_window(grid, new, origin)
+    grid[: size[0], : size[1]] = new
+    return grid
 
 
 def update_hybrid_window(
     grid, pose, ranges, angles, *, origin, size, gate, origin_xy,
     resolution, step, angle_min, min_range, max_range, l_free, l_occ,
-    l_clamp, enable=1.0, plain=False,
+    l_clamp, enable=1.0, cell=None, plain=False,
 ):
     """Kernel 1 `hybrid` in place on the (h, w) = `size` window of `grid`
     [H, W] f32 whose top-left cell is the int32 device tensor `origin`
@@ -219,25 +233,27 @@ def update_hybrid_window(
     `gate` is true (None: always); `origin_xy` is the float world origin
     of the map's cell (0, 0). The window's cells get the bits of
     extract_window -> update_hybrid at window_origin_xy -> write_window;
-    a gate of 0 leaves the map bit-identical. One launch; nothing is read
-    back to the host. Returns `grid`."""
+    a gate of 0 leaves the map bit-identical. `cell` (with no origin and
+    a window the size of the map): the map is the window, `cell` its
+    top-left cell on the lattice of `origin_xy`. One launch; nothing is
+    read back to the host. Returns `grid`."""
     _check(grid, pose, ranges, angles)
-    check_window_operands(grid, origin, gate, size)
-    kw = dict(
-        origin=origin, size=tuple(size), gate=gate, origin_xy=origin_xy,
-        resolution=resolution, step=step, angle_min=angle_min,
-        min_range=min_range, max_range=max_range, l_free=l_free,
-        l_occ=l_occ, l_clamp=l_clamp, enable=enable,
-    )
+    ptr, in_map = window_operands(grid, origin, cell, gate, size)
     if plain or grid.device.type == "cpu":
-        return update_hybrid_window_plain(grid, pose, ranges, angles, **kw)
+        return window_plain(
+            grid, lambda g, o: update_hybrid_plain(
+                g, pose, ranges, angles, origin_xy=o, resolution=resolution,
+                step=step, angle_min=angle_min, min_range=min_range,
+                max_range=max_range, l_free=l_free, l_occ=l_occ,
+                l_clamp=l_clamp, enable=enable),
+            origin=origin, cell=cell, size=tuple(size), gate=gate,
+            origin_xy=origin_xy, resolution=resolution)
     if grid.device.type != "cuda":
         raise ValueError(f"no update kernel for device {grid.device}")
     H, W = grid.shape
     lib = _build.load_library()
     err = lib.slam2d_update_hybrid_window(
-        grid.data_ptr(), None if origin is None else origin.data_ptr(),
-        None if gate is None else gate.data_ptr(), pose.data_ptr(),
+        grid.data_ptr(), ptr, in_map, _build.gate_ptr(gate), pose.data_ptr(),
         ranges.data_ptr(), angles.data_ptr(), H, W, size[0], size[1],
         ranges.shape[0], origin_xy[0], origin_xy[1], resolution, step,
         angle_min, min_range, max_range, l_free, l_occ, l_clamp, enable,
@@ -281,15 +297,34 @@ def window_origins(poses, region, shape, origin_xy, resolution):
     return (r0, c0), (ox, oy)
 
 
+def _ism_windows(poses, region, shape, origin_xy, resolution, origin=None,
+                 cell=None):
+    """`window_origins`, or with a device `origin` [2] (one map) the
+    window at it, or with `cell` the whole map at that lattice cell: the
+    integer top-left cells [P] x 2 in the map and the float origins [P] x
+    2."""
+    o = origin if cell is None else cell
+    if o is None:
+        return window_origins(poses, region, shape, origin_xy, resolution)
+    f = window_origin_xy_t(origin_xy[0], origin_xy[1], resolution,
+                           o.reshape(1, 2))
+    rc = o.to(torch.int64).reshape(1, 2)
+    if cell is not None:
+        rc = torch.zeros_like(rc)
+    return (rc[:, 0], rc[:, 1]), (f[:, 0], f[:, 1])
+
+
 def ism_cell_polar(poses, region, shape, *, origin_xy, resolution,
-                   angle_min):
+                   angle_min, origin=None, cell=None):
     """(d, phi) [P, Hr, Wr] float32: the range and the bearing (relative to
     angle_min, wrapped to [-pi, pi)) of every cell center of each
-    particle's `region` window, placed as `window_origins` says, with the
-    kernel's float32 operations."""
+    particle's `region` window, placed as `window_origins` says (or at
+    `origin` / `cell`, as `update_ism` takes them), with the kernel's
+    float32 operations."""
     Hr, Wr = region
     dev = poses.device
-    _, (ox, oy) = window_origins(poses, region, shape, origin_xy, resolution)
+    _, (ox, oy) = _ism_windows(poses, region, shape, origin_xy, resolution,
+                               origin, cell)
     col = torch.arange(Wr, dtype=torch.float32, device=dev)
     row = torch.arange(Hr, dtype=torch.float32, device=dev)
     px, py, pth = (poses[:, i, None, None] for i in range(3))
@@ -310,6 +345,7 @@ def ism_occ_tol(resolution) -> float:
 def update_ism_plain(
     maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
     min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, gate=None,
+    origin=None, cell=None,
 ):
     """Plain PyTorch version of the kernel, same float32 operations, in
     place. The occupied test loops over every beam, as the TPU kernel
@@ -320,7 +356,8 @@ def update_ism_plain(
     Hr, Wr = region
     B = ranges.shape[0]
     dev = maps.device
-    (r0, c0), _ = window_origins(poses, region, (H, W), origin_xy, resolution)
+    (r0, c0), _ = _ism_windows(poses, region, (H, W), origin_xy, resolution,
+                               origin, cell)
     pidx = torch.arange(P, device=dev)[:, None, None]
     rows = (r0[:, None] + torch.arange(Hr, device=dev))[:, :, None]
     cols = (c0[:, None] + torch.arange(Wr, device=dev))[:, None, :]
@@ -330,7 +367,7 @@ def update_ism_plain(
     r_hit, rmin3 = _beam_tables(ranges, min_range, max_range)
     d, phi = ism_cell_polar(
         poses, region, (H, W), origin_xy=origin_xy, resolution=resolution,
-        angle_min=angle_min,
+        angle_min=angle_min, origin=origin, cell=cell,
     )
     k0 = torch.floor(phi / step)
     free = torch.zeros_like(d, dtype=torch.bool)
@@ -423,7 +460,7 @@ def _check_ism(maps, poses, ranges, region):
 def update_ism(
     maps, poses, ranges, *, region, origin_xy, resolution, step, angle_min,
     min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, gate=None,
-    plain=False,
+    origin=None, cell=None, plain=False,
 ):
     """Integrate one scan into every particle's map, IN PLACE; returns
     `maps` [P, H, W] (float32 or bfloat16).
@@ -435,14 +472,22 @@ def update_ism(
     other arguments are the sensor and grid constants. `gate`, a
     one-element bool tensor on the maps' device (None: always), is read
     there: a gate of 0 leaves the maps bit-identical, with nothing read
-    back to the host. `plain=True` runs the plain version on a CUDA tensor
+    back to the host. The frontend step's form (one float32 map): a device
+    `origin` [2] places the window instead of the pose, and `cell` takes
+    the whole map as a window at that lattice cell (update_hybrid_window's
+    operands). `plain=True` runs the plain version on a CUDA tensor
     too: it is meant for checks of the kernel against it, not for use."""
     _check_ism(maps, poses, ranges, region)
     _build.check_gate(gate, maps.device)
+    if origin is not None or cell is not None:
+        if maps.shape[0] != 1 or maps.dtype != torch.float32:
+            raise ValueError("a window origin takes one float32 map")
+        ptr, in_map = window_operands(maps[0], origin, cell, gate, region)
     kw = dict(
         region=region, origin_xy=origin_xy, resolution=resolution, step=step,
         angle_min=angle_min, min_range=min_range, max_range=max_range,
         l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable, gate=gate,
+        origin=origin, cell=cell,
     )
     if plain or maps.device.type == "cpu":
         return update_ism_plain(maps, poses, ranges, **kw)
@@ -451,6 +496,18 @@ def update_ism(
     P, H, W = maps.shape
     f32 = lambda x: float(np.float32(x))  # noqa: E731
     lib = _build.load_library()
+    if origin is not None or cell is not None:
+        err = lib.slam2d_update_ism_window(
+            maps.data_ptr(), ptr, in_map, poses.data_ptr(), ranges.data_ptr(),
+            H, W, region[0], region[1], ranges.shape[0], origin_xy[0],
+            origin_xy[1], resolution, inv_f32(resolution), step,
+            f32(0.5 * f32(step)), angle_min, min_range, max_range,
+            ism_occ_tol(resolution), l_free, l_occ, l_clamp, enable,
+            _build.gate_ptr(gate), _build.stream_handle(maps.device),
+        )
+        _build.check(err, "slam2d_update_ism_window")
+        update_ism.launches += 1
+        return maps
     err = lib.slam2d_update_ism(
         maps.data_ptr(), int(maps.dtype == torch.bfloat16), poses.data_ptr(),
         ranges.data_ptr(), P, H, W, region[0], region[1], ranges.shape[0],
@@ -695,6 +752,53 @@ def update_ray(
 
 
 update_ray.launches = 0
+
+
+def update_ray_window(
+    grid, pose, ranges, angles, *, origin, size, gate, origin_xy,
+    resolution, min_range, max_range, angle_min, step, l_free, l_occ,
+    l_clamp, ray_samples, enable=1.0, cell=None, plain=False,
+):
+    """Kernel 1 `ray` in place on the (h, w) = `size` window of `grid`
+    [H, W] f32 at the int32 device origin `origin` (None: the map's cell
+    (0, 0)), when the bool device tensor `gate` is true (None: always):
+    the window's cells get the bits of extract_window -> update_ray at
+    window_origin_xy -> write_window, and a gate of 0 leaves the map
+    bit-identical; `cell` as for update_hybrid_window. One launch; nothing
+    is read back to the host. Returns `grid`."""
+    _check(grid, pose, ranges, angles)
+    if ranges.shape[0] > _MAX_RAY_BEAMS:
+        raise ValueError(f"need at most {_MAX_RAY_BEAMS} beams")
+    ptr, in_map = window_operands(grid, origin, cell, gate, size)
+    if plain or grid.device.type == "cpu":
+        def one(g, o):
+            rays = ray_tables(
+                pose, ranges, angles, origin_xy=o, resolution=resolution,
+                min_range=min_range, max_range=max_range,
+                ray_samples=ray_samples,
+            )
+            return update_ray_plain(
+                g, pose, rays, origin_xy=o, resolution=resolution,
+                l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
+            )
+        return window_plain(grid, one, origin=origin, cell=cell,
+                            size=tuple(size), gate=gate, origin_xy=origin_xy,
+                            resolution=resolution)
+    if grid.device.type != "cuda":
+        raise ValueError(f"no update kernel for device {grid.device}")
+    H, W = grid.shape
+    lib = _build.load_library()
+    err = lib.slam2d_update_ray_window(
+        grid.data_ptr(), ptr, in_map, _build.gate_ptr(gate), pose.data_ptr(),
+        ranges.data_ptr(), angles.data_ptr(), H, W, size[0], size[1],
+        ranges.shape[0], origin_xy[0], origin_xy[1], resolution, min_range,
+        max_range, inv_f32(max(ray_samples, 1)), 0.5 * resolution,
+        inv_f32(resolution), angle_min, step, l_free, l_occ, l_clamp, enable,
+        _build.stream_handle(grid.device),
+    )
+    _build.check(err, "slam2d_update_ray_window")
+    update_ray.launches += 1
+    return grid
 
 
 def _check_particles(maps, poses, ranges, angles, region):

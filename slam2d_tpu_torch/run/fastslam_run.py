@@ -44,6 +44,12 @@ from slam2d_tpu_torch.pf.fastslam import (
     fastslam_step,
     host_gate_flags,
 )
+from slam2d_tpu_torch.run.capture import (
+    ChunkCapture,
+    chunk_graph_of,
+    cuda_device,
+    pinned,
+)
 
 # every kernel wrapper a FastSLAM step can launch (score_window: the
 # per-particle refine with the gather scorer)
@@ -52,7 +58,7 @@ _KERNELS = (update_ism, update_hybrid_particles, update_ray_particles,
             gather_rows, shared_apply)
 
 
-class PFChunkGraph:
+class PFChunkGraph(ChunkCapture):
     """K device-gated FastSLAM steps of one config on one CUDA device,
     captured as one CUDA graph on static buffers: the seven PFState
     fields, odometry [K, 3], ranges [K, B], the draws (noise [K, P, 3], u
@@ -60,26 +66,23 @@ class PFChunkGraph:
     (refines, updates, resamples) counters and the resample's scratch
     stack, a second [P, H, W] stack (the maps keep their address: the
     resample gathers into it and back, both launches gated). Built once
-    per (cfg, pf, device, K) (`pf_chunk_graph`), as run/frontend.py's
-    ChunkGraph: warm-up steps on a side stream build the kernels and fill
-    the caches, then `torch.cuda.graph` captures the K steps.
+    per (cfg, pf, device, K) (`pf_chunk_graph`) by run/capture.py's
+    ChunkCapture: warm-up steps on a side stream build the kernels and
+    fill the caches, then `torch.cuda.graph` captures the K steps.
 
     A run `load`s its starting state into the static buffers once, then
-    per chunk (`run_chunk`): odometry and ranges copied from pinned host
-    memory, the chunk's draws copied in on the device, one replay, one
-    device copy of the outputs; `finish` clones the state out. Nothing is
-    read back to the host. The kernels' launch counters count a capture's
-    launches once a replay. A failed build or capture raises; nothing
-    falls back to an eager or host-gated loop."""
+    per chunk (`run_chunk(odom, ranges, noise, u, out)`): odometry and
+    ranges copied from pinned host memory, the chunk's draws copied in on
+    the device, one replay, one device copy of the outputs; `finish`
+    clones the state out. Nothing is read back to the host. The kernels'
+    launch counters count a capture's launches once a replay. A failed
+    build or capture raises; nothing falls back to an eager or host-gated
+    loop."""
 
-    WARMUP_STEPS = 3
+    step = fastslam_step
 
     def __init__(self, cfg: FrontendConfig, pf: PFConfig, device, K: int):
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = cuda_device(device)
         self.cfg, self.pf, self.device, self.K = cfg, pf, device, K
         P, H, W = pf.n_particles, cfg.grid.height, cfg.grid.width
         f32 = dict(dtype=torch.float32, device=device)
@@ -91,48 +94,25 @@ class PFChunkGraph:
             torch.zeros((), **f32), torch.zeros((), **f32),
         )
         self.scratch = torch.empty_like(self.state.logodds)
-        self.odom = torch.zeros((K, 3), **f32)
-        self.ranges = torch.zeros((K, cfg.sensor.n_beams), **f32)
-        self.noise = torch.zeros((K, P, 3), **f32)
-        self.u = torch.zeros(K, **f32)
+        self.inputs = (
+            torch.zeros((K, 3), **f32),
+            torch.zeros((K, cfg.sensor.n_beams), **f32),
+            torch.zeros((K, P, 3), **f32),
+            torch.zeros(K, **f32),
+        )
         self.out = torch.zeros((K, 5), **f32)
         self.counts = torch.zeros(3, dtype=torch.int64, device=device)
-        self.replays = 0
-        # warm-up: the kernel build, the beam-angle, theta and noise-scale
-        # tables, the allocator
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            state = self.state
-            for k in range(min(self.WARMUP_STEPS, K)):
-                state = self._one(k, state)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        before = [fn.launches for fn in _KERNELS]
         syncs = fastslam_step.host_syncs
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            state = self.state
-            for k in range(K):
-                state = self._one(k, state)
-            for dst, src in zip(self.state, state):
-                if dst is not src:
-                    dst.copy_(src)
+        self._capture(_KERNELS)
         if fastslam_step.host_syncs != syncs:
             raise RuntimeError("a captured FastSLAM step read the host")
-        # a capture launches nothing: its counts are each replay's
-        self.launches = []
-        for fn, b in zip(_KERNELS, before):
-            if fn.launches != b:
-                self.launches.append((fn, fn.launches - b))
-            fn.launches = b
-        self.counts.zero_()
 
     def _one(self, k, state):
         """Step k of the chunk from `state`, its outputs into out[k]."""
+        odom, ranges, noise, u = self.inputs
         state, (pose, n_eff, score) = fastslam_step(
-            state, self.odom[k], self.ranges[k], self.cfg, self.pf,
-            noise=self.noise[k], u=self.u[k], counts=self.counts,
+            state, odom[k], ranges[k], self.cfg, self.pf,
+            noise=noise[k], u=u[k], counts=self.counts,
             scratch=self.scratch,
         )
         self.out[k, :3] = pose
@@ -140,51 +120,17 @@ class PFChunkGraph:
         self.out[k, 4] = score
         return state
 
-    def load(self, state: PFState):
-        """Copy a run's starting state into the static buffers."""
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
-
-    def run_chunk(self, odom_pinned, ranges_pinned, noise, u, out):
-        """One chunk from the static state: odom_pinned [K, 3] and
-        ranges_pinned [K, B] (pinned host tensors) and the draws noise
-        [K, P, 3], u [K] (device tensors) into the static buffers, one
-        replay, the outputs into `out` [K, 5] on the device."""
-        self.odom.copy_(odom_pinned, non_blocking=True)
-        self.ranges.copy_(ranges_pinned, non_blocking=True)
-        self.noise.copy_(noise)
-        self.u.copy_(u)
-        self.graph.replay()
-        self.replays += 1
-        for fn, n in self.launches:
-            fn.launches += n
-        out.copy_(self.out)
-
     def best_map(self) -> torch.Tensor:
         """A copy of the best-weighted particle's map (no host read)."""
         best = torch.argmax(self.state.log_w).reshape(1)
         return self.state.logodds.index_select(0, best)[0]
-
-    def finish(self) -> PFState:
-        """The new state, cloned (a later run reuses the static buffers),
-        and the replays' counts added to fastslam_step's device counters
-        (no host read)."""
-        fastslam_step.counter(self.device).add_(self.counts)
-        self.counts.zero_()
-        return PFState(*(t.clone() for t in self.state))
-
-
-_GRAPHS: dict = {}
 
 
 def pf_chunk_graph(cfg: FrontendConfig, pf: PFConfig, device,
                    K: int) -> PFChunkGraph:
     """The cached PFChunkGraph of (cfg, pf, device, K), built on first use:
     the counterpart of the JAX package's make_pf_chunk_fn."""
-    key = (cfg, pf, torch.device(device), K)
-    if key not in _GRAPHS:
-        _GRAPHS[key] = PFChunkGraph(cfg, pf, device, K)
-    return _GRAPHS[key]
+    return chunk_graph_of(PFChunkGraph, cfg, pf, torch.device(device), K)
 
 
 def _run_host_gated(odom, ranges, cfg, pf, device, seed, state, draws,
@@ -259,9 +205,7 @@ def _run_device_gated(odom, ranges, cfg, pf, device, seed, state, draws,
         start = T // K * K
         g = pf_chunk_graph(cfg, pf, device, K)
         g.load(state)
-        # pinned copies: the host allocator keeps each block until its copy ran
-        odom_p = torch.from_numpy(np.ascontiguousarray(odom)).pin_memory()
-        ranges_p = torch.from_numpy(np.ascontiguousarray(ranges)).pin_memory()
+        odom_p, ranges_p = pinned(odom), pinned(ranges)
         for s in range(0, start, K):
             g.run_chunk(odom_p[s : s + K], ranges_p[s : s + K],
                         *chunk_draws(s, K), out[s : s + K])

@@ -11,16 +11,15 @@ window origins are clamped there, the match's result is selected against
 the prior with `torch.where`, and the update's kernels (kernel 1 `hybrid`
 in place, kernel 3 on the kept cells) and the scorer (kernel 2) read the
 gate and the origin from device memory and return at once on a gate of
-0, which leaves the map and its search space bit-identical. The
-sampled-ray update ("sparse", and "auto" past a field of view of pi)
-has the same form in PyTorch (grid/occupancy.py:raycast_window: its
-entries added in place, -0.0 on a gate of 0). On CUDA a whole chunk of
-scans is one CUDA graph (`ChunkGraph`), replayed once a chunk: the host
-reads nothing a scan. On the CPU the step branches on the gate's value
-instead (a CPU read drains no stream); both forms give the same bits
-(tests/test_torch_device_gates.py). The exact-ray, ISM and dense updates
-have no gated in-place form: with them the update gate is read on the
-host, one read a scan, and the chunk runs eagerly.
+0, which leaves the map and its search space bit-identical. Every
+update_impl has that form (grid/occupancy.py:integrate_scan_window):
+kernel 1 `ray` and `ism` read their gate and window origin as `hybrid`
+does, the sampled-ray update adds its entries in place (-0.0 on a gate
+of 0) and the dense one selects its window with the gate. On CUDA a
+whole chunk of scans is one CUDA graph (`ChunkGraph`), replayed once a
+chunk: the host reads nothing a scan. On the CPU the step branches on
+the gate's value instead (a CPU read drains no stream); both forms give
+the same bits (tests/test_torch_device_gates.py).
 
 `frontend_step` counts the host reads of CUDA tensors (`host_syncs`, a
 plain integer) and, on the device, the scans that were matched
@@ -40,23 +39,17 @@ import torch
 from slam2d_tpu_torch.config import FrontendConfig
 from slam2d_tpu_torch.core import se2
 from slam2d_tpu_torch.grid.occupancy import (
-    WINDOW_IMPLS,
-    integrate_scan,
     integrate_scan_window,
     make_grid,
-    resolve_update_impl,
     world_to_cell,
 )
 from slam2d_tpu_torch.grid.window import (
     blur_halo_cells,
-    extract_window,
     scan_window_cells,
     take_window,
     update_window_cells,
     window_origin_t,
     window_origin_xy_t,
-    write_window,
-    write_window_blur_exact,
 )
 from slam2d_tpu_torch.match.correlative import (
     build_search_space,
@@ -66,7 +59,19 @@ from slam2d_tpu_torch.match.correlative import (
 from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space, search_space_window
-from slam2d_tpu_torch.ops.update import update_hybrid
+from slam2d_tpu_torch.ops.update import update_hybrid, update_ism, update_ray
+from slam2d_tpu_torch.run.capture import (
+    ChunkCapture,
+    chunk_graph_of,
+    cuda_device,
+    pinned,
+    use_graph,
+)
+
+# the kernels a frontend step can launch (corr_scores: the match under
+# score_impl "cmx" / "emx"), whose counts a chunk graph corrects
+FRONTEND_KERNELS = (update_hybrid, update_ray, update_ism, search_space,
+                    score_window, corr_scores)
 
 
 class FrontendState(NamedTuple):
@@ -102,7 +107,7 @@ def frontend_init(
     )
 
 
-class _FrontendStep:
+class FrontendStep:
     """`frontend_step`: one scan, with its counters (see the module doc)."""
 
     def __init__(self):
@@ -179,9 +184,9 @@ def _match(state, ranges, prior, since_m, do_match, cfg, plain, run):
 
 
 def _update(state, ranges, pose, do_update, cfg, plain, run):
-    """The gated map update and search-space rebuild, in place (kernel 1
-    `hybrid` or the sampled-ray update, and kernel 3, with the gate and
-    the window origin on the device).
+    """The gated map update and search-space rebuild, in place (the
+    update_impl's window form and kernel 3, with the gate and the window
+    origin on the device).
     `run` False (the CPU, gate false) skips the work."""
     if not run:
         return
@@ -204,37 +209,6 @@ def _update(state, ranges, pose, do_update, cfg, plain, run):
         free_threshold=mcfg.free_threshold, free_penalty=mcfg.free_penalty,
         plain=plain,
     )
-
-
-def _update_host_gated(state, ranges, pose, do_update, cfg, plain):
-    """The update of the exact-ray, ISM and dense updates, which have no
-    gated in-place form: the gate and the window center read on the host (one
-    read), then extract, update, write back and rebuild."""
-    gcfg = cfg.grid
-    uwin = update_window_cells(gcfg, cfg.sensor, cfg.matcher)
-    uwindowed = uwin < min(gcfg.height, gcfg.width)
-    packed = torch.cat([do_update.reshape(1).to(torch.int32),
-                        world_to_cell(pose[:2], gcfg)])
-    g, r, c = read_host(packed).tolist()
-    if not g:
-        return
-    logodds, search_space = state.logodds, state.search_space
-    if not uwindowed:
-        logodds.copy_(integrate_scan(logodds, pose, ranges, gcfg, cfg.sensor,
-                                     plain=plain))
-        search_space.copy_(build_search_space(
-            logodds, cfg.matcher, gcfg.resolution, plain=plain))
-        return
-    gw, origin_rc = extract_window(logodds, (r, c), uwin)
-    gw = integrate_scan(gw, pose, ranges, gcfg, cfg.sensor,
-                        origin_rc=origin_rc, plain=plain)
-    write_window(logodds, gw, origin_rc)
-    # rebuild the field on the window; its outer blur-halo ring saw a
-    # truncated neighbourhood and is trimmed, except where the window is
-    # clamped against the grid border
-    Sw = build_search_space(gw, cfg.matcher, gcfg.resolution, plain=plain)
-    halo = blur_halo_cells(cfg.matcher, gcfg.resolution)
-    write_window_blur_exact(search_space, Sw, origin_rc, halo)
 
 
 def _step(state: FrontendState, odom, ranges, cfg: FrontendConfig,
@@ -297,11 +271,8 @@ def _step(state: FrontendState, odom, ranges, cfg: FrontendConfig,
         rotated >= cfg.map_update_min_rot
     )
     counts += torch.stack([do_match, do_update])
-    if resolve_update_impl(gcfg, cfg.sensor) in WINDOW_IMPLS:
-        _update(state, ranges, pose, do_update, cfg, plain,
-                run=not host_branch or bool(do_update))
-    else:
-        _update_host_gated(state, ranges, pose, do_update, cfg, plain)
+    _update(state, ranges, pose, do_update, cfg, plain,
+            run=not host_branch or bool(do_update))
     last_map_pose = torch.where(do_update, pose, state.last_map_pose)
     return (
         FrontendState(
@@ -312,26 +283,17 @@ def _step(state: FrontendState, odom, ranges, cfg: FrontendConfig,
     )
 
 
-frontend_step = _FrontendStep()
+frontend_step = FrontendStep()
 frontend_step.__doc__ = _step.__doc__
 
 
-def graph_capturable(cfg: FrontendConfig) -> bool:
-    """Whether a chunk of `cfg`'s steps reads nothing on the host, and so
-    can be one CUDA graph: localization, or an update with a gated
-    in-place form (the hybrid and the sampled-ray updates)."""
-    return cfg.localize_only or (
-        resolve_update_impl(cfg.grid, cfg.sensor) in WINDOW_IMPLS
-    )
-
-
-class ChunkGraph:
+class ChunkGraph(ChunkCapture):
     """K frontend steps of one config on one CUDA device, captured as one
     CUDA graph on static buffers: the seven FrontendState fields, odometry
     [K, 3], ranges [K, B], the outputs [K, 4] (pose, score) and the
     (matches, updates) counters. Built once per (cfg, device, K)
-    (`chunk_graph`): warm-up steps on a side stream build the kernels and
-    fill the caches, then `torch.cuda.graph` captures the K steps.
+    (`chunk_graph`) by run/capture.py's ChunkCapture: warm-up steps on a
+    side stream, then the K steps captured.
 
     Per chunk (the module's `run_chunk`): the state copied into the
     static buffers (`load`), one copy of odometry and ranges from pinned
@@ -341,19 +303,10 @@ class ChunkGraph:
     replay. A failed build or capture raises; nothing falls back to the
     eager loop."""
 
-    WARMUP_STEPS = 3
+    step = frontend_step
 
     def __init__(self, cfg: FrontendConfig, device, K: int):
-        if not graph_capturable(cfg):
-            raise NotImplementedError(
-                "this update_impl reads its gate on the host a scan: only "
-                "localization and the hybrid and sampled-ray updates replay "
-                "as CUDA graphs")
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
+        device = cuda_device(device)
         self.cfg, self.device, self.K = cfg, device, K
         H, W, B = cfg.grid.height, cfg.grid.width, cfg.sensor.n_beams
         f32 = dict(dtype=torch.float32, device=device)
@@ -363,86 +316,26 @@ class ChunkGraph:
             torch.zeros((), **f32), torch.zeros(3, **f32),
             torch.zeros(2, **f32),
         )
-        self.odom = torch.zeros((K, 3), **f32)
-        self.ranges = torch.zeros((K, B), **f32)
+        self.inputs = (torch.zeros((K, 3), **f32), torch.zeros((K, B), **f32))
         self.out = torch.zeros((K, 4), **f32)
         self.counts = torch.zeros(2, dtype=torch.int64, device=device)
-        # warm-up: the kernel build, the beam-angle, theta and window-offset
-        # tables, the allocator
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for k in range(min(self.WARMUP_STEPS, K)):
-                self._one(k, self.state)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        # corr_scores: the match under score_impl "cmx" / "emx"
-        counters = (update_hybrid, search_space, score_window, corr_scores)
-        before = [fn.launches for fn in counters]
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            state = self.state
-            for k in range(K):
-                state = self._one(k, state)
-            for dst, src in zip(self.state, state):
-                if dst is not src:
-                    dst.copy_(src)
-        # a capture launches nothing: its counts are each replay's
-        self.launches = []
-        for fn, b in zip(counters, before):
-            self.launches.append((fn, fn.launches - b))
-            fn.launches = b
-        self.counts.zero_()
+        self._capture(FRONTEND_KERNELS)
 
     def _one(self, k, state):
         """Step k of the chunk from `state`, its outputs into out[k]."""
+        odom, ranges = self.inputs
         state, (pose, score) = _step(
-            state, self.odom[k], self.ranges[k], self.cfg,
+            state, odom[k], ranges[k], self.cfg,
             host_branch=False, counts=self.counts,
         )
         self.out[k, :3] = pose
         self.out[k, 3] = score
         return state
 
-    def load(self, state: FrontendState):
-        """Copy a run's starting state into the static buffers."""
-        for dst, src in zip(self.state, state):
-            dst.copy_(src)
-
-    def run_chunk(self, odom_pinned, ranges_pinned, out):
-        """One chunk from the static state: odom_pinned [K, 3] and
-        ranges_pinned [K, B] (pinned host tensors) into the static
-        buffers, one replay, the outputs into `out` [K, 4] on the
-        device."""
-        self.odom.copy_(odom_pinned, non_blocking=True)
-        self.ranges.copy_(ranges_pinned, non_blocking=True)
-        self.graph.replay()
-        for fn, n in self.launches:
-            fn.launches += n
-        out.copy_(self.out)
-
-    def flush_counts(self):
-        """Add the replays' (matches, updates) to frontend_step's device
-        counters (no host read) and zero the graph's."""
-        frontend_step.counter(self.device).add_(self.counts)
-        self.counts.zero_()
-
-    def finish(self) -> FrontendState:
-        """The new state, cloned (a later chunk or run reuses the static
-        buffers), and the counts added to frontend_step's."""
-        self.flush_counts()
-        return FrontendState(*(t.clone() for t in self.state))
-
-
-_GRAPHS: dict = {}
-
 
 def chunk_graph(cfg: FrontendConfig, device, K: int) -> ChunkGraph:
     """The cached ChunkGraph of (cfg, device, K), built on first use."""
-    key = (cfg, torch.device(device), K)
-    if key not in _GRAPHS:
-        _GRAPHS[key] = ChunkGraph(cfg, device, K)
-    return _GRAPHS[key]
+    return chunk_graph_of(ChunkGraph, cfg, torch.device(device), K)
 
 
 def _pad_log(odom: np.ndarray, ranges: np.ndarray, K: int):
@@ -456,29 +349,18 @@ def _pad_log(odom: np.ndarray, ranges: np.ndarray, K: int):
     return odom, ranges
 
 
-def _use_graph(cfg, device, plain, graph):
-    """Whether a run replays CUDA graphs: by default on CUDA, unless
-    `plain` or the update reads its gate on the host; True insists."""
-    on_cuda = torch.device(device).type == "cuda"
-    if graph is None:
-        return on_cuda and not plain and graph_capturable(cfg)
-    if graph and (not on_cuda or plain):
-        raise ValueError("graph=True needs a CUDA device and plain=False")
-    return graph
-
-
 def run_chunk(state, odom, ranges, cfg: FrontendConfig, out,
               plain: bool = False, graph: bool | None = None
               ) -> FrontendState:
     """One chunk of scans from `state` (host arrays odom [K, 3], ranges
     [K, B]), each pose and score into `out` [K, 4] on the device. On CUDA
-    (unless `plain`, `graph=False` or an update that reads its gate on
-    the host) one replay of the config's ChunkGraph: the state copied into
+    (unless `plain` or `graph=False`) one replay of the config's
+    ChunkGraph: the state copied into
     its buffers and the new state cloned out of them (a later chunk or
     run reuses the buffers), nothing read back. Else the steps one by one
     (the state's map tensors updated in place). Returns the new state."""
     device = out.device
-    if not _use_graph(cfg, device, plain, graph):
+    if not use_graph(device, plain, graph):
         o = torch.as_tensor(odom, device=device)
         r = torch.as_tensor(ranges, device=device)
         for k in range(len(odom)):
@@ -489,10 +371,7 @@ def run_chunk(state, odom, ranges, cfg: FrontendConfig, out,
         return state
     g = chunk_graph(cfg, device, len(odom))
     g.load(state)
-    # pinned copies: the host allocator keeps each block until its copy ran
-    g.run_chunk(torch.from_numpy(np.ascontiguousarray(odom)).pin_memory(),
-                torch.from_numpy(np.ascontiguousarray(ranges)).pin_memory(),
-                out)
+    g.run_chunk(pinned(odom), pinned(ranges), out)
     return g.finish()
 
 

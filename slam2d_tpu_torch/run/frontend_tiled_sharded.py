@@ -46,9 +46,18 @@ from slam2d_tpu_torch.run.frontend_tiled import (
     _np_between,
     _np_compose,
     _param_grid_cfg,
-    read_gate,
     tiled_window_cells,
 )
+
+
+def read_gate(gate, center_rc, owner):
+    """One device-to-host read of a gate and a window center with it,
+    counted in `owner.host_syncs`."""
+    owner.host_syncs += 1
+    # one copy to the host: tolist() of a CUDA tensor copies per element
+    packed = torch.cat([gate.reshape(1).to(torch.int32), center_rc]).cpu()
+    g, r, c = packed.tolist()
+    return bool(g), (r, c)
 
 
 def make_tile_mesh(mesh: pmesh.Mesh | None = None) -> pmesh.Mesh:

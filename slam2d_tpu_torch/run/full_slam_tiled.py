@@ -32,9 +32,13 @@ the JAX package's bits.
 
 The tracking writes its tiles in place, so the rebuilder's cached prefix
 pools are copies, as are a replay's starting pools and the checkpoint's
-frontend state. Device-to-host reads of the driver go through
-run/full_slam.fetch (`fetch.reads`); the tiled frontend reads its gates
-on the host (`tiled_frontend_step.host_syncs`). Plain integers on
+frontend state. The tracking runs each chunk as
+run/frontend_tiled.run_tiled_chunk does: on CUDA one replay of the
+config's TiledChunkGraph, the state (with the rebuilds' pools and the
+corrected pose) loaded into it and cloned out, with no host read (the
+gates stay on the device). Device-to-host reads of the host loop go through
+run/full_slam.fetch (`fetch.reads`: the chunk's poses and last pose in
+one copy). Plain integers on
 `run_full_slam_tiled` count the keyframe scans integrated by rebuilds
 (`rebuilt_scans`), the search-space builds of the rebuilds
 (`rebuilt_fields`: one an integrated scan and one a run of masked slots
@@ -333,6 +337,7 @@ def run_full_slam_tiled(
     device="cuda",
     plain: bool = False,
     mesh=None,
+    graph: bool | None = None,
 ):
     """Run full SLAM on the tiled world over a host-side log {odom,
     ranges} on `device`; returns a FullSLAMResult whose `grid` is the
@@ -344,7 +349,8 @@ def run_full_slam_tiled(
     scan_index_offset: continue from a previous run's `ckpt` (or numpy
     arrays of fullslam_tiled_ckpt_template's schema), as in run_full_slam;
     the resumed state is copied. `plain=True` runs every kernel's plain
-    version (checks only)."""
+    version (checks only); `graph` as for run_tiled_chunk (on CUDA one
+    TiledChunkGraph replay a chunk by default)."""
     _check_optimizer(optimizer)
     odom_np = np.asarray(log["odom"], np.float32)
     ranges_np = np.asarray(log["ranges"], np.float32)
@@ -424,7 +430,7 @@ def run_full_slam_tiled(
         state = state._replace(grid=grid,
                                sgrid=state.sgrid._replace(coords=grid.coords))
         out = torch.empty((K, 4), dtype=torch.float32, device=device)
-        state = run_tiled_chunk(state, table, o, r, cfg, tcfg, out, plain)
+        state = run_tiled_chunk(state, o, r, cfg, tcfg, out, plain, graph)
         host.step({"s0": s0, "n": min(K, T - s0), "tr": out[:, :3],
                    "pose": state.pose, "base": o[-1]})
     host.finish()

@@ -29,6 +29,7 @@ import torch
 
 from slam2d_tpu_torch.config import GridConfig, MatcherConfig, SensorConfig
 from slam2d_tpu_torch.grid import occupancy as tocc
+from slam2d_tpu_torch.grid.tiles import TileConfig
 from slam2d_tpu_torch.grid import window as twin
 from slam2d_tpu_torch.match.correlative import (
     build_search_space,
@@ -75,11 +76,14 @@ def _map(seed):
     return torch.from_numpy(g)
 
 
-def _ranges(seed):
-    """Hits, max-range beams, beams below min_range and NaN."""
+def _ranges(seed, impl="pallas_hybrid"):
+    """Hits, max-range beams, beams below min_range and NaN (+inf for the
+    exact-ray update, whose chord weight a NaN range turns into NaN
+    everywhere, as the JAX package's does)."""
     rng = np.random.default_rng(seed)
     r = rng.uniform(0.0, 3.5, SENSOR.n_beams).astype(np.float32)
-    r[rng.random(SENSOR.n_beams) < 0.05] = np.nan
+    r[rng.random(SENSOR.n_beams) < 0.05] = (
+        np.inf if impl == "pallas_ray" else np.nan)
     return torch.from_numpy(r)
 
 
@@ -303,3 +307,79 @@ def test_graph_runs_need_a_cuda_device():
     _, traj, _ = tfe.run_frontend(log, cfg, CPU)
     _, traj_eager, _ = tfe.run_frontend(log, cfg, CPU, graph=False)
     np.testing.assert_array_equal(traj, traj_eager)
+
+
+# the update_impls whose window forms the frontend took on last: kernel 1
+# `ray` and `ism` at a device origin, the dense update selected by the gate
+WINDOW_IMPLS = ["pallas_ray", "pallas", "dense"]
+
+
+@pytest.mark.parametrize("where", list(CENTERS))
+@pytest.mark.parametrize("impl", WINDOW_IMPLS)
+def test_every_window_form_matches_extract_update_write(impl, where):
+    """integrate_scan_window of the exact-ray, ISM and dense updates, at
+    windows clamped into each corner and inside, gives the bits of
+    extract_window -> integrate_scan(origin_rc) -> write_window with gate
+    1, and leaves the map bit-identical with gate 0."""
+    grid = dataclasses.replace(GRID, update_impl=impl)
+    g, pose, ranges = _map(12), _pose(CENTERS[where], 13), _ranges(14, impl)
+    ref = g.clone()
+    gw, orc = twin.extract_window(ref, tocc.world_to_cell(pose[:2], grid),
+                                  WIN)
+    gw = tocc.integrate_scan(gw, pose, ranges, grid, SENSOR, origin_rc=orc)
+    twin.write_window(ref, gw, orc)
+    assert not torch.equal(ref, g)
+    o = twin.window_origin_t(tocc.world_to_cell(pose[:2], grid), WIN, SIZE,
+                             SIZE)
+    for gate, want in ((True, ref), (False, g)):
+        out = g.clone()
+        back = tocc.integrate_scan_window(
+            out, pose, ranges, grid, SENSOR, origin=o, size=(WIN, WIN),
+            gate=torch.tensor(gate))
+        assert back is out
+        assert torch.equal(out, want), gate
+
+
+@pytest.mark.parametrize("impl", ["pallas_hybrid"] + WINDOW_IMPLS
+                         + ["sparse"])
+def test_cell_form_matches_the_update_at_the_window_float_origin(impl):
+    """With `cell` the map is itself a window at that lattice cell (the
+    tiled frontend's gathered window, negative cells included): the bits
+    of integrate_scan(..., origin_xy=window_origin_xy(lattice, cell)),
+    and gate 0 leaves it bit-identical."""
+    grid = dataclasses.replace(GRID, update_impl=impl)
+    lattice = (-3.3, 7.1)
+    cell = (-41, 17)
+    g, ranges = _map(15)[:WIN, :WIN].contiguous(), _ranges(16, impl)
+    res = np.float32(grid.resolution)
+    pose = torch.tensor([
+        np.float32(lattice[0]) + np.float32(cell[1] + 50) * res,
+        np.float32(lattice[1]) + np.float32(cell[0] + 45) * res, 0.7],
+        dtype=torch.float32)
+    oxy = tocc.window_origin_xy(TileConfig(
+        origin_x=lattice[0], origin_y=lattice[1], resolution=grid.resolution),
+        cell)
+    ref = tocc.integrate_scan(g, pose, ranges, grid, SENSOR, origin_xy=oxy)
+    assert not torch.equal(ref, g)
+    for gate, want in ((True, ref), (False, g)):
+        out = g.clone()
+        tocc.integrate_scan_window(
+            out, pose, ranges, grid, SENSOR, origin=None,
+            cell=torch.tensor(cell, dtype=torch.int32), size=(WIN, WIN),
+            gate=torch.tensor(gate), origin_xy=lattice)
+        assert torch.equal(out, want), gate
+
+
+@pytest.mark.parametrize("impl", WINDOW_IMPLS)
+def test_device_gated_step_bits_for_every_update(impl):
+    """The 512^2 frontend (a 272^2 update window) with the exact-ray, ISM
+    and dense updates: the device-gated step gives the host-branching
+    step's bits over the frontend log's first 48 scans."""
+    cfg = to_port(frontend_cfg(512, update_impl=impl))
+    log = {k: v[:48] for k, v in e2e_log().items()}
+    t_host, s_host, n_host = _run_steps(cfg, log, True)
+    t_dev, s_dev, n_dev = _run_steps(cfg, log, False)
+    assert torch.equal(t_host, t_dev)
+    for a, b in zip(s_host, s_dev):
+        assert torch.equal(a, b)
+    assert n_host == n_dev and min(n_host) > 0

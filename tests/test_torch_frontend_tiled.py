@@ -129,9 +129,9 @@ def test_run_matches_jax():
     assert abs(ate_t - ate_j) <= ATE_TOL and ate_t < ate_odom
     assert len(_active(js.grid.coords)) >= 4
     _assert_pools_close(ts, js)
-    # two gate reads a scan run, and the forecast's pose once a chunk
+    # the gates stay on the device: the forecast's pose once a chunk
     n_chunks = -(-T // K)
-    assert syncs == 2 * n_chunks * K + n_chunks
+    assert syncs == n_chunks
 
 
 def test_state_from_and_to_numpy_round_trip():
@@ -185,7 +185,7 @@ def test_steps_from_a_state_carried_across_from_jax():
         jstate, (jp, jsc) = step(jstate, jax.numpy.asarray(o),
                                  jax.numpy.asarray(r))
         ts, (tp, tsc) = tft.tiled_frontend_step(
-            ts, torch.from_numpy(o), torch.from_numpy(r), tcfg, TTCFG, ttable)
+            ts, torch.from_numpy(o), torch.from_numpy(r), tcfg, TTCFG)
         dxy, dth = pose_error(tp.numpy(), np.asarray(jp))
         assert dxy <= POSE_TOL and dth <= POSE_TOL, (i, dxy, dth)
         assert abs(float(tsc) - float(jsc)) <= 1e-4
@@ -242,7 +242,85 @@ def test_padded_tail_runs_and_is_cut(tail):
     _, traj, scores = tft.run_tiled_frontend(log, to_port(CFG), TTCFG, CPU)
     assert traj.shape == (CFG.chunk + tail, 3) and scores.shape == traj[:, 0].shape
     n_chunks = -(-len(traj) // CFG.chunk)
-    assert tft.tiled_frontend_step.host_syncs == n_chunks * (2 * CFG.chunk + 1)
+    assert tft.tiled_frontend_step.host_syncs == n_chunks
     _, jtraj, _ = jft.run_tiled_frontend(log, CFG, JTCFG)
     dxy, dth = pose_error(traj, jtraj)
     assert dxy <= POSE_TOL and dth <= POSE_TOL
+
+
+# the device-gated step's bits: a narrow sensor over 64^2 tiles (a 128^2
+# window over three tiles a side), the log's first GATE_SCANS scans
+GATE_SENSOR = SensorConfig(n_beams=60, max_range=4.0)
+GATE_TCFG = ttiles.TileConfig(tile=64, n_slots=60, resolution=0.1)
+GATE_SCANS = 40
+
+
+@functools.cache
+def _gate_log():
+    world = SynthWorld.box_rooms(20.0)
+    wp = np.array([[3.0, 3.0], [3.0, 8.0], [8.0, 8.0]])
+    log = simulate_log(world, wp, GATE_SENSOR, step=0.15, odom_noise_xy=0.01,
+                       odom_noise_theta=0.004, seed=7)
+    return {k: v[:GATE_SCANS] for k, v in log.items()}
+
+
+def _gated_steps(cfg, host_branch):
+    """The steps one by one with `host_branch`, every tile the ground
+    truth's path needs activated first: (outputs [T, 4], state, counts)."""
+    log = _gate_log()
+    state = tft.tiled_frontend_init(GATE_TCFG, CPU, start_pose=log["odom"][0],
+                                    start_odom=log["odom"][0])
+    reach = cfg.sensor.max_range + 2.0
+    ttiles.TileTable(GATE_TCFG).activate(state.grid, ttiles.required_tiles(
+        log["gt_poses"][:, :2], reach, GATE_TCFG))
+    tft.tiled_frontend_step.matches = tft.tiled_frontend_step.updates = 0
+    out = []
+    for o, r in zip(log["odom"], log["ranges"]):
+        state, (pose, score) = tft.tiled_frontend_step(
+            state, torch.from_numpy(o), torch.from_numpy(r), cfg, GATE_TCFG,
+            host_branch=host_branch)
+        out.append(torch.cat([pose, score.reshape(1)]))
+    counts = (tft.tiled_frontend_step.matches,
+              tft.tiled_frontend_step.updates)
+    return torch.stack(out), state, counts
+
+
+@pytest.mark.parametrize("impl", ["pallas_hybrid", "pallas_ray", "sparse"])
+def test_device_gated_step_gives_the_host_branching_bits(impl):
+    """The tiled step with its gates on the device (host_branch=False: the
+    windows gathered and scattered at device origins every scan, the
+    kernels' plain versions and the scatters gated) gives the bits of the
+    host-branching step, which skips the gated-off work: poses, scores,
+    both pools and the counters."""
+    cfg = FrontendConfig(
+        sensor=GATE_SENSOR,
+        grid=GridConfig(resolution=0.1, ray_samples=40, update_impl=impl),
+        matcher=MatcherConfig(search_xy=0.25, search_theta=0.12, n_theta=9),
+        chunk=16, bootstrap_dist=1.0,
+    )
+    t_host, s_host, n_host = _gated_steps(to_port(cfg), True)
+    t_dev, s_dev, n_dev = _gated_steps(to_port(cfg), False)
+    assert torch.equal(t_host, t_dev)
+    for a, b in zip(tft.tiled_state_to_numpy(s_host),
+                    tft.tiled_state_to_numpy(s_dev)):
+        for x, y in zip(jax.tree.leaves(a), jax.tree.leaves(b)):
+            np.testing.assert_array_equal(x[:-1] if x.ndim == 3 else x,
+                                          y[:-1] if y.ndim == 3 else y)
+    assert n_host == n_dev
+    matched = int((t_host[:, 3] != -1.0).sum())
+    assert n_host[0] == matched and 0 < matched < GATE_SCANS
+    assert 0 < n_host[1] < GATE_SCANS
+
+
+def test_chunk_graph_needs_a_cuda_device():
+    cfg = to_port(CFG)
+    log = {k: v[:4] for k, v in _log().items()}
+    with pytest.raises(ValueError):
+        tft.run_tiled_frontend(log, cfg, TTCFG, CPU, graph=True)
+    with pytest.raises(ValueError):
+        tft.TiledChunkGraph(cfg, TTCFG, CPU, 4)
+    # the CPU runs the eager loop, with the host-branching step
+    _, traj, _ = tft.run_tiled_frontend(log, cfg, TTCFG, CPU)
+    _, traj_eager, _ = tft.run_tiled_frontend(log, cfg, TTCFG, CPU,
+                                              graph=False)
+    np.testing.assert_array_equal(traj, traj_eager)

@@ -182,3 +182,105 @@ def test_stitch_tiles_matches_jax():
     assert origin == ref_origin
     empty, o = tt.stitch_tiles(tt.tiled_init(TCFG, CPU), TCFG)
     assert empty.shape == (64, 64) and not empty.any() and o == (0.0, 0.0)
+
+
+def _t_origin(origin):
+    return torch.tensor(origin, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(REGIONS))
+def test_gather_region_t_matches_the_host_form_and_jax(case):
+    """The device-origin gather (slots from the device coords) equals the
+    host-origin gather and JAX's gather_region bit for bit."""
+    origin, size, active = REGIONS[case]
+    jg, tg, table = _pools(active)
+    ref = np.asarray(jt.gather_region(jg, JCFG, jnp.asarray(origin, jnp.int32),
+                                      size))
+    out = tt.gather_region_t(tg, TCFG, _t_origin(origin), size)
+    assert out.shape == (size, size) and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert torch.equal(out, tt.gather_region(tg, TCFG, origin, size, table))
+
+
+@pytest.mark.parametrize("case", sorted(REGIONS))
+def test_scatter_region_t_matches_the_host_form_and_jax(case):
+    """The device-origin scatter writes the host form's bits (t + (w - t)
+    into active tiles) and JAX's on tiles[:-1]; with gate 1 the same."""
+    origin, size, active = REGIONS[case]
+    jg, tg, table = _pools(active)
+    win = np.random.default_rng(1).normal(0.0, 2.0, (size, size)).astype(
+        np.float32)
+    ref = jt.scatter_region(jg, JCFG, jnp.asarray(win),
+                            jnp.asarray(origin, jnp.int32))
+    host = tt.scatter_region(tt.TiledGrid(tg.tiles.clone(), tg.coords), TCFG,
+                             torch.from_numpy(win), origin, table)
+    for gate in (None, torch.tensor(True)):
+        pool = tt.TiledGrid(tg.tiles.clone(), tg.coords)
+        out = tt.scatter_region_t(pool, TCFG, torch.from_numpy(win),
+                                  _t_origin(origin), gate=gate)
+        assert out.tiles.data_ptr() == pool.tiles.data_ptr()   # in place
+        np.testing.assert_array_equal(out.tiles[:-1].numpy(),
+                                      np.asarray(ref.tiles)[:-1])
+        assert torch.equal(out.tiles[:-1], host.tiles[:-1])
+
+
+@pytest.mark.parametrize("case", sorted(REGIONS))
+def test_scatter_region_t_gate_off_keeps_every_bit(case):
+    """A gated-off scatter leaves every active tile bit-identical, -0.0
+    cells included (t + (t - t) would turn them into +0.0), and the
+    gathered window unchanged."""
+    origin, size, active = REGIONS[case]
+    _, tg, _ = _pools(active)
+    tiles = tg.tiles.clone()
+    neg = np.random.default_rng(2).random(tiles.shape) < 0.3
+    tiles[torch.from_numpy(neg)] = -0.0
+    pool = tt.TiledGrid(tiles.clone(), tg.coords)
+    before = tt.gather_region_t(pool, TCFG, _t_origin(origin), size)
+    tt.scatter_region_t(pool, TCFG, before, _t_origin(origin),
+                        gate=torch.tensor(False))
+    assert torch.equal(pool.tiles[:-1].view(torch.int32),
+                       tiles[:-1].view(torch.int32))
+    # gate 1 writes the window back: t + (t - t) turns -0.0 into +0.0
+    tt.scatter_region_t(pool, TCFG, before, _t_origin(origin),
+                        gate=torch.tensor(True))
+    moved = pool.tiles[:-1].view(torch.int32) != tiles[:-1].view(torch.int32)
+    assert torch.equal(pool.tiles[:-1], tiles[:-1])
+    if case != "none active":
+        assert moved.any()
+
+
+@pytest.mark.parametrize("case", sorted(REGIONS))
+def test_region_t_ops_follow_relabelled_slots(case):
+    """With the pool's slots permuted (tiles and coords together, as a
+    table rebuilt in another order would hold them) the device-origin
+    gather reads the same window and the scatter writes the same tiles:
+    the slots come from the coords, not from their order."""
+    origin, size, active = REGIONS[case]
+    _, tg, _ = _pools(active)
+    n = TCFG.n_slots
+    perm = torch.cat([torch.from_numpy(np.random.default_rng(3).permutation(n)),
+                      torch.tensor([n])])
+    moved = tt.TiledGrid(tg.tiles[perm].clone(), tg.coords[perm].clone())
+    np.testing.assert_array_equal(
+        tt.gather_region_t(moved, TCFG, _t_origin(origin), size).numpy(),
+        tt.gather_region_t(tg, TCFG, _t_origin(origin), size).numpy())
+    win = torch.from_numpy(np.random.default_rng(1).normal(
+        0.0, 2.0, (size, size)).astype(np.float32))
+    tt.scatter_region_t(tg, TCFG, win, _t_origin(origin))
+    tt.scatter_region_t(moved, TCFG, win, _t_origin(origin))
+    assert torch.equal(moved.tiles[perm[:-1].argsort()], tg.tiles[:-1])
+
+
+def test_activate_writes_the_coords_in_place():
+    """Activation copies the host table into the device coords tensor the
+    grid holds (a captured CUDA graph reads that buffer)."""
+    grid = tt.tiled_init(TCFG, CPU)
+    ptr = grid.coords.data_ptr()
+    table = tt.TileTable(TCFG)
+    out = table.activate(grid, [(0, 0), (-1, 2)])
+    assert out.coords is grid.coords and grid.coords.data_ptr() == ptr
+    np.testing.assert_array_equal(grid.coords.numpy(), table.coords)
+    table.activate(grid, [(0, 0), (3, 3)])
+    assert grid.coords.data_ptr() == ptr
+    assert table.slot((3, 3)) == 2
+    np.testing.assert_array_equal(grid.coords.numpy(), table.coords)

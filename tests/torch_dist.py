@@ -188,7 +188,8 @@ def tile_ops(mesh, tcfg, needed, cases):
     n = mesh.world_size
     n_pad = -(-tcfg.n_slots // n) * n
     table = TileTable(dataclasses.replace(tcfg, n_slots=n_pad))
-    table.activate(TiledGrid(None, torch.zeros(1)), needed)
+    table.activate(TiledGrid(None, torch.from_numpy(table.coords.copy())),
+                   needed)
     tiles = torch.zeros((n_pad // n, tcfg.tile, tcfg.tile))
     outs = []
     for window, origin in cases:
