@@ -21,13 +21,16 @@ file under scripts/):
   sampled-ray update (update_impl "sparse", the JAX package's XLA
   scatter-add) and optimizer="hier" at GraphConfig.hier_dense_max=64,
   so that every solve runs the V-cycle (phase 19);
-- seed4, seed5 (fullslam_reference_seed4.json, _seed5.json): the dense
-  run over `fullslam_bench_log(seed=4 / 5)`, the same route with other
-  noise (phase 15's extra runs);
+- seed4 to seed7 (fullslam_reference_seed4.json to _seed7.json): the
+  dense run over `fullslam_bench_log(seed=4 .. 7)`, the same route with
+  other noise (phase 15's five-seed set with bench);
 - tiled (fullslam_tiled_reference.json): `run_full_slam_tiled` at
   `bench_configs.fullslam_tiled_bench_config` over
   `fullslam_tiled_bench_log` (512^2 tiles at 0.05 m, a 911-scan lap of
   the 60 m corridor; phase 16), with the active tiles;
+- tiled_seed4 to tiled_seed7 (fullslam_tiled_reference_seed4.json to
+  _seed7.json): the same over `fullslam_tiled_bench_log(seed=4 .. 7)`,
+  the same lap with other noise (phase 16's five-seed set with tiled);
 - killian (fullslam_tiled_killian_reference.json): the same log at
   `bench_configs.fullslam_tiled_killian_config`, tests/test_killian_scale
   .py's (256^2 tiles at 0.1 m; phase 16's second run).
@@ -63,8 +66,13 @@ RUNS = {
                          graph=dict(hier_dense_max=64))),
     "seed4": ("fullslam_reference_seed4.json", dict(seed=4, optimizer="dense")),
     "seed5": ("fullslam_reference_seed5.json", dict(seed=5, optimizer="dense")),
+    "seed6": ("fullslam_reference_seed6.json", dict(seed=6, optimizer="dense")),
+    "seed7": ("fullslam_reference_seed7.json", dict(seed=7, optimizer="dense")),
     "tiled": ("fullslam_tiled_reference.json",
               dict(tiled="fullslam_tiled_bench_config")),
+    **{f"tiled_seed{k}": (f"fullslam_tiled_reference_seed{k}.json",
+                          dict(tiled="fullslam_tiled_bench_config", seed=k))
+       for k in (4, 5, 6, 7)},
     "killian": ("fullslam_tiled_killian_reference.json",
                 dict(tiled="fullslam_tiled_killian_config")),
 }
@@ -90,8 +98,11 @@ def _one_run(run: str) -> dict:
         from slam2d_tpu.run.full_slam_tiled import run_full_slam_tiled
 
         cfg, tcfg, gcfg = getattr(bc, kw["tiled"])()
-        log = bc.fullslam_tiled_bench_log(cfg.sensor)
+        seed = kw.get("seed", 3)
+        log = bc.fullslam_tiled_bench_log(cfg.sensor, seed=seed)
         config = f"bench_configs.{kw['tiled']} / fullslam_tiled_bench_log"
+        if seed != 3:
+            config += f"(seed={seed})"
 
         def run_it(jcfg):
             return run_full_slam_tiled(

@@ -4,7 +4,8 @@
 // round after every float32 operation. nvcc would contract a*b + c into one
 // fused multiply-add with a single rounding, so the arithmetic that decides
 // a cell or a score is written with the _rn intrinsics, which it never
-// contracts.
+// contracts; where XLA itself contracts one on the CPU, the kernel says
+// fmaf.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -25,6 +26,28 @@
 __device__ __forceinline__ float mod_pos(float x, float y) {
   float m = fmodf(x, y);
   return (m != 0.0f && m < 0.0f) ? F_ADD(m, y) : m;
+}
+
+// slam2d_tpu/ops/pallas_update.py:_atan2, the reference update kernel's
+// polynomial arctangent, as XLA compiles it on the CPU: each Horner step is
+// one fused multiply-add (fmaf, one rounding). The same bits as
+// core/numerics.py:atan2_ref; the coefficients are its float32 values.
+__device__ __forceinline__ float atan2_ref(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const float q = F_DIV(fminf(ax, ay), fmaxf(fmaxf(ax, ay), 0x1.79ca1p-67f));
+  const float q2 = F_MUL(q, q);
+  float p = -0x1.09afcep-8f;
+  p = fmaf(q2, p, 0x1.662ca4p-6f);
+  p = fmaf(q2, p, -0x1.ca0388p-5f);
+  p = fmaf(q2, p, 0x1.8aefbep-4f);
+  p = fmaf(q2, p, -0x1.1cd8c6p-3f);
+  p = fmaf(q2, p, 0x1.98814cp-3f);
+  p = fmaf(q2, p, -0x1.554c38p-2f);
+  p = fmaf(q2, p, 0x1.ffffeap-1f);
+  float a = F_MUL(q, p);
+  if (ay > ax) a = F_SUB(0x1.921fb6p+0f, a);  // float32(pi / 2)
+  if (x < 0.0f) a = F_SUB(PI_F, a);
+  return y < 0.0f ? -a : a;
 }
 
 // jnp.clip / torch.clamp of a non-NaN value

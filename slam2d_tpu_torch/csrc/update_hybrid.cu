@@ -11,7 +11,7 @@
 //
 // What bounds it on the H100: at the frontend's 520^2 window the map is read
 // and written once (2.2 MB, under a microsecond of HBM time), so the kernel
-// is bound by instructions per cell (an atan2f, a sqrt, a float modulo), by
+// is bound by instructions per cell (an arctangent, a sqrt, a float modulo), by
 // each block's prologue (the beam tables, with a sinf and a cosf a beam)
 // and by the launch itself. Design, as update_ism.cu's:
 // - A block updates a TH x TW tile (64 x 8 cells), 2 cells a thread. It
@@ -52,9 +52,14 @@
 // The TPU kernel's angular beam clip and range early-out only skip work and
 // never change the result, so they are not carried over, nor is its padding
 // of the beam table to a multiple of 8. The arithmetic follows the TPU
-// kernel's float32 operations one by one (common.cuh); atan2f, cosf and
-// sinf may differ from the JAX functions in the last bit, which moves a
-// boundary cell by one l_free or l_occ.
+// kernel's float32 operations one by one (common.cuh). The cell centre is
+// one FMA and the bearing the TPU kernel's own polynomial arctangent
+// (atan2_ref), as XLA compiles them on the CPU, so a cell's bearing has the
+// bits of the plain version on either device: with atan2f the card's
+// bearing rounded otherwise than the CPU's, and one cell on a beam slot's
+// edge parted the two runs of full SLAM's seed-4 log. cosf and sinf may
+// differ from XLA's in the last bit, which moves an endpoint on a cell edge
+// by one l_occ.
 
 #include "common.cuh"
 
@@ -185,14 +190,12 @@ __global__ void __launch_bounds__(THREADS)
       const int row = tr0 + threadIdx.y + y * BY;
       const int col = tc0 + threadIdx.x + x * BX;
       if (row >= tr1 || col >= tc1) continue;
-      const float cx =
-          F_SUB(F_ADD(p.ox, F_MUL(F_ADD((float)col, 0.5f), p.res)), px);
-      const float cy =
-          F_SUB(F_ADD(p.oy, F_MUL(F_ADD((float)row, 0.5f), p.res)), py);
+      const float cx = F_SUB(fmaf(F_ADD((float)col, 0.5f), p.res, p.ox), px);
+      const float cy = F_SUB(fmaf(F_ADD((float)row, 0.5f), p.res, p.oy), py);
       const float d = __fsqrt_rn(F_ADD(F_MUL(cx, cx), F_MUL(cy, cy)));
       bool free_cell = false;
       if (d < d_free) {
-        float phi = F_SUB(F_SUB(atan2f(cy, cx), pth), p.angle_min);
+        float phi = F_SUB(F_SUB(atan2_ref(cy, cx), pth), p.angle_min);
         phi = F_SUB(mod_pos(F_ADD(phi, PI_F), TWO_PI_F), PI_F);
         const float k0 = floorf(F_DIV(phi, p.step));
         for (int j = 0; j < 2; ++j) {

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from slam2d_tpu_torch.config import GridConfig, SensorConfig
-from slam2d_tpu_torch.core.numerics import inv_f32
+from slam2d_tpu_torch.core.numerics import fma_f32 as _fma, inv_f32
 from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.grid.window import window_origin_xy_t
 from slam2d_tpu_torch.ops.update import (
@@ -75,21 +75,6 @@ def cell_center_world(rc, cfg: GridConfig):
     x = (col + 0.5) * cfg.resolution + cfg.origin_x
     y = (row + 0.5) * cfg.resolution + cfg.origin_y
     return torch.stack([x, y], dim=-1)
-
-
-def _f64(x):
-    if isinstance(x, torch.Tensor):
-        return x.double()
-    return float(np.float32(x))
-
-
-def _fma(a, b, c):
-    """fl32(a * b + c) with one rounding, as XLA contracts a float32
-    multiply-add on the CPU: the product of two float32 values is exact in
-    float64, so the sum rounds once to float64 and once to float32 (the
-    two agree but for a sum on a float32 midpoint). Python numbers count
-    as their float32 values."""
-    return (_f64(a) * _f64(b) + _f64(c)).float()
 
 
 @functools.cache

@@ -49,7 +49,7 @@ import math
 import numpy as np
 import torch
 
-from slam2d_tpu_torch.core.numerics import inv_f32
+from slam2d_tpu_torch.core.numerics import atan2_ref, fma_f32, inv_f32
 from slam2d_tpu_torch.grid.window import (
     check_window_operands,
     put_window,
@@ -65,7 +65,10 @@ def update_hybrid_plain(
     grid, pose, ranges, angles, *, origin_xy, resolution, step, angle_min,
     min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
 ):
-    """Plain PyTorch version of the kernel, same float32 operations.
+    """Plain PyTorch version of the kernel, same float32 operations. The
+    cell centre is one FMA and the bearing is `atan2_ref`, as XLA compiles
+    the reference kernel on the CPU, so a cell's bearing has the same bits
+    on the CPU and on the card.
 
     The free test needs only the two beams whose slots can hold the
     cell's bearing, floor(phi / step) and the next one: any other beam is
@@ -89,10 +92,10 @@ def update_hybrid_plain(
 
     col = torch.arange(W, dtype=torch.float32, device=dev)
     row = torch.arange(H, dtype=torch.float32, device=dev)
-    cx = (ox + (col + 0.5) * resolution - pose[0])[None, :]
-    cy = (oy + (row + 0.5) * resolution - pose[1])[:, None]
+    cx = (fma_f32(col + 0.5, resolution, ox) - pose[0])[None, :].expand(H, W)
+    cy = (fma_f32(row + 0.5, resolution, oy) - pose[1])[:, None].expand(H, W)
     d = torch.sqrt(cx * cx + cy * cy)
-    phi = torch.atan2(cy.expand(H, W), cx.expand(H, W)) - pose[2] - angle_min
+    phi = atan2_ref(cy, cx) - pose[2] - angle_min
     phi = torch.remainder(phi + math.pi, 2 * math.pi) - math.pi
     k0 = torch.floor(phi / step)
     free = torch.zeros((H, W), dtype=torch.bool, device=dev)

@@ -218,13 +218,14 @@ def fullslam_tiled_killian_config():
     return cfg, TileConfig(tile=256, n_slots=48, resolution=0.1), gcfg
 
 
-def fullslam_tiled_bench_log(sensor):
+def fullslam_tiled_bench_log(sensor, seed: int = 3):
     """tests/test_killian_scale.py's lap: the 60 m ring corridor at 0.25 m
     steps, odometry noise 0.02 m / 0.004 rad, seed 3 (911 scans, ~230 m
-    of travel, odometry drifting more than 5 m)."""
+    of travel, odometry drifting more than 5 m). Another `seed` draws
+    other noise over the same ground truth."""
     _, log = corridor_loop_log(sensor, span=60.0, step=0.25,
                                odom_noise_xy=0.02, odom_noise_theta=0.004,
-                               seed=3)
+                               seed=seed)
     return log
 
 

@@ -17,9 +17,9 @@ Everything runs on --device (default "cuda"); without a card it raises
 unless --device cpu is given. --score-impl cmx|emx run the correlation
 scorer (kernel 5) in the frontend's match as in the particle filter's;
 mxu|mxu_int8 (TPU workarounds, ROADMAP queue 1 "Not ported on purpose")
-raise. --mode fastslam runs the host-gated strategy at every particle
-count (run_fastslam(host_gated=True)), where JAX's CLI takes
-run_fastslam's default rule; ROADMAP queue 1 item 7 says why.
+raise. --mode fastslam takes run_fastslam's default strategy, as JAX's
+CLI does: host-gated from PFConfig.host_gate_min_particles (512), below
+that device-gated (on CUDA one CUDA graph replay a chunk).
 
 Multi-device (parallel/mesh.py): `--mode fastslam --shard` splits the
 particles over the ranks, `--mode full --optimizer schur_sharded` the
@@ -500,10 +500,9 @@ def _run(args, device, mesh) -> int:
                 save(gather_state(state, mesh))
             grid = best_map(state, mesh)
         else:
-            # host-gated at every particle count (ROADMAP queue 1 item 7)
             state, traj, n_eff, scores = run_fastslam(
                 log, cfg, pf, device, seed=args.seed, state=init_state,
-                frame_cb=recorder.add if recorder else None, host_gated=True,
+                frame_cb=recorder.add if recorder else None,
             )
             save(state)
             best = int(torch.argmax(state.log_w))

@@ -154,6 +154,59 @@ def test_fastslam_within_jax_bounds(tmp_path, capsys):
     assert np.load(tmp_path / "p" / "map_logodds.npy").shape == (256, 256)
 
 
+class _Called(Exception):
+    """Raised by the spy in place of the run it stands for."""
+
+
+@pytest.mark.parametrize("particles", [8, 512])
+def test_fastslam_strategy_is_run_fastslams_rule(monkeypatch, particles):
+    """Both CLIs leave the FastSLAM strategy to run_fastslam's default
+    rule (host_gated=None: device-gated below host_gate_min_particles,
+    host-gated from it). The spy stops each CLI at the call."""
+    import inspect
+
+    from slam2d_tpu.run import fastslam_run as jrun
+    from slam2d_tpu_torch.run import fastslam_run as trun
+
+    seen = {}
+    for name, mod, main, extra in (("port", trun, tcli.main,
+                                    ["--device", "cpu"]),
+                                   ("jax", jrun, jcli.main, [])):
+        real = mod.run_fastslam
+
+        def spy(*a, _real=real, _name=name, **k):
+            bound = inspect.signature(_real).bind(*a, **k)
+            seen[_name] = (bound.arguments.get("host_gated"),
+                           bound.arguments["pf"].n_particles,
+                           bound.arguments["pf"].host_gate_min_particles)
+            raise _Called
+
+        monkeypatch.setattr(mod, "run_fastslam", spy)
+        with pytest.raises(_Called):
+            main([*extra, *SMALL, "--mode", "fastslam", "--particles",
+                  str(particles), "--scan-range", "0", "32"])
+    assert seen["port"] == seen["jax"] == (None, particles, 512)
+
+
+def test_fastslam_cli_is_a_default_run_fastslam(tmp_path, capsys):
+    """The port's CLI trajectory at --particles 8 --seed 0 is, bit for
+    bit, that of run_fastslam(host_gated=None) on the log, config and
+    PFConfig the CLI builds: the device-gated strategy below 512."""
+    from slam2d_tpu_torch.run.fastslam_run import run_fastslam
+
+    argv = [*SMALL, "--mode", "fastslam", "--particles", "8", "--seed",
+            "0", "--scan-range", "0", "96"]
+    _port([*argv, "--out", str(tmp_path / "p")], capsys)
+    args = tcli.build_parser().parse_args(argv)
+    log, cfg = tcli.load_run(args)
+    log = {k: v[0:96] for k, v in log.items()}
+    _, traj, _, _ = run_fastslam(log, cfg, tcli.pf_config(args), "cpu",
+                                 seed=0, host_gated=None)
+    cli_traj = _traj(tmp_path / "p")
+    assert cli_traj.dtype == traj.dtype and cli_traj.shape == (96, 3)
+    np.testing.assert_array_equal(cli_traj, traj)
+
+
 @pytest.mark.parametrize("mode", ["frontend", "full"])
 def test_split_run_equals_single_run(tmp_path, capsys, mode):
     end, cut = (384, 192) if mode == "frontend" else (1264, 640)

@@ -1,12 +1,15 @@
 """PyTorch port: the hybrid map update and the occupancy helpers against
 the JAX package (CPU; the TPU kernel runs in interpret mode).
 
-The port's update computes bearings with atan2 and endpoints with the
-framework's cos/sin, where the TPU kernel uses a polynomial atan2 and
-XLA's cos/sin. A last-bit difference there moves a cell across a beam
-slot or an endpoint across a cell edge, so the contract is: at least
-99.95% of cells bit-identical, and every other cell off by exactly one
-l_free or one l_occ.
+The port's hybrid update computes a cell's bearing as the TPU kernel
+does under XLA (its polynomial atan2, `core/numerics.py:atan2_ref`, and
+the cell centre as one FMA), its endpoints with the framework's cos/sin,
+where the TPU kernel uses XLA's cos/sin; the other updates take atan2. A
+last-bit difference there moves a cell across a beam slot or an endpoint
+across a cell edge, so the contract is: at least 99.95% of cells
+bit-identical, and every other cell off by exactly one l_free or one
+l_occ. On windows of full SLAM's seed-4 log where atan2 moves a cell
+across a slot's edge, the hybrid update is the reference's exactly.
 """
 
 import dataclasses
@@ -131,6 +134,78 @@ def test_update_matches_pallas_hybrid_on_edge_operands(corner):
     ex = pose[0] + r[90] - np.float32(origin_xy[0])
     ey = pose[1] - np.float32(origin_xy[1])
     assert a[90] == 0 and inside[90] and ex / res % 1 == 0 and ey / res % 1 == 0
+
+
+# Update windows of full SLAM's seed-4 log (bench_configs.fullslam_bench_log,
+# seed 4; the frontend's 520^2 window at the pose the JAX package tracks, as
+# float32 bits) where atan2 rounds a cell's bearing across a beam slot's
+# edge: the reference kernel's bearing (its polynomial arctangent, the cell
+# centre one FMA) decides that cell otherwise than torch.atan2 does.
+SEED4_SLOT_EDGE = {
+    65: (("0x1.f317e6p+2", "0x1.015164p+3", "-0x1.3e76p-5"),
+         ("-0x1.5p+2", "-0x1.4p+2")),
+    78: (("0x1.2742f8p+3", "0x1.a9a13p+2", "-0x1.c02898p-1"),
+         ("-0x1.e66668p+1", "-0x1.966668p+2")),
+    119: (("0x1.bdc846p+3", "0x1.994186p+1", "-0x1.81fep-6"),
+          ("0x1.ccccc0p-1", "-0x1.3b3334p+3")),
+}
+
+
+@pytest.fixture(scope="module")
+def seed4_log():
+    from slam2d_tpu_torch.run import bench_configs as bc
+
+    cfg, _ = bc.fullslam_bench_config()
+    return cfg, bc.fullslam_bench_log(cfg.sensor, seed=4)
+
+
+@pytest.mark.parametrize("scan", sorted(SEED4_SLOT_EDGE))
+def test_hybrid_bearing_is_the_reference_kernels(seed4_log, scan):
+    """The update of a window with a cell on a beam slot's edge equals the
+    TPU kernel's (interpret mode) cell for cell: the port computes the
+    bearing as the reference does, not with the device's atan2 (whose
+    rounding parted the card's run of this log from the CPU's)."""
+    cfg, log = seed4_log
+    pose_bits, origin_bits = SEED4_SLOT_EDGE[scan]
+    pose = np.array([float.fromhex(h) for h in pose_bits], np.float32)
+    origin_xy = tuple(float.fromhex(h) for h in origin_bits)
+    ranges = np.asarray(log["ranges"][scan], np.float32)
+    grid = np.zeros((520, 520), np.float32)
+    jcfg = GridConfig(**dataclasses.asdict(cfg.grid))
+    jsensor = SensorConfig(**dataclasses.asdict(cfg.sensor))
+    ref = np.asarray(pallas_dense_update(
+        jnp.asarray(grid), jnp.asarray(pose), jnp.asarray(ranges), jcfg,
+        jsensor, origin_xy=origin_xy, interpret=True, variant="hybrid",
+    ))
+    out = tocc.integrate_scan(
+        torch.from_numpy(grid), torch.from_numpy(pose),
+        torch.from_numpy(ranges), cfg.grid, cfg.sensor, origin_xy=origin_xy,
+    ).numpy()
+    np.testing.assert_array_equal(out, ref)
+
+
+def test_atan2_ref_is_the_reference_polynomial():
+    """numerics.atan2_ref against the TPU kernel's _atan2 under jit on the
+    CPU, bit for bit, at the cell centres of a 520^2 window at 0.05 m and
+    at random points of every quadrant; torch.atan2 differs from it in the
+    last bits at many of them."""
+    from slam2d_tpu.ops.pallas_update import _atan2
+    from slam2d_tpu_torch.core.numerics import atan2_ref
+
+    rng = np.random.default_rng(5)
+    c = (np.arange(520, dtype=np.float32) + np.float32(0.5)) * np.float32(
+        0.05) - np.float32(13.02)
+    ys = [np.broadcast_to(c[:, None], (520, 520)),
+          rng.normal(0, 5, 100_000).astype(np.float32)]
+    xs = [np.broadcast_to(c[None, :] + np.float32(0.013), (520, 520)),
+          rng.normal(0, 5, 100_000).astype(np.float32)]
+    for y, x in zip(ys, xs):
+        y, x = np.ascontiguousarray(y), np.ascontiguousarray(x)
+        ref = np.asarray(jax.jit(_atan2)(y, x))
+        out = atan2_ref(torch.from_numpy(y), torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(out, ref)
+        assert (torch.atan2(torch.from_numpy(y), torch.from_numpy(x))
+                .numpy() != ref).mean() > 0.1
 
 
 def test_update_window_with_integer_origin():
