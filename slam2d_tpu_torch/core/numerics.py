@@ -8,11 +8,13 @@ fractional position then rounds as in the reference, and an endpoint that
 lies exactly on a cell edge lands in the same cell.
 
 Jitted XLA on the CPU also contracts a float32 multiply-add into one
-fused rounding (`fma_f32`). The reference update kernel computes a cell's
-bearing with its own polynomial arctangent, whose Horner steps XLA
-contracts in the same way (`atan2_ref`). Both are built from IEEE float
-operations alone, so they give the same bits on the CPU and on the card,
-where `torch.atan2` rounds as each device's math library does.
+fused rounding (`fma_f32`, as a card's fmaf rounds it; `fma_f32_f64` is
+its cheaper form for the paths with no kernel). The reference update
+kernel computes a cell's bearing with its own polynomial arctangent,
+whose Horner steps XLA contracts in the same way (`atan2_ref`). Both
+are built from IEEE float operations alone, so they give the same bits
+on the CPU and on the card, where `torch.atan2` rounds as each device's
+math library does.
 
 The JAX package's solvers run under `default_matmul_precision("highest")`;
 `highest_matmul_precision` keeps float32 matmuls in full float32 (TF32 off)
@@ -22,6 +24,7 @@ for a block of the port's code in the same way.
 from __future__ import annotations
 
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -38,12 +41,41 @@ def _f64(x):
     return float(np.float32(x))
 
 
+_F32_LOW = (1 << 29) - 1  # a float64 significand's bits below float32's last
+_F32_TIE = 1 << 28        # and their value on a float32 midpoint
+
+
 def fma_f32(a, b, c):
     """fl32(a * b + c) with one rounding, as XLA contracts a float32
-    multiply-add on the CPU: the product of two float32 values is exact in
-    float64, so the sum rounds once to float64 and once to float32 (the
-    two agree but for a sum on a float32 midpoint). Python numbers count
-    as their float32 values."""
+    multiply-add on the CPU (and as the card's fmaf rounds it), for
+    results in float32's normal range or zero. The product of two float32
+    values is exact in float64, and rounding their float64 sum to float32
+    rounds twice only where that sum lies on a float32 midpoint; there
+    (one host read finds out) its last bit goes to the odd neighbour on
+    the side of the sum's exact error (TwoSum), from which one rounding to
+    float32 is the correctly rounded result (53 >= 24 + 2 bits). Python
+    numbers count as their float32 values; one of the three must be a
+    tensor."""
+    p, c = _f64(a) * _f64(b), _f64(c)
+    s = p + c
+    out = s.float()
+    tie = (s.view(torch.int64) & _F32_LOW) == _F32_TIE
+    if bool(tie.any()):
+        p, c, s = (torch.broadcast_to(torch.as_tensor(x, device=s.device),
+                                      s.shape)[tie] for x in (p, c, s))
+        t = s - p
+        err = (p - (s - t)) + (c - t)
+        # err * inf is NaN only where err is 0, where nothing moves
+        out[tie] = torch.where(err != 0, torch.nextafter(s, err * math.inf),
+                               s).float()
+    return out
+
+
+def fma_f32_f64(a, b, c):
+    """fl32(fl64(a * b + c)): fma_f32 in four operations, rounded twice
+    where the float64 sum falls on a float32 midpoint. For the paths with
+    no kernel of their own (the sampled-ray update), which run it alike
+    on both devices and inside CUDA graphs."""
     return (_f64(a) * _f64(b) + _f64(c)).float()
 
 

@@ -22,7 +22,7 @@
 //
 // What bounds it on the H100: at FastSLAM-100's shapes (100 windows of 256^2
 // of bf16 maps) the map traffic is 26 MB, 8 us at 3.35 TB/s, while a cell
-// near the sensor costs an atan2f, a sqrt, a float modulo and IEEE
+// near the sensor costs a polynomial atan2, a sqrt, a float modulo and IEEE
 // divisions, and each block pays a prologue (the beam tables) behind
 // barriers: it is bound by instruction issue and latency. Design: a block
 // updates a TH x TW tile (128 x 16) of one particle's window (blockIdx.z),
@@ -47,11 +47,12 @@
 //   d >= max_b rmin3[b] - res cannot be free, so it skips the bearing.
 // - Every window cell is still read, clipped and written.
 // The output is the same bits as a per-cell loop over every beam. The
-// arithmetic follows the TPU kernel's float32 operations one by one
-// (common.cuh); atan2f replaces its polynomial atan2 (|err| ~2e-8), which
-// moves a cell on a beam slot's edge by one l_free or l_occ. Accumulation
-// and the clamp run in float32; a bf16 map is rounded to nearest even once,
-// at the store.
+// arithmetic follows the TPU kernel's float32 operations one by one, as XLA
+// compiles them on the CPU (common.cuh): the cell centre is one FMA and the
+// bearing is the kernel's own polynomial atan2 (atan2_ref), so a cell on a
+// beam slot's edge falls on the reference's side of it. Accumulation and
+// the clamp run in float32; a bf16 map is rounded to nearest even once, at
+// the store.
 // A gate (the particle filter's device-gated step): when the device byte
 // *gate is 0, every block returns before it touches memory, so the maps
 // keep their bits; a null gate is always on.
@@ -84,20 +85,22 @@ struct Params {
 };
 
 // A cell's center relative to the sensor and its range: the float32
-// operations of the TPU kernel, shared by the occupied and free channels
+// operations of the TPU kernel, the centre one FMA as XLA contracts it,
+// shared by the occupied and free channels
 __device__ __forceinline__ float cell_range(const Params& p, float ox,
                                             float oy, float px, float py,
                                             int row, int col, float* cx,
                                             float* cy) {
-  *cx = F_SUB(F_ADD(ox, F_MUL(F_ADD((float)col, 0.5f), p.res)), px);
-  *cy = F_SUB(F_ADD(oy, F_MUL(F_ADD((float)row, 0.5f), p.res)), py);
+  *cx = F_SUB(fmaf(F_ADD((float)col, 0.5f), p.res, ox), px);
+  *cy = F_SUB(fmaf(F_ADD((float)row, 0.5f), p.res, oy), py);
   return __fsqrt_rn(F_ADD(F_MUL(*cx, *cx), F_MUL(*cy, *cy)));
 }
 
-// its bearing relative to angle_min, wrapped to [-pi, pi)
+// its bearing relative to angle_min (the reference's polynomial atan2),
+// wrapped to [-pi, pi)
 __device__ __forceinline__ float cell_bearing(const Params& p, float cx,
                                               float cy, float pth) {
-  const float phi = F_SUB(F_SUB(atan2f(cy, cx), pth), p.angle_min);
+  const float phi = F_SUB(F_SUB(atan2_ref(cy, cx), pth), p.angle_min);
   return F_SUB(mod_pos(F_ADD(phi, PI_F), TWO_PI_F), PI_F);
 }
 

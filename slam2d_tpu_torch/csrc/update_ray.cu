@@ -32,8 +32,10 @@
 // keeps the widening above the chord's reach, asin(res / (sqrt(2) d))).
 // Every term of a skipped chunk is exactly zero, and adding zeros leaves a
 // float sum as it was, so the clip changes no bit. Every float operation is
-// written with the _rn intrinsics, so the kernel and its plain version agree
-// bit for bit.
+// written with the _rn intrinsics or fmaf, so the kernel and its plain
+// version agree bit for bit; the FMAs are those XLA contracts on the CPU
+// (the cell centre, t and ct, the chunk sums), which gives the TPU kernel's
+// bits in interpret mode. The tile clip's atan2f decides no cell's value.
 //
 // Every particle's window at once (slam2d_update_ray_particles, the
 // particle filter's update_impl="pallas_ray"): blockIdx.z is the particle;
@@ -75,10 +77,11 @@ struct Params {
   float angle_min, step, l_free, l_occ, l_clamp, enable;
 };
 
-// a cell center's offset from the sensor along one axis
+// a cell center's offset from the sensor along one axis, o + (i + 0.5) res
+// one FMA as XLA contracts it
 __device__ __forceinline__ float center(float o, float i, float res,
                                         float s) {
-  return F_SUB(F_ADD(o, F_MUL(F_ADD(i, 0.5f), res)), s);
+  return F_SUB(fmaf(F_ADD(i, 0.5f), res, o), s);
 }
 
 // [c_lo, c_hi) of the chunks that can touch the cell centers [x0, x1] x
@@ -242,21 +245,28 @@ update_ray_kernel(const T* grid, T* out, int pitch,
 
   float free_sum = 0.0f, occ_sum = 0.0f;
   for (int b0 = c_lo * UNROLL; b0 < c_hi * UNROLL; b0 += UNROLL) {
-    float fa = 0.0f, oa = 0.0f;
+    float fa = 0.0f, oa = 0.0f, w0 = 0.0f, chord0 = 0.0f;
 #pragma unroll
     for (int k = 0; k < UNROLL; ++k) {
       const int b = b0 + k;
-      const float t = F_ADD(F_MUL(cx, dxs[b]), F_MUL(cy, dys[b]));
-      const float ct = fabsf(F_SUB(F_MUL(cx, dys[b]), F_MUL(cy, dxs[b])));
+      // t = cx*dx + cy*dy and cx*dy - cy*dx, each one FMA over the second
+      // product, as XLA contracts them
+      const float t = fmaf(cx, dxs[b], F_MUL(cy, dys[b]));
+      const float ct = fabsf(fmaf(cx, dys[b], -F_MUL(cy, dxs[b])));
       const float L =
           fmaxf(fminf(cms[b], F_MUL(F_SUB(hfs[b], ct), ias[b])), 0.0f);
       const float Lh = F_MUL(0.5f, L);
       const float chord = fmaxf(
           F_SUB(fminf(F_ADD(t, Lh), rfs[b]), fmaxf(F_SUB(t, Lh), 0.0f)), 0.0f);
-      const float f = F_MUL(ws[b], chord);
+      // chunk sums start from the chunk's first beam, w0 c0 + w1 c1 + ...,
+      // XLA's contraction: fma(w0, c0, w1 c1), then fma(wk, ck, sum)
+      if (k == 0) {
+        w0 = ws[b], chord0 = chord;
+      } else {
+        fa = k == 1 ? fmaf(w0, chord0, F_MUL(ws[b], chord))
+                    : fmaf(ws[b], chord, fa);
+      }
       const float o = (ers[b] == fr && ecs[b] == fc) ? 1.0f : 0.0f;
-      // chunk sums start from the chunk's first beam (f0 + f1 + ...)
-      fa = k == 0 ? f : F_ADD(fa, f);
       oa = k == 0 ? o : F_ADD(oa, o);
     }
     free_sum = F_ADD(free_sum, fa);

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from slam2d_tpu_torch.config import GridConfig, SensorConfig
-from slam2d_tpu_torch.core.numerics import fma_f32 as _fma, inv_f32
+from slam2d_tpu_torch.core.numerics import fma_f32_f64 as _fma, inv_f32
 from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.grid.window import window_origin_xy_t
 from slam2d_tpu_torch.ops.update import (

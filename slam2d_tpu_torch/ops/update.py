@@ -323,7 +323,8 @@ def ism_cell_polar(poses, region, shape, *, origin_xy, resolution,
     angle_min, wrapped to [-pi, pi)) of every cell center of each
     particle's `region` window, placed as `window_origins` says (or at
     `origin` / `cell`, as `update_ism` takes them), with the kernel's
-    float32 operations."""
+    float32 operations as XLA compiles them on the CPU: the centre one
+    FMA, the bearing `atan2_ref` (see update_hybrid_plain)."""
     Hr, Wr = region
     dev = poses.device
     _, (ox, oy) = _ism_windows(poses, region, shape, origin_xy, resolution,
@@ -331,11 +332,13 @@ def ism_cell_polar(poses, region, shape, *, origin_xy, resolution,
     col = torch.arange(Wr, dtype=torch.float32, device=dev)
     row = torch.arange(Hr, dtype=torch.float32, device=dev)
     px, py, pth = (poses[:, i, None, None] for i in range(3))
-    cx = ox[:, None, None] + ((col + 0.5) * resolution)[None, None, :] - px
-    cy = oy[:, None, None] + ((row + 0.5) * resolution)[None, :, None] - py
+    cx = fma_f32((col + 0.5)[None, None, :], resolution,
+                 ox[:, None, None]) - px
+    cy = fma_f32((row + 0.5)[None, :, None], resolution,
+                 oy[:, None, None]) - py
     d = torch.sqrt(cx * cx + cy * cy)
     P = poses.shape[0]
-    phi = torch.atan2(cy.expand(P, Hr, Wr), cx.expand(P, Hr, Wr))
+    phi = atan2_ref(cy.expand(P, Hr, Wr), cx.expand(P, Hr, Wr))
     phi = phi - pth - angle_min
     return d, torch.remainder(phi + math.pi, 2 * math.pi) - math.pi
 
@@ -410,7 +413,9 @@ def ism_occ_boxes(poses, ranges, region, shape, *, origin_xy, resolution,
     A cell that beam b marks (|phi - b*step| <= tol = occ_tol / max(d,
     1e-6), |d - r_b| <= occ_tol) has its center within |d - r_b| + d * tol
     <= 2 * occ_tol of b's endpoint, a chord being no longer than its arc,
-    whatever the wrap of phi. The box holds the cells whose centers lie
+    whatever the wrap of phi (the reference's polynomial bearing lies
+    within ~2e-8 rad of the true one: d * 2e-8 m, far inside the slack
+    below). The box holds the cells whose centers lie
     within 2 * occ_tol / res + 1 cells of the endpoint along each axis:
     one cell of slack for the rounding of the endpoint (the kernel's fast
     sine and cosine). A beam can mark only if -r_b <= occ_tol (r_b is -1
@@ -530,6 +535,7 @@ update_ism.launches = 0
 _RAY_UNROLL = 8        # the TPU kernel's beam chunk: sums group by 8 beams
 _RAY_TILE = (8, 16)    # the kernel's cell tile (rows, columns): a block
 _MAX_RAY_BEAMS = 1360  # 9 f32 tables of this length fit 48 KB of smem
+_RAY_PLAIN_TERMS = 1 << 24  # (cell, beam) terms the plain version takes at once
 
 
 def ray_tables(pose, ranges, angles, *, origin_xy, resolution, min_range,
@@ -603,7 +609,7 @@ def ray_chunk_bounds(pose, ranges, shape, *, origin_xy, resolution,
     def centers(n, t, o, s):
         lo = torch.arange(0, n, t, dtype=torch.float32, device=dev)
         hi = torch.clamp_max(lo + t, n) - 1
-        return o + (lo + 0.5) * res - s, o + (hi + 0.5) * res - s
+        return fma_f32(lo + 0.5, res, o) - s, fma_f32(hi + 0.5, res, o) - s
 
     x0, x1 = (c[None, :] for c in centers(W, tx, ox, pose[0]))
     y0, y1 = (c[:, None] for c in centers(H, ty, oy, pose[1]))
@@ -663,7 +669,12 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
                      l_occ, l_clamp, enable=1.0, bounds=None):
     """Plain PyTorch version of the kernel, the same float32 operations in
     the same order (chunks of 8 beams, each summed from its first beam,
-    then added to the total).
+    then added to the total), with the FMAs XLA contracts in the reference
+    kernel on the CPU: the cell centre, t = fma(cx, dx, cy*dy), cx*dy -
+    cy*dx = fma(cx, dy, -(cy*dx)), and a chunk's sum fma(w0, c0, w1*c1),
+    then fma(wk, ck, sum). The beams' terms are evaluated for a group of
+    chunks at once (_RAY_PLAIN_TERMS cells x beams on CUDA, a quarter of
+    it on the CPU), each term by itself, so the grouping changes no bit.
 
     `bounds` (`ray_chunk_bounds` of the same window) sums, in each tile,
     only its chunks [c_lo, c_hi), as the kernel does; None sums every
@@ -673,8 +684,8 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
     ox, oy = origin_xy
     col = torch.arange(W, dtype=torch.float32, device=dev)
     row = torch.arange(H, dtype=torch.float32, device=dev)
-    cx = (ox + (col + 0.5) * resolution - pose[0])[None, :]
-    cy = (oy + (row + 0.5) * resolution - pose[1])[:, None]
+    cx = (fma_f32(col + 0.5, resolution, ox) - pose[0])[None, :]
+    cy = (fma_f32(row + 0.5, resolution, oy) - pose[1])[:, None]
     rowg, colg = row[:, None], col[None, :]
     if bounds is not None:
         lo, hi = (
@@ -684,28 +695,35 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
         )
     free = torch.zeros((H, W), dtype=torch.float32, device=dev)
     occ = torch.zeros((H, W), dtype=torch.float32, device=dev)
-    for b0 in range(0, rays.shape[1], _RAY_UNROLL):
-        fa = oa = None
-        for b in range(b0, b0 + _RAY_UNROLL):
-            dx, dy, w, cm, hf, ia, rf, er, ec = rays[:, b]
-            t = cx * dx + cy * dy
-            ct = torch.abs(cx * dy - cy * dx)
-            L = torch.clamp_min(torch.minimum(cm, (hf - ct) * ia), 0.0)
-            Lh = 0.5 * L
-            f = w * torch.clamp_min(
-                torch.minimum(t + Lh, rf) - torch.clamp_min(t - Lh, 0.0), 0.0
-            )
-            o = ((rowg == er) & (colg == ec)).to(torch.float32)
-            fa = f if fa is None else fa + f
-            oa = o if oa is None else oa + o
-        if bounds is None:
-            free = free + fa
-            occ = occ + oa
-        else:
-            c = b0 // _RAY_UNROLL
-            take = (lo <= c) & (c < hi)
-            free = torch.where(take, free + fa, free)
-            occ = torch.where(take, occ + oa, occ)
+    n_chunks = rays.shape[1] // _RAY_UNROLL
+    terms = _RAY_PLAIN_TERMS if dev.type == "cuda" else _RAY_PLAIN_TERMS // 4
+    group = max(1, terms // (_RAY_UNROLL * H * W))
+    for g0 in range(0, n_chunks, group):
+        g = min(group, n_chunks - g0)
+        dx, dy, w, cm, hf, ia, rf, er, ec = (
+            r.reshape(g, _RAY_UNROLL, 1, 1)
+            for r in rays[:, g0 * _RAY_UNROLL : (g0 + g) * _RAY_UNROLL])
+        t = fma_f32(cx, dx, cy * dy)                     # [g, 8, H, W]
+        ct = torch.abs(fma_f32(cx, dy, -(cy * dx)))
+        L = torch.clamp_min(torch.minimum(cm, (hf - ct) * ia), 0.0)
+        Lh = 0.5 * L
+        chord = torch.clamp_min(
+            torch.minimum(t + Lh, rf) - torch.clamp_min(t - Lh, 0.0), 0.0
+        )
+        o = ((rowg == er) & (colg == ec)).to(torch.float32)
+        fa = fma_f32(w[:, 0], chord[:, 0], w[:, 1] * chord[:, 1])
+        oa = o[:, 0] + o[:, 1]
+        for k in range(2, _RAY_UNROLL):
+            fa = fma_f32(w[:, k], chord[:, k], fa)
+            oa = oa + o[:, k]
+        for j in range(g):
+            if bounds is None:
+                free = free + fa[j]
+                occ = occ + oa[j]
+            else:
+                take = (lo <= g0 + j) & (g0 + j < hi)
+                free = torch.where(take, free + fa[j], free)
+                occ = torch.where(take, occ + oa[j], occ)
     upd = (l_free * free + l_occ * occ) * enable
     return torch.clamp(grid + upd, -l_clamp, l_clamp)
 

@@ -157,15 +157,22 @@ PORT_MODULES = (
 def _port_sources():
     files = sorted((ROOT / "slam2d_tpu_torch").rglob("*.py"))
     return files + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py",
+                    ROOT / "bench_pf_torch.py",
+                    ROOT / "bench_scaling_torch.py",
                     ROOT / "scripts" / "profile_torch.py",
                     ROOT / "scripts" / "bench_endurance_torch.py",
-                    ROOT / "scripts" / "device_parity_torch.py"]
+                    ROOT / "scripts" / "device_parity_torch.py",
+                    ROOT / "scripts" / "bench_tiled_rebuild_torch.py",
+                    ROOT / "scripts" / "bench_ate_torch.py",
+                    ROOT / "scripts" / "sharded_pinned_probe.py"]
 
 
 def test_port_imports_nothing_of_the_jax_package():
     """No file of slam2d_tpu_torch/, nor chip_smoke.py, bench_torch.py,
-    scripts/profile_torch.py, scripts/bench_endurance_torch.py or
-    scripts/device_parity_torch.py, imports slam2d_tpu or jax."""
+    bench_pf_torch.py, bench_scaling_torch.py, scripts/profile_torch.py,
+    scripts/bench_endurance_torch.py, scripts/device_parity_torch.py,
+    scripts/bench_tiled_rebuild_torch.py, scripts/bench_ate_torch.py or
+    scripts/sharded_pinned_probe.py, imports slam2d_tpu or jax."""
     bad = []
     files = _port_sources()
     assert len(files) > 20

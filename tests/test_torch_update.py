@@ -1,15 +1,18 @@
 """PyTorch port: the hybrid map update and the occupancy helpers against
 the JAX package (CPU; the TPU kernel runs in interpret mode).
 
-The port's hybrid update computes a cell's bearing as the TPU kernel
-does under XLA (its polynomial atan2, `core/numerics.py:atan2_ref`, and
-the cell centre as one FMA), its endpoints with the framework's cos/sin,
-where the TPU kernel uses XLA's cos/sin; the other updates take atan2. A
-last-bit difference there moves a cell across a beam slot or an endpoint
-across a cell edge, so the contract is: at least 99.95% of cells
-bit-identical, and every other cell off by exactly one l_free or one
-l_occ. On windows of full SLAM's seed-4 log where atan2 moves a cell
-across a slot's edge, the hybrid update is the reference's exactly.
+The port's kernel 1 computes a cell's bearing as the TPU kernel does
+under XLA (its polynomial atan2, `core/numerics.py:atan2_ref`, and the
+cell centre as one FMA) in its `hybrid` and `ism` forms, and the `ray`
+form's chord with XLA's FMAs; the hybrid update takes its endpoints from
+the framework's cos/sin, where the TPU kernel uses XLA's cos/sin. A
+last-bit difference there moves an endpoint across a cell edge, so the
+hybrid contract is: at least 99.95% of cells bit-identical, and every
+other cell off by exactly one l_free or one l_occ. On windows of full
+SLAM's seed-4 log and of FastSLAM-100's log where torch.atan2 would move
+a cell across a beam slot's edge, the `hybrid` and `ism` updates are the
+reference's exactly, and at the latter the `ray` update on the
+reference's beam tables too.
 """
 
 import dataclasses
@@ -27,6 +30,7 @@ from slam2d_tpu.grid import occupancy as jocc
 from slam2d_tpu.ops.pallas_update import pallas_dense_update
 from slam2d_tpu_torch.grid import occupancy as tocc
 from slam2d_tpu_torch.ops import update as tupd
+from slam2d_tpu_torch.run import bench_configs as bc
 from torch_parity import SENSOR, synth_ranges, to_port
 
 torch.set_num_threads(1)
@@ -182,6 +186,251 @@ def test_hybrid_bearing_is_the_reference_kernels(seed4_log, scan):
         torch.from_numpy(ranges), cfg.grid, cfg.sensor, origin_xy=origin_xy,
     ).numpy()
     np.testing.assert_array_equal(out, ref)
+
+
+# Update windows of FastSLAM-100's log (bench_configs.pf_bench_log; the
+# particle filter's 256^2 window of a 512^2 map at 0.1 m, placed around the
+# pose by window_origins; a pose drawn about the true one, as float32 bits)
+# where torch.atan2 rounds a cell's bearing across a beam slot's edge that
+# the reference kernel's bearing does not cross: one free cell apart.
+PF_SLOT_EDGE = {
+    380: ("0x1.e08766p+3", "0x1.c2a092p+1", "-0x1.4b347cp-6"),
+    508: ("0x1.0e0c4cp+4", "0x1.1dc216p+3", "0x1.6bd292p+0"),
+    635: ("0x1.956feap+3", "0x1.ae4d58p+3", "0x1.2d859ap+1"),
+}
+PF_WINDOW = (256, 256)
+
+
+@pytest.fixture(scope="module")
+def pf_log():
+    cfg, _ = bc.pf_bench_config()
+    return cfg, bc.pf_bench_log(cfg.sensor)
+
+
+def _pf_window(pf_log, scan, **grid):
+    """(cfg, jcfg, jsensor, pose, ranges, window's top-left cell, its float
+    origin, a seeded float32 window) at PF_SLOT_EDGE[scan]; `grid`
+    replaces GridConfig fields of both configs."""
+    cfg, log = pf_log
+    g = dataclasses.replace(cfg.grid, **grid)
+    pose = np.array([float.fromhex(h) for h in PF_SLOT_EDGE[scan]],
+                    np.float32)
+    ranges = np.asarray(log["ranges"][scan], np.float32)
+    (r0, c0), (ox, oy) = tupd.window_origins(
+        torch.from_numpy(pose[None]), PF_WINDOW, (g.height, g.width),
+        (g.origin_x, g.origin_y), g.resolution)
+    win = np.random.default_rng(scan).uniform(-3, 3, PF_WINDOW).astype(
+        np.float32)
+    jcfg = GridConfig(**dataclasses.asdict(g))
+    jsensor = SensorConfig(**dataclasses.asdict(cfg.sensor))
+    return (g, cfg.sensor, jcfg, jsensor, pose, ranges,
+            (int(r0[0]), int(c0[0])), (float(ox[0]), float(oy[0])), win)
+
+
+@pytest.mark.parametrize("form", ["particles", "window", "carve"])
+@pytest.mark.parametrize("scan", sorted(PF_SLOT_EDGE))
+def test_ism_bearing_is_the_reference_kernels(pf_log, scan, form):
+    """Kernel 1 `ism` at a window with a cell on a beam slot's edge equals
+    the TPU kernel's (interpret mode) cell for cell, in each of its
+    forms: the particle filter's (a [1, 512, 512] map, the window placed
+    by the pose), the frontend step's (the window at a device origin) and
+    the carve images' (the map itself the window, l_occ = 0)."""
+    g, sensor, jcfg, jsensor, pose, ranges, (r0, c0), origin_xy, win = (
+        _pf_window(pf_log, scan, **({"l_occ": 0.0} if form == "carve"
+                                    else {})))
+    ref = np.asarray(pallas_dense_update(
+        jnp.asarray(win), jnp.asarray(pose), jnp.asarray(ranges), jcfg,
+        jsensor, origin_xy=origin_xy, interpret=True, variant="ism",
+    ))
+    kw = tocc.update_constants(g, sensor)
+    poses = torch.from_numpy(pose[None])
+    if form == "carve":
+        out = tupd.update_ism(
+            torch.from_numpy(win[None].copy()), poses,
+            torch.from_numpy(ranges), region=PF_WINDOW, origin_xy=origin_xy,
+            **kw)[0]
+    else:
+        maps = torch.zeros((1, g.height, g.width))
+        window = (0, slice(r0, r0 + PF_WINDOW[0]),
+                  slice(c0, c0 + PF_WINDOW[1]))
+        maps[window] = torch.from_numpy(win)
+        extra = ({} if form == "particles" else
+                 {"origin": torch.tensor([r0, c0], dtype=torch.int32)})
+        out = tupd.update_ism(
+            maps, poses, torch.from_numpy(ranges), region=PF_WINDOW,
+            origin_xy=(g.origin_x, g.origin_y), **kw, **extra)[window]
+    assert (out.numpy() != win).sum() > 1000
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _jax_ray_tables(g, sensor, pose, ranges, ox, oy):
+    """The TPU kernel's wrapper's beam tables (pallas_update.py:321-370)
+    for `g` and `sensor`, jitted, padded to 8 beams as there."""
+    def tables(pose, ranges, ox, oy):
+        res, ms = g.resolution, sensor.max_range
+        r = jnp.clip(ranges, 0.0, ms)
+        valid = (ranges > sensor.min_range) & jnp.isfinite(ranges)
+        hit = valid & (ranges < ms)
+        a = (jnp.asarray(np.asarray(sensor.beam_angles()), jnp.float32)
+             + pose[2])
+        dirx, diry = jnp.cos(a), jnp.sin(a)
+        r_free = jnp.maximum(r - res, 0.0) * valid
+        w_free = valid / jnp.maximum(r_free / g.ray_samples, res)
+        adx, ady = jnp.abs(dirx), jnp.abs(diry)
+        amax, amin = jnp.maximum(adx, ady), jnp.minimum(adx, ady)
+        ecol = jnp.floor((pose[0] + dirx * r - ox) / res)
+        erow = jnp.floor((pose[1] + diry * r - oy) / res)
+        rays = jnp.stack([
+            dirx, diry, w_free, res / jnp.maximum(amax, 1e-6),
+            0.5 * res * (adx + ady), 1.0 / jnp.maximum(amax * amin, 1e-9),
+            r_free, jnp.where(hit, erow, -1e9), jnp.where(hit, ecol, -1e9),
+        ])
+        pad = (-rays.shape[1]) % 8
+        fill = jnp.zeros((9, pad), jnp.float32).at[7:].set(-1e9)
+        return jnp.concatenate([rays, fill], axis=1)
+
+    return np.array(jax.jit(tables)(jnp.asarray(pose), jnp.asarray(ranges),
+                                    jnp.float32(ox), jnp.float32(oy)))
+
+
+def _jax_tile_chunks(g, sensor, pose, ranges, shape, ox, oy):
+    """The TPU kernel's own beam clip (pallas_update.py:141-174) on the
+    port's tile lattice: [H / 8, W / 16, 2] chunks [c_lo, c_hi) of each of
+    the kernel's 32 x 128 blocks (a window whose sides are multiples of
+    them), repeated over the _RAY_TILE tiles it holds, for
+    update_ray_plain's `bounds`. The bearing is the kernel's polynomial
+    one (atan2_ref)."""
+    from slam2d_tpu_torch.core.numerics import atan2_ref, fma_f32
+
+    H, W = shape
+    res, B = g.resolution, sensor.n_beams
+    step = sensor.fov_rad / (B - 1)
+    occ_tol = 0.75 * res
+    r = np.clip(ranges, 0.0, sensor.max_range)
+    valid = (ranges > sensor.min_range) & np.isfinite(ranges)
+    rmax_t = max(float(np.where(valid, r, -1.0).max()), 0.0) + occ_tol
+    n_chunks = -(-B // 8)
+    px, py, pth = (float(v) for v in pose)
+    col = torch.arange(W, dtype=torch.float32)
+    row = torch.arange(H, dtype=torch.float32)
+    cx = (fma_f32(col + 0.5, res, ox) - px)[None, :].expand(H, W)
+    cy = (fma_f32(row + 0.5, res, oy) - py)[:, None].expand(H, W)
+    phi = atan2_ref(cy, cx) - pth - sensor.angle_min
+    phi = torch.remainder(phi + math.pi, 2 * math.pi) - math.pi
+    d2 = cx * cx + cy * cy
+    out = np.zeros((H // 32, W // 128, 2), np.int64)
+    for i in range(H // 32):
+        for j in range(W // 128):
+            blk = (slice(32 * i, 32 * i + 32), slice(128 * j, 128 * j + 128))
+            lo, hi = float(phi[blk].min()), float(phi[blk].max())
+            dmin = math.sqrt(float(d2[blk].min()))
+            thr = max(0.5 * step, occ_tol / max(dmin, 1e-6)) + 0.25 * step
+            c_lo = math.floor((lo - thr) / (8 * step))
+            c_hi = math.floor((hi + thr) / (8 * step)) + 1
+            if hi - lo > math.pi:
+                c_lo, c_hi = 0, n_chunks
+            c_lo = min(max(c_lo, 0), n_chunks)
+            c_hi = min(max(c_hi, 0), n_chunks)
+            if float(d2[blk].min()) > rmax_t * rmax_t:
+                c_hi = c_lo
+            out[i, j] = c_lo, c_hi
+    ty, tx = tupd._RAY_TILE
+    return torch.from_numpy(
+        out.repeat(32 // ty, axis=0).repeat(128 // tx, axis=1))
+
+
+@pytest.mark.parametrize("scan", sorted(PF_SLOT_EDGE))
+def test_ray_chord_is_the_reference_kernels(pf_log, scan):
+    """Kernel 1 `ray`'s plain version on the reference's beam tables at the
+    slot-edge windows: summed over the chunks the TPU kernel's own clip
+    keeps, both channels are its bits (XLA contracts the cell centre, the
+    chord's t and ct and each chunk's sum into FMAs; with the products
+    rounded apart the free channel was 2e-4 off). The port's clip keeps
+    every beam that touches a tile; the reference's drops the chords of
+    some beams through cells within 2 res of the sensor on a block that
+    does not hold it (at scan 635 one cell by 2 l_free: ROADMAP queue 3),
+    so the port's full sum differs from the reference there and only
+    there."""
+    g, sensor, jcfg, jsensor, pose, ranges, _, (ox, oy), win = _pf_window(
+        pf_log, scan)
+    rays = torch.from_numpy(_jax_ray_tables(g, sensor, pose, ranges, ox, oy))
+    clip = _jax_tile_chunks(g, sensor, pose, ranges, PF_WINDOW, ox, oy)
+    H, W = PF_WINDOW
+    centre = ((np.arange(W) + 0.5) * g.resolution + ox - pose[0])[None, :]
+    centre = np.hypot(centre, ((np.arange(H) + 0.5) * g.resolution + oy
+                               - pose[1])[:, None])
+    for l_free, l_occ in ((g.l_free, 0.0), (0.0, g.l_occ),
+                          (g.l_free, g.l_occ)):
+        ref = np.asarray(pallas_dense_update(
+            jnp.asarray(win), jnp.asarray(pose), jnp.asarray(ranges),
+            dataclasses.replace(jcfg, l_free=l_free, l_occ=l_occ), jsensor,
+            origin_xy=(ox, oy), interpret=True, variant="ray",
+        ))
+        full, clipped = (tupd.update_ray_plain(
+            torch.from_numpy(win), torch.from_numpy(pose), rays,
+            origin_xy=(ox, oy), resolution=g.resolution, l_free=l_free,
+            l_occ=l_occ, l_clamp=g.l_clamp, bounds=b,
+        ).numpy() for b in (None, clip))
+        assert (full != win).sum() > 100
+        np.testing.assert_array_equal(clipped, ref)
+        assert (centre[full != ref] < 2 * g.resolution).all()
+
+
+@pytest.mark.parametrize("scan", sorted(PF_SLOT_EDGE))
+def test_ray_chunk_bounds_drop_no_beam_at_slot_edge_windows(pf_log, scan):
+    """The `ray` kernel's tile clip (ray_chunk_bounds) at the slot-edge
+    windows, on the port's own tables: the clipped sum has the bits of the
+    clip-free loop over every beam, and the clip skips chunks."""
+    g, sensor, _, _, pose, ranges, _, origin_xy, win = _pf_window(
+        pf_log, scan)
+    kw = tocc.update_constants(g, sensor)
+    pose_t, ranges_t = torch.from_numpy(pose), torch.from_numpy(ranges)
+    bounds = tupd.ray_chunk_bounds(
+        pose_t, ranges_t, PF_WINDOW, origin_xy=origin_xy,
+        resolution=g.resolution, min_range=kw["min_range"],
+        max_range=kw["max_range"], angle_min=kw["angle_min"], step=kw["step"])
+    rays = tupd.ray_tables(
+        pose_t, ranges_t, tocc.beam_angles(sensor, torch.device("cpu")),
+        origin_xy=origin_xy, resolution=g.resolution,
+        min_range=kw["min_range"], max_range=kw["max_range"],
+        ray_samples=g.ray_samples)
+    full, clipped = (tupd.update_ray_plain(
+        torch.from_numpy(win), pose_t, rays, origin_xy=origin_xy,
+        resolution=g.resolution, l_free=g.l_free, l_occ=g.l_occ,
+        l_clamp=g.l_clamp, bounds=b) for b in (None, bounds))
+    assert (full.numpy() != win).sum() > 1000
+    np.testing.assert_array_equal(clipped.numpy(), full.numpy())
+    trips = (bounds[..., 1] - bounds[..., 0]).sum().item()
+    assert trips < 0.5 * bounds[..., 0].numel() * (rays.shape[1] // 8)
+
+
+def test_fma_f32_rounds_once():
+    """numerics.fma_f32 is the correctly rounded float32 a * b + c (the
+    card's fmaf), against exact rationals at random operands over 60
+    binades and on a float32 midpoint that a float64 sum rounded to nearest
+    would reach (1 + 2^-23 + 2^-24 - 2^-70: below it, so 1 + 2^-23)."""
+    from fractions import Fraction
+
+    from slam2d_tpu_torch.core.numerics import fma_f32
+
+    def rn32(x):
+        f = np.float32(float(x))
+        near = (f, np.nextafter(f, np.float32(np.inf)),
+                np.nextafter(f, np.float32(-np.inf)))
+        return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                        int(np.float32(y).view(np.int32)) & 1))
+
+    one = np.float32(1 + 2**-23)
+    a, b, c = (torch.tensor([v], dtype=torch.float32)
+               for v in (one, 2**-24 * (1 - 2**-23), one))
+    assert float(fma_f32(a, b, c)) == 1 + 2**-23
+    rng = np.random.default_rng(7)
+    ops = [(rng.normal(size=3000) * 2.0 ** rng.integers(-30, 30, 3000))
+           .astype(np.float32) for _ in range(3)]
+    out = fma_f32(*(torch.from_numpy(x) for x in ops)).numpy()
+    want = [rn32(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+            for x, y, z in zip(*ops)]
+    np.testing.assert_array_equal(out, np.array(want, np.float32))
 
 
 def test_atan2_ref_is_the_reference_polynomial():
