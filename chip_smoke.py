@@ -2907,9 +2907,12 @@ def particle_update_checks(cfg, pf, log, device, seed: int):
     one launch, at the window and pitch that cfg's FastSLAM gives them,
     with poses all over the map so that windows clamp at every edge,
     against the plain version (a loop over the particles of the
-    single-window plain function): `ray` bit for bit, `hybrid` with at
-    most 0.05% of the cells off by one l_free or l_occ (its atan2f, sinf
-    and cosf). Returns {name: entry}."""
+    single-window plain function on each particle's tables): `ray` bit for
+    bit, `hybrid` with at most 0.05% of the cells off by one l_free or
+    l_occ (the bearing is atan2_ref on both sides, so only the card's sinf
+    and cosf, moving an endpoint across a cell edge, can part them). Each
+    form is timed, and timed again at a device gate of 0, which must leave
+    the maps bit-identical. Returns {name: entry}."""
     rng = np.random.default_rng(seed)
     g, s = cfg.grid, cfg.sensor
     P, res = pf.n_particles, g.resolution
@@ -2930,22 +2933,24 @@ def particle_update_checks(cfg, pf, log, device, seed: int):
     consts = occupancy.update_constants(g, s)
     kw = dict(region=(uwin, uwin), origin_xy=(g.origin_x, g.origin_y))
 
-    def hybrid(m, plain):
+    def hybrid(m, plain, gate=None):
         return update_hybrid_particles(m, poses, ranges, angles, plain=plain,
-                                       **kw, **consts)
+                                       gate=gate, **kw, **consts)
 
-    def ray(m, plain):
+    def ray(m, plain, gate=None):
         return update_ray_particles(
             m, poses, ranges, angles, resolution=res, min_range=s.min_range,
             max_range=s.max_range, angle_min=s.angle_min,
             step=consts["step"], l_free=g.l_free, l_occ=g.l_occ,
-            l_clamp=g.l_clamp, ray_samples=g.ray_samples, plain=plain, **kw)
+            l_clamp=g.l_clamp, ray_samples=g.ray_samples, plain=plain,
+            gate=gate, **kw)
 
     B = ranges.numel()
     cells = P * uwin * uwin
     window_bytes = 2 * cells * maps.element_size() + 8 * B + 12 * P
     r_free = torch.clamp(ranges.clamp(max=s.max_range) - res, min=0)
     pairs = float((r_free / res * 1.5 + 2).sum()) * P
+    gate0 = torch.zeros(1, dtype=torch.bool, device=device)
     results = {}
     for name, fn, bound in (
         # every window read and written once in the map dtype, the scan,
@@ -2973,13 +2978,21 @@ def particle_update_checks(cfg, pf, log, device, seed: int):
         scratch = maps.clone()
         times = _times(lambda: fn(scratch, False), lambda: fn(scratch, True),
                        bound, plain_runs=PARTICLE_PLAIN_RUNS)
+        before = scratch.clone()
+        gate0_ms, gate0_by = _cuda_device_ms(
+            lambda: fn(scratch, False, gate0))
+        if not _same_bits(scratch, before):
+            raise AssertionError(f"{name}: a gate of 0 changed the maps")
         results[name] = dict(
             max_abs_err=err, cells_differing=n_diff, tolerance=tol,
-            shape=[P, uwin, uwin], map_dtype=pf.map_dtype, **times)
+            shape=[P, uwin, uwin], map_dtype=pf.map_dtype,
+            gate0_device_ms=gate0_ms, gate0_device_by=gate0_by, **times)
         print(f"{name}: ms {times['ms']:.4g}, device_ms "
               f"{times['device_ms']:.4g} ({times['device_by']}), plain_ms "
               f"{times['plain_ms']:.4g}, bound_ms {times['bound_ms']:.4g} "
-              f"({times['bound_by']})")
+              f"({times['bound_by']}), gate 0 device_ms {gate0_ms:.4g} "
+              f"({gate0_by}, the maps bit-identical)")
+        del before, scratch
     return results
 
 

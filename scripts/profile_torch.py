@@ -5,6 +5,7 @@
         [--warm 256] [--scans 256] [--eager]
     python3 scripts/profile_torch.py fastslam|fastslam1000|fastslam16
         [--warm 128] [--scans 192] [--seeds N] [--graph]
+        [--update-impl IMPL]
     python3 scripts/profile_torch.py fullslam [--warm 384] [--scans 331]
     python3 scripts/profile_torch.py fullslam_tiled [--warm 448]
         [--scans 256] [--eager]
@@ -38,7 +39,9 @@ steps them one by one instead. FastSLAM runs host-gated
 (fastslam_step with the host's gates), or with `--graph` as
 run_fastslam(host_gated=False) runs it on CUDA: the device-gated steps,
 one PFChunkGraph replay a chunk of 32 (`--warm` and `--scans` whole
-chunks), the draws from a seeded generator a chunk at a time. Prints the
+chunks), the draws from a seeded generator a chunk at a time;
+`--update-impl` replaces the config's map update (e.g. pallas_ray or
+pallas_hybrid: kernel 1's particle forms). Prints the
 kernels by device time, then one JSON line: the device busy share of the
 traced wall time, per-scan host time, the step's counters, the largest
 device costs and every kernel of the port's own. Writes the
@@ -54,6 +57,7 @@ prints them. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -442,6 +446,7 @@ def main():
     ap.add_argument("--seeds", type=int, default=0)
     ap.add_argument("--eager", action="store_true")
     ap.add_argument("--graph", action="store_true")
+    ap.add_argument("--update-impl")
     ap.add_argument("--out", default="profile_out")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -471,6 +476,9 @@ def main():
         steps, step, counters = hier_steps(dev)
     else:
         cfg, pf = PF_CONFIGS[args.pipeline]()
+        if args.update_impl:
+            cfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+                cfg.grid, update_impl=args.update_impl))
         steps, step, counters = fastslam_steps(dev, cfg, pf, args.seeds,
                                                args.graph)
 
@@ -498,6 +506,8 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])
     print(json.dumps(dict(
         card=bench_configs.card(), pipeline=args.pipeline, scans=n,
+        **({"update_impl": cfg.grid.update_impl}
+           if args.pipeline in PF_CONFIGS else {}),
         # whether the traced scans replayed CUDA graphs
         graph=(args.graph if args.pipeline in PF_CONFIGS
                else args.pipeline == "fullslam"

@@ -14,10 +14,14 @@
 // 12 m: the free test's range skip saves little). For each it prints the
 // least of 5 runs of 100 launches between two CUDA events and a checksum of
 // the window written by one launch: two variants that compute the same
-// update print the same checksum. Last, the same timing of an empty kernel:
+// update print the same checksum. Then the particle form
+// (slam2d_update_hybrid_particles) at its three shapes with its gate-0 time
+// (scripts/tune_particles.cuh). Last, the same timing of an empty kernel:
 // the floor under any launch. With a second argument N it then times N more
 // launches of "wide" in one run (to sample the clocks beside it).
 #include VARIANT_FILE
+
+#include "tune_particles.cuh"
 
 #include <cmath>
 #include <cstdint>
@@ -116,6 +120,15 @@ int main(int argc, char** argv) {
     printf("%-24s %-5s [%d^2]: %.4f ms  checksum %llx\n", name, sc.name, N,
            best_of(call), h);
   }
+  time_particle_forms(name, [](void* maps, int bf16, const float* poses,
+                               const float* ranges, const float* angles,
+                               const ParticleShape& s,
+                               const unsigned char* gate, void* stream) {
+    return slam2d_update_hybrid_particles(
+        maps, bf16, poses, ranges, angles, s.P, s.H, s.W, s.win, s.win, 180,
+        0.0f, 0.0f, (float)s.res, (float)(M_PI / 179), (float)(-M_PI / 2),
+        0.1f, 12.0f, -0.4f, 0.85f, 10.0f, 1.0f, gate, stream);
+  });
   printf("%-24s empty kernel: %.4f ms\n", name,
          best_of([] { empty_tune_kernel<<<1, 32>>>(); }));
   if (argc > 2) {

@@ -9,14 +9,21 @@
 // middle, every 17th beam invalid, every 23rd without a hit) it prints the
 // least of 5 runs of 200 launches between two CUDA events and a checksum of
 // the window: two variants that compute the same window print the same
-// checksum. With a second argument N it then times N more launches in one
-// run (to sample the clocks beside it).
+// checksum. Then the particle form (slam2d_update_ray_particles) at its
+// three shapes with its gate-0 time (scripts/tune_particles.cuh), and an
+// empty kernel's time: the floor under any launch. With a second argument
+// N it then times N more launches of the 520^2 window in one run (to
+// sample the clocks beside it).
 #include VARIANT_FILE
+
+#include "tune_particles.cuh"
 
 #include <cmath>
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
+
+__global__ void empty_tune_kernel() {}
 
 __global__ void checksum(const unsigned* o, size_t n, unsigned long long* out) {
   unsigned long long acc = 0;
@@ -94,6 +101,26 @@ int main(int argc, char** argv) {
     best = fminf(best, ms / 200);
   }
   printf("%-24s 520^2: %.4f ms  checksum %llx\n", name, best, h);
+  time_particle_forms(name, [](void* maps, int bf16, const float* poses,
+                               const float* ranges, const float* angles,
+                               const ParticleShape& s,
+                               const unsigned char* gate, void* stream) {
+    return slam2d_update_ray_particles(
+        maps, bf16, poses, ranges, angles, s.P, s.H, s.W, s.win, s.win, 180,
+        0.0f, 0.0f, (float)s.res, 0.1f, 12.0f, 1.0f / 128.0f,
+        (float)(0.5 * s.res), (float)(1.0 / s.res), (float)(-M_PI / 2),
+        (float)(M_PI / 179), -0.4f, 0.85f, 10.0f, 1.0f, gate, stream);
+  });
+  best = 1e9f;
+  for (int r = 0; r < 5; ++r) {
+    cudaEventRecord(a);
+    for (int i = 0; i < 200; ++i) empty_tune_kernel<<<1, 32>>>();
+    cudaEventRecord(b);
+    cudaEventSynchronize(b);
+    cudaEventElapsedTime(&ms, a, b);
+    best = fminf(best, ms / 200);
+  }
+  printf("%-24s empty kernel: %.4f ms\n", name, best);
   if (argc > 2) {
     const int more = atoi(argv[2]);
     cudaEventRecord(a);

@@ -66,6 +66,113 @@ __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
+// ---- the particle forms of kernel 1 (update_ray.cu, update_hybrid.cu) -----
+//
+// A warp updates a PATCH x PATCH patch of a particle's window: each thread
+// V cells along a row (one 16-byte vector: 4 float32 or 8 bfloat16), TPR
+// threads along a patch row, RPP rows a pass, RY passes. The patches lie on
+// the lattice of the map's vectors, so a window whose first column is not
+// a multiple of V begins inside its first column of patches.
+constexpr int PATCH = 16;
+constexpr int PT = 256;  // threads of a particle block
+constexpr int PWARPS = PT / 32;
+
+template <typename T>
+struct PatchCells {
+  static constexpr int V = 16 / sizeof(T);
+  static constexpr int TPR = PATCH / V;
+  static constexpr int RPP = 32 / TPR;
+  static constexpr int RY = PATCH / RPP;
+  static_assert(PATCH % V == 0 && 32 % TPR == 0 && PATCH % RPP == 0, "patch");
+};
+
+// One vector's V cells, widened to float32 (exactly) and rounded back once
+__device__ __forceinline__ void vec_load(const float* p, float* c) {
+  const float4 r = *reinterpret_cast<const float4*>(p);
+  c[0] = r.x, c[1] = r.y, c[2] = r.z, c[3] = r.w;
+}
+__device__ __forceinline__ void vec_load(const __nv_bfloat16* p, float* c) {
+  const uint4 r = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int v = 0; v < 8; ++v)
+    c[v] = __uint_as_float(v & 1 ? w[v >> 1] & 0xffff0000u : w[v >> 1] << 16);
+}
+__device__ __forceinline__ void vec_store(float* p, const float* c) {
+  *reinterpret_cast<float4*>(p) = make_float4(c[0], c[1], c[2], c[3]);
+}
+__device__ __forceinline__ void vec_store(__nv_bfloat16* p, const float* c) {
+  unsigned w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(c[2 * i])) |
+           (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(c[2 * i + 1]))
+               << 16;
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The V cells at `p`, window columns col .. col + V - 1 of a row of a
+// window `w` wide (`in_rows`: the row lies in the window): one vector load
+// when `vec` (p is then 16-byte aligned), else the window's cells one by
+// one; cells outside the window read as 0 (they are never stored)
+template <typename T>
+__device__ __forceinline__ void load_cells(const T* p, bool in_rows, int col,
+                                           int w, bool vec, float* c) {
+  constexpr int V = PatchCells<T>::V;
+  if (in_rows && vec && col < w && col + V > 0) {
+    vec_load(p, c);
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    c[v] = in_rows && col + v >= 0 && col + v < w ? load_f32(p + v) : 0.0f;
+}
+
+// Store the cells of the window among them: one vector store where all V
+// lie in it and `vec`, else one by one
+template <typename T>
+__device__ __forceinline__ void store_cells(T* p, bool in_rows, int col,
+                                            int w, bool vec, const float* c) {
+  constexpr int V = PatchCells<T>::V;
+  if (!in_rows) return;
+  if (vec && col >= 0 && col + V <= w) {
+    vec_store(p, c);
+    return;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    if (col + v >= 0 && col + v < w) store_f32(p + v, c[v]);
+}
+
+// Blocks of `kernel` that the card holds at once with `smem` bytes of
+// shared memory a block, its largest: the SMs times the blocks an SM
+// holds (the particle forms' persistent grid), found once a device
+template <typename K>
+inline int resident_blocks(K kernel, int threads, size_t smem) {
+  static int found[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (found[dev] == 0) {
+    int sms = 1, per_sm = 1;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                  smem);
+    found[dev] = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  return found[dev];
+}
+
+// The particle forms' grid: (blocks a particle, P), at least the card's
+// resident blocks in all, and no more blocks a particle than its largest
+// window's patches need (a warp takes one patch at a time)
+inline dim3 particle_grid(int resident, int P, int h, int w, int V) {
+  const int patches = (h + PATCH - 1) / PATCH * ((w + V - 1) / PATCH + 1);
+  const int fill = (resident + P - 1) / P;
+  const int most = (patches + PWARPS - 1) / PWARPS;
+  return dim3(fill < 1 ? 1 : (fill < most ? fill : most), P);
+}
+
 // ---- the likelihood field of the matchers (build_search_space) ----------
 //
 // The blur taps travel by value in a launch's parameters.

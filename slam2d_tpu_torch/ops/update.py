@@ -29,9 +29,11 @@ raises. `update_hybrid_window` is the frontend step's form of kernel 1
 `hybrid`: in place on a window of the map whose origin and gate lie in
 device memory. `update_hybrid_particles` and `update_ray_particles` are
 the particle filter's forms of kernels 1 `hybrid` and `ray`: every
-particle's window of a [P, H, W] map stack in one launch (a grid axis
-over the particles, as kernel 1 `ism` has), each window placed around
-its particle's pose as `window_origins` says. `update_ism` and the
+particle's window of a [P, H, W] map stack in one launch (a persistent
+grid, each block building its particle's tables once:
+`ray_particle_tables`, `hybrid_particle_tables` are their plain
+versions), each window placed around its particle's pose as
+`window_origins` says. `update_ism` and the
 particle forms take the particle filter's device gate (`gate=`, a bool
 tensor on the maps' device): on 0 every block returns at once and the
 maps keep their bits. `update_ray_window` and `update_ism` with
@@ -61,22 +63,17 @@ from slam2d_tpu_torch.ops import _build
 _MAX_BEAMS = 2048  # beam tables of this length fit the kernels' 48 KB smem
 
 
-def update_hybrid_plain(
-    grid, pose, ranges, angles, *, origin_xy, resolution, step, angle_min,
-    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0,
-):
-    """Plain PyTorch version of the kernel, same float32 operations. The
-    cell centre is one FMA and the bearing is `atan2_ref`, as XLA compiles
-    the reference kernel on the CPU, so a cell's bearing has the same bits
-    on the CPU and on the card.
-
-    The free test needs only the two beams whose slots can hold the
-    cell's bearing, floor(phi / step) and the next one: any other beam is
-    at least a whole step away, so checking those two is exactly the
-    reference's test against every beam."""
-    H, W = grid.shape
-    B = ranges.shape[0]
-    dev = grid.device
+def hybrid_tables(pose, ranges, angles, *, origin_xy, shape, resolution,
+                  min_range, max_range):
+    """(rmin3 [B], ends [..., B] int64) of kernel 1 `hybrid`: the min valid
+    clipped range of each beam and its two neighbours (ends replicated; -1
+    for an invalid beam), and the cell row * W + col of each hitting beam's
+    floor-exact endpoint in the (H, W) = `shape` window whose float origin
+    is `origin_xy` (-1: no hit, or outside the window). `pose` [3] or
+    [P, 3], with `origin_xy` floats or [P, 1] tensors: P windows' tables
+    at once, the same bits as one by one (the float32 operations of the
+    reference kernel's wrapper, element by element)."""
+    H, W = shape
     ox, oy = origin_xy
     r = torch.clamp(ranges, 0.0, max_range)
     valid = (ranges > min_range) & torch.isfinite(ranges)
@@ -89,6 +86,38 @@ def update_hybrid_plain(
         ),
     )
     rmin3 = torch.where(valid & torch.isfinite(rmin3), rmin3, -1.0)
+    a = angles + pose[..., 2:3]
+    inv_res = inv_f32(resolution)
+    ecol = torch.floor((pose[..., 0:1] + torch.cos(a) * r - ox) * inv_res)
+    erow = torch.floor((pose[..., 1:2] + torch.sin(a) * r - oy) * inv_res)
+    on = hit & (erow >= 0) & (erow < H) & (ecol >= 0) & (ecol < W)
+    ends = torch.where(on, erow * W + ecol, -1.0).to(torch.int64)
+    return rmin3, ends
+
+
+def update_hybrid_plain(
+    grid, pose, ranges, angles, *, origin_xy, resolution, step, angle_min,
+    min_range, max_range, l_free, l_occ, l_clamp, enable=1.0, tables=None,
+):
+    """Plain PyTorch version of the kernel, same float32 operations. The
+    cell centre is one FMA and the bearing is `atan2_ref`, as XLA compiles
+    the reference kernel on the CPU, so a cell's bearing has the same bits
+    on the CPU and on the card. `tables`: this window's `hybrid_tables`
+    (None: built here).
+
+    The free test needs only the two beams whose slots can hold the
+    cell's bearing, floor(phi / step) and the next one: any other beam is
+    at least a whole step away, so checking those two is exactly the
+    reference's test against every beam."""
+    H, W = grid.shape
+    B = ranges.shape[0]
+    dev = grid.device
+    ox, oy = origin_xy
+    if tables is None:
+        tables = hybrid_tables(
+            pose, ranges, angles, origin_xy=origin_xy, shape=(H, W),
+            resolution=resolution, min_range=min_range, max_range=max_range)
+    rmin3, ends = tables
 
     col = torch.arange(W, dtype=torch.float32, device=dev)
     row = torch.arange(H, dtype=torch.float32, device=dev)
@@ -108,14 +137,10 @@ def update_hybrid_plain(
             & (d < rmin3[kb] - resolution)
         )
 
-    a = angles + pose[2]
-    inv_res = inv_f32(resolution)
-    ecol = torch.floor((pose[0] + torch.cos(a) * r - ox) * inv_res)
-    erow = torch.floor((pose[1] + torch.sin(a) * r - oy) * inv_res)
-    on = hit & (erow >= 0) & (erow < H) & (ecol >= 0) & (ecol < W)
-    idx = torch.where(on, erow * W + ecol, 0.0).to(torch.int64)
+    on = ends >= 0
     count = torch.zeros(H * W, dtype=torch.float32, device=dev)
-    count.index_put_((idx,), on.to(torch.float32), accumulate=True)
+    count.index_put_((torch.where(on, ends, 0),), on.to(torch.float32),
+                     accumulate=True)
 
     upd = (l_free * free.to(torch.float32) + l_occ * count.view(H, W)) * enable
     return torch.clamp(grid + upd, -l_clamp, l_clamp)
@@ -548,12 +573,14 @@ def ray_tables(pose, ranges, angles, *, origin_xy, resolution, min_range,
     multiplication by its float32 reciprocal, as XLA compiles it).
     `angles` is the float32 cast of the float64 beam-angle table. The
     kernel builds the same tables with the same operations in its
-    prologue; this is their plain version."""
+    prologue; this is their plain version. `pose` [P, 3] with `origin_xy`
+    [P, 1] tensors gives P windows' tables [P, 9, Bpad] at once, the same
+    bits as one by one (every operation is element by element)."""
     res = resolution
     r = torch.clamp(ranges, 0.0, max_range)
     valid = (ranges > min_range) & torch.isfinite(ranges)
     hit = valid & (ranges < max_range)
-    a = angles + pose[2]
+    a = angles + pose[..., 2:3]
     dirx, diry = torch.cos(a), torch.sin(a)
     r_free = torch.clamp_min(r - res, 0.0) * valid
     spacing = r_free * inv_f32(max(ray_samples, 1))
@@ -564,19 +591,35 @@ def ray_tables(pose, ranges, angles, *, origin_xy, resolution, min_range,
     half = (0.5 * res) * (adx + ady)
     invab = 1.0 / torch.clamp_min(amax * amin, 1e-9)
     inv_res = inv_f32(res)
-    ecol = torch.floor((pose[0] + dirx * r - origin_xy[0]) * inv_res)
-    erow = torch.floor((pose[1] + diry * r - origin_xy[1]) * inv_res)
+    ecol = torch.floor((pose[..., 0:1] + dirx * r - origin_xy[0]) * inv_res)
+    erow = torch.floor((pose[..., 1:2] + diry * r - origin_xy[1]) * inv_res)
     ecol = torch.where(hit, ecol, -1e9)
     erow = torch.where(hit, erow, -1e9)
-    rays = torch.stack(
-        [dirx, diry, w_free, cmax, half, invab, r_free, erow, ecol]
-    )
-    pad = (-rays.shape[1]) % _RAY_UNROLL
+    rays = torch.stack(torch.broadcast_tensors(
+        dirx, diry, w_free, cmax, half, invab, r_free, erow, ecol), dim=-2)
+    pad = (-rays.shape[-1]) % _RAY_UNROLL
     if pad:
-        fill = torch.zeros((9, pad), dtype=torch.float32, device=rays.device)
-        fill[7:] = -1e9
-        rays = torch.cat([rays, fill], dim=1)
+        fill = torch.zeros((*rays.shape[:-1], pad), dtype=torch.float32,
+                           device=rays.device)
+        fill[..., 7:, :] = -1e9
+        rays = torch.cat([rays, fill], dim=-1)
     return rays.contiguous()
+
+
+def ray_particle_tables(poses, ranges, angles, *, region, shape, origin_xy,
+                        resolution, min_range, max_range, ray_samples):
+    """The tables of kernel 1 `ray`'s particle form, each particle's built
+    once: ((r0, c0), (ox, oy), rays) with the windows' top-left cells and
+    float origins [P] (`window_origins`) and `ray_tables` of each window
+    [P, 9, Bpad]: the kernel builds particle p's tables from poses[p] at
+    (ox[p], oy[p]) with these operations."""
+    (r0, c0), (ox, oy) = window_origins(poses, region, shape, origin_xy,
+                                        resolution)
+    rays = ray_tables(
+        poses, ranges, angles, origin_xy=(ox[:, None], oy[:, None]),
+        resolution=resolution, min_range=min_range, max_range=max_range,
+        ray_samples=ray_samples)
+    return (r0, c0), (ox, oy), rays
 
 
 def ray_chunk_bounds(pose, ranges, shape, *, origin_xy, resolution,
@@ -665,20 +708,135 @@ def ray_chunk_bounds(pose, ranges, shape, *, origin_xy, resolution,
     return torch.stack([lo, hi], dim=-1)
 
 
+_RAY_STRIP = 4  # cells a thread of the particle form sums together (STRIP)
+
+
+def ray_strip_beams(pose, ranges, rays, shape, *, origin_xy, resolution,
+                    min_range, max_range, angle_min, step, col_offset=0):
+    """[H, n_strips, Bpad] bool: the beams a thread of kernel 1 `ray`'s
+    particle form (update_ray.cu) sums over each strip of _RAY_STRIP cells
+    of a row of the (H, W) = `shape` window, as it computes them. The
+    strips lie on the map's 4-cell lattice: strip j of a row holds window
+    columns [4 j - col_offset, 4 j - col_offset + 4), `col_offset` = c0
+    mod 4 for the window's first map column c0.
+
+    A strip whose cell centres span x0 .. x1 at y from the sensor, its
+    nearest point d_min away, has its bearings within asin(hl / d_min) of
+    its middle's (hl its half length, d_min > hl); a beam adds a chord to
+    a cell d away (|ct| < half <= res / sqrt 2) or marks it (its centre
+    within res / sqrt 2 of the endpoint) only within asin(0.75 res / d) of
+    the cell's bearing. So the strip takes the beams within alpha =
+    asin'(hl / d_min) + asin'(0.75 res / d_min) + step / 4 of its middle's
+    bearing, asin'(x) = 1.0473 x up to x = 0.5 (above asin there), the
+    quarter step for the rounding of the card's atan2f against torch's;
+    every beam where either ratio reaches 1 or alpha pi (at the sensor),
+    none beyond the scan's largest valid range + 2 res. Within that range
+    it skips each beam whose r_free + 2 res stops short of d_min: no chord
+    or endpoint of it reaches the strip (an invalid beam has r_free 0)."""
+    H, W = shape
+    B = ranges.shape[0]
+    dev = rays.device
+    ox, oy = origin_xy
+    res = resolution
+
+    def centre(i, o, s):
+        return fma_f32(i + 0.5, res, o) - s
+
+    first = torch.arange(-col_offset, W, _RAY_STRIP, dtype=torch.float32,
+                         device=dev)
+    x0 = centre(first, ox, pose[0])[None, :]
+    x1 = centre(first + (_RAY_STRIP - 1), ox, pose[0])[None, :]
+    y = centre(torch.arange(H, dtype=torch.float32, device=dev), oy,
+               pose[1])[:, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    ex = torch.where(x0 > 0, x0, torch.where(x1 < 0, -x1, zero))
+    d_min = torch.sqrt(ex * ex + y * y)                       # [H, n]
+    a1 = 0.5 * (x1 - x0) / d_min
+    a2 = 0.75 * res / d_min
+
+    def asin_above(a):
+        return torch.where(a <= 0.5, 1.0473 * a,
+                           torch.asin(torch.clamp_max(a, 1.0)))
+
+    alpha = asin_above(a1) + asin_above(a2) + 0.25 * step
+    every = (a1 >= 1.0) | (a2 >= 1.0) | (alpha >= math.pi)
+    u = torch.atan2(y, 0.5 * (x0 + x1)) - pose[2] - angle_min
+    u = u - 2 * math.pi * torch.floor(u / (2 * math.pi))
+    last = (B - 1) * step
+    lo = torch.full_like(d_min, B, dtype=torch.int64)
+    hi = torch.zeros_like(lo)
+    for k in (-1, 0, 1):
+        a = u - alpha + 2 * math.pi * k
+        b = u + alpha + 2 * math.pi * k
+        ok = (b >= 0) & (a <= last)
+        lo = torch.where(ok, torch.minimum(
+            lo, torch.clamp_min(torch.floor(a / step), 0).to(torch.int64)),
+            lo)
+        hi = torch.where(ok, torch.maximum(
+            hi, torch.clamp_max(torch.floor(b / step) + 1, B).to(torch.int64)),
+            hi)
+    hi = torch.maximum(hi, lo)
+    lo = torch.where(every, 0, lo)
+    hi = torch.where(every, B, hi)
+    r = torch.clamp(ranges, 0.0, max_range)
+    valid = (ranges > min_range) & torch.isfinite(ranges)
+    rmax = torch.where(valid, r, -1.0).max()
+    reach = d_min <= rmax + 2.0 * res
+    lo = torch.where(reach, lo, 0)[..., None]
+    hi = torch.where(reach, hi, 0)[..., None]
+    beam = torch.arange(rays.shape[1], device=dev)
+    short = d_min[..., None] > rays[6] + 2.0 * res
+    return (beam >= lo) & (beam < hi) & ~short
+
+
+def ray_chunk_sum(w, chord, keep=None):
+    """One chunk's sum of w[k] * chord[k] over its 8 beams (dim 0), as the
+    reference kernel's sums contract on the CPU: fma(w0, c0, w1 c1), then
+    fma(wk, ck, sum). With `keep` (bool, like chord) the particle form's
+    chain, which sums only the kept terms (every other one must be
+    exactly zero): the first kept term w_k c_k rounded once, fma for each
+    later one, beams 0 and 1 both kept fma(w0, c0, w1 c1); -0.0 where no
+    term is kept (it adds nothing: x + -0.0 == x for every x). Both give
+    the same bits where the skipped terms are zeros, since fma(w, 0, s) ==
+    s."""
+    if keep is None:
+        fa = fma_f32(w[0], chord[0], w[1] * chord[1])
+        for k in range(2, _RAY_UNROLL):
+            fa = fma_f32(w[k], chord[k], fa)
+        return fa
+    zero = torch.zeros((), dtype=torch.float32, device=chord.device)
+    pend = keep[0]                            # beam 0 kept, none later yet
+    fa = torch.where(pend, chord[0], zero)    # its chord while pending
+    t1 = w[1] * chord[1]
+    fa = torch.where(keep[1], torch.where(pend, fma_f32(w[0], fa, t1), t1),
+                     fa)
+    pend = pend & ~keep[1]
+    for k in range(2, _RAY_UNROLL):
+        prev = torch.where(pend, w[0] * fa, fa)
+        fa = torch.where(keep[k], fma_f32(w[k], chord[k], prev), fa)
+        pend = pend & ~keep[k]
+    fa = torch.where(pend, w[0] * fa, fa)
+    return torch.where(keep.any(0), fa, -0.0)
+
+
 def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
-                     l_occ, l_clamp, enable=1.0, bounds=None):
+                     l_occ, l_clamp, enable=1.0, bounds=None, beams=None,
+                     col_offset=0):
     """Plain PyTorch version of the kernel, the same float32 operations in
     the same order (chunks of 8 beams, each summed from its first beam,
     then added to the total), with the FMAs XLA contracts in the reference
     kernel on the CPU: the cell centre, t = fma(cx, dx, cy*dy), cx*dy -
-    cy*dx = fma(cx, dy, -(cy*dx)), and a chunk's sum fma(w0, c0, w1*c1),
-    then fma(wk, ck, sum). The beams' terms are evaluated for a group of
-    chunks at once (_RAY_PLAIN_TERMS cells x beams on CUDA, a quarter of
-    it on the CPU), each term by itself, so the grouping changes no bit.
+    cy*dx = fma(cx, dy, -(cy*dx)), and a chunk's sum `ray_chunk_sum`. The
+    beams' terms are evaluated for a group of chunks at once
+    (_RAY_PLAIN_TERMS cells x beams on CUDA, a quarter of it on the CPU),
+    each term by itself, so the grouping changes no bit.
 
     `bounds` (`ray_chunk_bounds` of the same window) sums, in each tile,
-    only its chunks [c_lo, c_hi), as the kernel does; None sums every
-    chunk. The skipped terms are zeros, so both give the same bits."""
+    only its chunks [c_lo, c_hi), as the single-window kernel does;
+    `beams` (`ray_strip_beams`, at `col_offset`) sums in each strip only
+    its beams, by the particle form's chain (`ray_chunk_sum` with keep); a
+    chunk without a summed beam adds nothing. None sums every chunk. The
+    skipped terms are zeros, so all three give the same bits."""
     H, W = grid.shape
     dev = grid.device
     ox, oy = origin_xy
@@ -693,6 +851,9 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
             .repeat_interleave(_RAY_TILE[1], 1)[:, :W]
             for i in (0, 1)
         )
+    if beams is not None:  # each cell's strip's beams, [Bpad, H, W]
+        strip = (torch.arange(W, device=dev) + col_offset) // _RAY_STRIP
+        beams = beams[:, strip].permute(2, 0, 1)
     free = torch.zeros((H, W), dtype=torch.float32, device=dev)
     occ = torch.zeros((H, W), dtype=torch.float32, device=dev)
     n_chunks = rays.shape[1] // _RAY_UNROLL
@@ -700,9 +861,9 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
     group = max(1, terms // (_RAY_UNROLL * H * W))
     for g0 in range(0, n_chunks, group):
         g = min(group, n_chunks - g0)
+        beam = slice(g0 * _RAY_UNROLL, (g0 + g) * _RAY_UNROLL)
         dx, dy, w, cm, hf, ia, rf, er, ec = (
-            r.reshape(g, _RAY_UNROLL, 1, 1)
-            for r in rays[:, g0 * _RAY_UNROLL : (g0 + g) * _RAY_UNROLL])
+            r.reshape(g, _RAY_UNROLL, 1, 1) for r in rays[:, beam])
         t = fma_f32(cx, dx, cy * dy)                     # [g, 8, H, W]
         ct = torch.abs(fma_f32(cx, dy, -(cy * dx)))
         L = torch.clamp_min(torch.minimum(cm, (hf - ct) * ia), 0.0)
@@ -711,19 +872,23 @@ def update_ray_plain(grid, pose, rays, *, origin_xy, resolution, l_free,
             torch.minimum(t + Lh, rf) - torch.clamp_min(t - Lh, 0.0), 0.0
         )
         o = ((rowg == er) & (colg == ec)).to(torch.float32)
-        fa = fma_f32(w[:, 0], chord[:, 0], w[:, 1] * chord[:, 1])
         oa = o[:, 0] + o[:, 1]
         for k in range(2, _RAY_UNROLL):
-            fa = fma_f32(w[:, k], chord[:, k], fa)
             oa = oa + o[:, k]
+        if beams is None:
+            fa = ray_chunk_sum(w.transpose(0, 1), chord.transpose(0, 1))
+        else:
+            keep = beams[beam].reshape(g, _RAY_UNROLL, H, W)
+            fa = ray_chunk_sum(w.transpose(0, 1), chord.transpose(0, 1),
+                               keep.transpose(0, 1))
         for j in range(g):
-            if bounds is None:
-                free = free + fa[j]
-                occ = occ + oa[j]
-            else:
+            if bounds is not None:
                 take = (lo <= g0 + j) & (g0 + j < hi)
                 free = torch.where(take, free + fa[j], free)
                 occ = torch.where(take, occ + oa[j], occ)
+            else:
+                free = free + fa[j]
+                occ = occ + oa[j]
     upd = (l_free * free + l_occ * occ) * enable
     return torch.clamp(grid + upd, -l_clamp, l_clamp)
 
@@ -830,21 +995,69 @@ def _check_particles(maps, poses, ranges, angles, region):
                          "the maps' device")
 
 
-def _per_particle_plain(update_one, maps, poses, region, origin_xy,
-                        resolution, gate=None):
-    """The plain version of a particle-batched update: `update_one(window
-    [Hr, Wr] float32, pose [3], window origin (x, y))` on each particle's
-    window in turn (placed by `window_origins`), written back IN PLACE in
-    the maps' dtype (the old cells where `gate` is 0: the same bits)."""
+def _per_particle_plain(update_one, maps, origins, region, gate=None):
+    """The plain version of a particle-batched update: `update_one(p,
+    window [Hr, Wr] float32, window origin (x, y))` on each particle's
+    window in turn (at `origins`, ((r0, c0), (ox, oy)) as `window_origins`
+    gives them), written back IN PLACE in the maps' dtype (the old cells
+    where `gate` is 0: the same bits)."""
     Hr, Wr = region
-    (r0, c0), (ox, oy) = window_origins(
-        poses, region, maps.shape[1:], origin_xy, resolution)
+    (r0, c0), (ox, oy) = origins
     for p, (r, c, x, y) in enumerate(zip(r0.tolist(), c0.tolist(),
                                          ox.tolist(), oy.tolist())):
         win = maps[p, r : r + Hr, c : c + Wr]
-        new = update_one(win.to(torch.float32).contiguous(), poses[p], (x, y))
+        new = update_one(p, win.to(torch.float32).contiguous(), (x, y))
         win.copy_(_build.gated(gate, new.to(maps.dtype), win))
     return maps
+
+
+def hybrid_blind_cells(pose, shape, *, origin_xy, resolution, n_beams,
+                       step, angle_min, margin=1e-3):
+    """[H, W] bool: the cells of the (H, W) = `shape` window whose centres
+    lie in the cone of bearings that no beam's slot reaches, `margin`
+    radians inside its edges, as kernel 1 `hybrid`'s particle form finds
+    them (update_hybrid.cu: BlindCone): the kernel skips their free test,
+    since none of them can be free. The cone starts half a step and the
+    margin past the last beam and runs to as far before the first; where
+    the slots and margins cover a whole turn there is none."""
+    H, W = shape
+    dev = pose.device
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)  # noqa: E731
+    cover = f32((n_beams - 1) * np.float32(step)) + f32(
+        np.float32(step) + 2 * np.float32(margin))
+    width = f32(2 * math.pi) - cover
+    if width <= 0:
+        return torch.zeros((H, W), dtype=torch.bool, device=dev)
+    s = (pose[2] + angle_min) + (cover - f32(0.5 * np.float32(step)
+                                           + np.float32(margin)))
+    sx, sy = torch.cos(s), torch.sin(s)
+    ex, ey = torch.cos(s + width), torch.sin(s + width)
+    col = torch.arange(W, dtype=torch.float32, device=dev)
+    row = torch.arange(H, dtype=torch.float32, device=dev)
+    cx = (fma_f32(col + 0.5, resolution, origin_xy[0]) - pose[0])[None, :]
+    cy = (fma_f32(row + 0.5, resolution, origin_xy[1]) - pose[1])[:, None]
+    after_s = sx * cy - sy * cx > 0
+    before_e = cx * ey - cy * ex > 0
+    if width <= math.pi:
+        return after_s & before_e
+    return after_s | before_e
+
+
+def hybrid_particle_tables(poses, ranges, angles, *, region, shape,
+                           origin_xy, resolution, min_range, max_range):
+    """The tables of kernel 1 `hybrid`'s particle form, each particle's
+    built once: ((r0, c0), (ox, oy), rmin3, ends) with the windows'
+    top-left cells and float origins [P] (`window_origins`) and
+    `hybrid_tables` of each `region` window (rmin3 [B], the scan's alone;
+    ends [P, B]): the kernel builds particle p's from poses[p] at (ox[p],
+    oy[p]) with these operations."""
+    (r0, c0), (ox, oy) = window_origins(poses, region, shape, origin_xy,
+                                        resolution)
+    rmin3, ends = hybrid_tables(
+        poses, ranges, angles, origin_xy=(ox[:, None], oy[:, None]),
+        shape=region, resolution=resolution, min_range=min_range,
+        max_range=max_range)
+    return (r0, c0), (ox, oy), rmin3, ends
 
 
 def update_hybrid_particles(
@@ -860,19 +1073,25 @@ def update_hybrid_particles(
     says (a region the size of the map is the whole map), with the bits of
     `update_hybrid` on that window at its float origin ox + f32(c0) * res.
     `angles` [B] is the float32 beam-angle table. One launch for all the
-    particles; `gate` as for `update_ism`. The plain version loops over
-    the particles with `update_hybrid_plain`; `plain=True` runs it on a
-    CUDA tensor too (for checks)."""
+    particles; `gate` as for `update_ism`. The plain version builds every
+    particle's tables (`hybrid_particle_tables`) and loops over the
+    particles with `update_hybrid_plain`; `plain=True` runs it on a CUDA
+    tensor too (for checks)."""
     _check_particles(maps, poses, ranges, angles, region)
     _build.check_gate(gate, maps.device)
     kw = dict(resolution=resolution, step=step, angle_min=angle_min,
               min_range=min_range, max_range=max_range, l_free=l_free,
               l_occ=l_occ, l_clamp=l_clamp, enable=enable)
     if plain or maps.device.type == "cpu":
+        *origins, rmin3, ends = hybrid_particle_tables(
+            poses, ranges, angles, region=region, shape=maps.shape[1:],
+            origin_xy=origin_xy, resolution=resolution, min_range=min_range,
+            max_range=max_range)
         return _per_particle_plain(
-            lambda g, pose, o: update_hybrid_plain(
-                g, pose, ranges, angles, origin_xy=o, **kw),
-            maps, poses, region, origin_xy, resolution, gate)
+            lambda p, g, o: update_hybrid_plain(
+                g, poses[p], ranges, angles, origin_xy=o,
+                tables=(rmin3, ends[p]), **kw),
+            maps, origins, region, gate)
     if maps.device.type != "cuda":
         raise ValueError(f"no update kernel for device {maps.device}")
     P, H, W = maps.shape
@@ -902,26 +1121,23 @@ def update_ray_particles(
     window placed around `poses[p]` as in `update_hybrid_particles`, with
     the bits of `update_ray` on that window at its float origin. One
     launch for all the particles; `gate` as for `update_ism`. The plain
-    version loops over the particles with `ray_tables` and
-    `update_ray_plain`; `plain=True` runs it on a CUDA tensor too (for
-    checks)."""
+    version builds every particle's tables (`ray_particle_tables`) and
+    loops over the particles with `update_ray_plain`; `plain=True` runs it
+    on a CUDA tensor too (for checks)."""
     _check_particles(maps, poses, ranges, angles, region)
     _build.check_gate(gate, maps.device)
     if ranges.shape[0] > _MAX_RAY_BEAMS:
         raise ValueError(f"need at most {_MAX_RAY_BEAMS} beams")
     if plain or maps.device.type == "cpu":
-        def one(g, pose, o):
-            rays = ray_tables(
-                pose, ranges, angles, origin_xy=o, resolution=resolution,
-                min_range=min_range, max_range=max_range,
-                ray_samples=ray_samples,
-            )
-            return update_ray_plain(
-                g, pose, rays, origin_xy=o, resolution=resolution,
-                l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable,
-            )
-        return _per_particle_plain(one, maps, poses, region, origin_xy,
-                                   resolution, gate)
+        *origins, rays = ray_particle_tables(
+            poses, ranges, angles, region=region, shape=maps.shape[1:],
+            origin_xy=origin_xy, resolution=resolution, min_range=min_range,
+            max_range=max_range, ray_samples=ray_samples)
+        return _per_particle_plain(
+            lambda p, g, o: update_ray_plain(
+                g, poses[p], rays[p], origin_xy=o, resolution=resolution,
+                l_free=l_free, l_occ=l_occ, l_clamp=l_clamp, enable=enable),
+            maps, origins, region, gate)
     if maps.device.type != "cuda":
         raise ValueError(f"no update kernel for device {maps.device}")
     P, H, W = maps.shape

@@ -34,6 +34,8 @@ from slam2d_tpu.config import PFConfig
 from slam2d_tpu.metrics import ate_rmse
 from slam2d_tpu.pf import fastslam as jfs
 from slam2d_tpu.run.fastslam_run import run_fastslam as jax_run_fastslam
+from slam2d_tpu_torch.grid.occupancy import beam_angles
+from slam2d_tpu_torch.ops import update as tupd
 from slam2d_tpu_torch.pf import fastslam as tfs
 from slam2d_tpu_torch.run.fastslam_run import run_fastslam
 from torch_parity import PF_CFG as CFG
@@ -385,3 +387,111 @@ def test_fastslam_270_degree_scanner_matches_jax():
     ref_ate = ate_rmse(ref[0], log["gt_poses"], align=False)
     print(f"ATE port {ate:.4f}, JAX {ref_ate:.4f}")
     assert abs(ate - ref_ate) <= 0.03
+
+
+# ---- the particle forms' tables (kernel 1 `ray` and `hybrid` over P windows)
+#
+# Each block of the particle kernels builds its particle's beam tables once
+# (csrc/update_ray.cu, update_hybrid.cu); their plain versions,
+# `ray_particle_tables` and `hybrid_particle_tables`, build every
+# particle's at once. P = 3 windows of 96^2 in maps of 192^2 at 0.1 m (one
+# clamped against the map's corner): the tables equal the single-window
+# ones at each window's origin, bit for bit.
+
+TAB_P, TAB_MAP, TAB_WIN = 3, 192, (96, 96)
+
+
+@functools.cache
+def _table_inputs():
+    """(grid config, poses [3, 3], ranges) of the tables' tests."""
+    g = dataclasses.replace(TCFG.grid, height=TAB_MAP, width=TAB_MAP)
+    log = pf_log()
+    rng = np.random.default_rng(5)
+    poses = np.stack([log["odom"][20]] * TAB_P) + rng.normal(
+        0, [0.4, 0.4, 0.2], (TAB_P, 3))
+    # windows at columns 23 and 32 of the map (c0 mod 4: 3 and 0), and one
+    # clamped against the map's corner
+    poses[:, :2] = [[5.55, 5.0], [g.origin_x + 0.35, g.origin_y + 0.2],
+                    [6.42, 6.3]]
+    return (g, torch.tensor(poses.astype(np.float32)),
+            torch.tensor(log["ranges"][20].astype(np.float32)))
+
+
+def _table_kw(g):
+    s = TCFG.sensor
+    return dict(region=TAB_WIN, shape=(g.height, g.width),
+                origin_xy=(g.origin_x, g.origin_y), resolution=g.resolution,
+                min_range=s.min_range, max_range=s.max_range)
+
+
+@pytest.mark.parametrize("impl", ["pallas_ray", "pallas_hybrid"])
+def test_particle_tables_equal_single_window_tables(impl):
+    """Every particle's tables, built at once, are the single-window tables
+    (`ray_tables`; `hybrid_tables`, which `update_hybrid_plain` builds) at
+    that particle's window origin, bit for bit; the window origins are
+    `window_origins`' (the clamped one at the map's corner)."""
+    g, poses, ranges = _table_inputs()
+    angles = beam_angles(TCFG.sensor, CPU)
+    kw = _table_kw(g)
+    (r0, c0), (ox, oy) = tupd.window_origins(
+        poses, TAB_WIN, kw["shape"], kw["origin_xy"], g.resolution)
+    assert (r0[1], c0[1]) == (0, 0) and (r0 > 0).sum() == TAB_P - 1
+    if impl == "pallas_ray":
+        origins, oxy, rays = tupd.ray_particle_tables(
+            poses, ranges, angles, ray_samples=g.ray_samples, **kw)
+        assert rays.shape == (TAB_P, 9, 120)
+    else:
+        origins, oxy, rmin3, ends = tupd.hybrid_particle_tables(
+            poses, ranges, angles, **kw)
+        assert ends.shape == (TAB_P, 120) and (ends >= 0).sum() > 100
+    assert torch.equal(torch.stack(origins), torch.stack((r0, c0)))
+    assert torch.equal(torch.stack(oxy), torch.stack((ox, oy)))
+    del kw["region"], kw["shape"]
+    for p in range(TAB_P):
+        kw["origin_xy"] = (float(ox[p]), float(oy[p]))
+        if impl == "pallas_ray":
+            one = tupd.ray_tables(poses[p], ranges, angles,
+                                  ray_samples=g.ray_samples, **kw)
+            assert torch.equal(rays[p], one)
+        else:
+            r3, e = tupd.hybrid_tables(poses[p], ranges, angles,
+                                       shape=TAB_WIN, **kw)
+            assert torch.equal(rmin3, r3) and torch.equal(ends[p], e)
+
+
+@pytest.mark.parametrize("map_dtype", [torch.float32, torch.bfloat16])
+def test_ray_strip_sum_equals_full_sum_on_particle_windows(map_dtype):
+    """Kernel 1 `ray`'s particle form sums, in each strip of 4 cells of a
+    row, only the beams `ray_strip_beams` keeps, by the skip-zero chain;
+    its strips lie on the map's 4-cell lattice, so a window starts c0 mod 4
+    cells into its first strip. On every particle's window (a float32 or
+    a bfloat16 map's cells) that sum has the full sum's bits, and it keeps
+    under a tenth of the (strip, beam) pairs."""
+    g, poses, ranges = _table_inputs()
+    s = TCFG.sensor
+    angles = beam_angles(s, CPU)
+    kw = _table_kw(g)
+    (r0, c0), (ox, oy), rays = tupd.ray_particle_tables(
+        poses, ranges, angles, ray_samples=g.ray_samples, **kw)
+    maps = torch.tensor(_update_inputs()[0][:TAB_P, :TAB_MAP, :TAB_MAP])
+    maps = maps.to(map_dtype).to(torch.float32)
+    up = dict(resolution=g.resolution, l_free=g.l_free, l_occ=g.l_occ,
+              l_clamp=g.l_clamp)
+    offsets = set()
+    for p in range(TAB_P):
+        r, c, o = int(r0[p]), int(c0[p]), (float(ox[p]), float(oy[p]))
+        win = maps[p, r:r + TAB_WIN[0], c:c + TAB_WIN[1]].contiguous()
+        beams = tupd.ray_strip_beams(
+            poses[p], ranges, rays[p], TAB_WIN, origin_xy=o,
+            resolution=g.resolution, min_range=s.min_range,
+            max_range=s.max_range, angle_min=s.angle_min,
+            step=s.fov_rad / (s.n_beams - 1), col_offset=c % 4)
+        offsets.add(c % 4)
+        full = tupd.update_ray_plain(win, poses[p], rays[p], origin_xy=o,
+                                     **up)
+        strip = tupd.update_ray_plain(win, poses[p], rays[p], origin_xy=o,
+                                      beams=beams, col_offset=c % 4, **up)
+        assert (full != win).sum() > 1000
+        assert torch.equal(strip, full)
+        assert beams.float().mean() < 0.1
+    assert len(offsets) > 1   # strips both on and off the window's edge

@@ -260,20 +260,13 @@ CLIP_SENSORS = {
 }
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-@pytest.mark.parametrize("sensor_name", sorted(CLIP_SENSORS))
-def test_ray_chunk_bounds_hold_every_touching_beam(sensor_name, seed):
-    """Every (beam, cell) pair with a nonzero chord term or an endpoint
-    mark lies in a chunk of its tile's bounds, on a 160^2 grid at 0.1 m
-    (the kernel's tiles) from seeded poses and scans of at most 5 m. The cases
-    include the tile holding the sensor (every chunk), tiles beyond the
-    scan's range and, at 180 degrees, tiles behind the sensor (no chunk),
-    and tiles across the seam of the bearings at beam 0 (at 360 degrees
-    they take chunks of both ends, so every chunk)."""
-    sensor = CLIP_SENSORS[sensor_name]
+def _touching_pairs(sensor, seed, H=160, W=160, res=0.1):
+    """A seeded pose and scan of at most 5 m over an H x W grid at `res`
+    from (0, 0), the scan's tables, and every (beam, row, col) whose chord
+    term is nonzero or whose endpoint marks the cell: (pose, ranges, rays,
+    (b, r, c))."""
     rng = np.random.default_rng(100 + seed)
-    H = W = 160
-    res, origin_xy = 0.1, (0.0, 0.0)
+    origin_xy = (0.0, 0.0)
     pose = np.array([*rng.uniform(5.0, 11.0, 2), rng.uniform(-np.pi, np.pi)],
                     np.float32)
     B = sensor.n_beams
@@ -282,8 +275,6 @@ def test_ray_chunk_bounds_hold_every_touching_beam(sensor_name, seed):
     ranges[7::31] = np.float32(sensor.max_range)   # no hit
     ranges[11::37] = np.float32(0.05)              # below min_range
     pose_t, ranges_t = torch.from_numpy(pose), torch.from_numpy(ranges)
-    bounds = _bounds(pose_t, ranges_t, (H, W), sensor, res, origin_xy).numpy()
-    n_chunks = -(-B // 8)
 
     # every beam's own terms over the grid: [Bpad, H, W]
     angles = torch.from_numpy(np.asarray(sensor.beam_angles(), np.float32))
@@ -306,6 +297,27 @@ def test_ray_chunk_bounds_hold_every_touching_beam(sensor_name, seed):
     o = (row[None, :, None] == er) & (col[None, None, :] == ec)
     b, r, c = np.nonzero(((f != 0) | o).numpy())
     assert b.size > 1000 and o.sum() > 50
+    return pose_t, ranges_t, rays, (b, r, c)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("sensor_name", sorted(CLIP_SENSORS))
+def test_ray_chunk_bounds_hold_every_touching_beam(sensor_name, seed):
+    """Every (beam, cell) pair with a nonzero chord term or an endpoint
+    mark lies in a chunk of its tile's bounds, on a 160^2 grid at 0.1 m
+    (the kernel's tiles) from seeded poses and scans of at most 5 m. The cases
+    include the tile holding the sensor (every chunk), tiles beyond the
+    scan's range and, at 180 degrees, tiles behind the sensor (no chunk),
+    and tiles across the seam of the bearings at beam 0 (at 360 degrees
+    they take chunks of both ends, so every chunk)."""
+    sensor = CLIP_SENSORS[sensor_name]
+    H = W = 160
+    res, origin_xy = 0.1, (0.0, 0.0)
+    pose_t, ranges_t, rays, (b, r, c) = _touching_pairs(sensor, seed)
+    pose, ranges = pose_t.numpy(), ranges_t.numpy()
+    B = sensor.n_beams
+    bounds = _bounds(pose_t, ranges_t, (H, W), sensor, res, origin_xy).numpy()
+    n_chunks = -(-B // 8)
     ty, tx = tupd._RAY_TILE
     lo, hi = bounds[r // ty, c // tx, 0], bounds[r // ty, c // tx, 1]
     chunk = b // 8
@@ -343,3 +355,86 @@ def test_ray_chunk_bounds_hold_every_touching_beam(sensor_name, seed):
             rel.max(0) < 2 * np.pi - 0.3
         )
         assert behind.any() and (hi[behind] == lo[behind]).all()
+
+
+# ---- the particle form's strips and its skip-zero chain --------------------
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("sensor_name", sorted(CLIP_SENSORS))
+def test_ray_strip_beams_hold_every_touching_beam(sensor_name, seed):
+    """Kernel 1 `ray`'s particle form narrows each thread's beams below the
+    8-beam chunk, a strip of 4 cells at a time (`ray_strip_beams`): every
+    (beam, cell) pair with a nonzero chord term or an endpoint mark lies
+    in its strip's beams, with the strips `seed` cells off the window's
+    first column (the window's column mod 4 in its map), on tests/
+    test_ray_chunk_bounds_hold_every_touching_beam's draws: the strips at
+    the sensor (every beam), beyond the scan's reach and behind a
+    180-degree sensor (none), across the seam of the bearings at beam 0.
+    The strip sum has the full sum's bits, and the strips keep a third of
+    the tiles' (cell, beam) pairs or fewer."""
+    sensor = CLIP_SENSORS[sensor_name]
+    H = W = 160
+    res, origin_xy = 0.1, (0.0, 0.0)
+    pose_t, ranges_t, rays, (b, r, c) = _touching_pairs(sensor, seed)
+    step = sensor.fov_rad / max(sensor.n_beams - 1, 1)
+    keep = tupd.ray_strip_beams(
+        pose_t, ranges_t, rays, (H, W), origin_xy=origin_xy, resolution=res,
+        min_range=sensor.min_range, max_range=sensor.max_range,
+        angle_min=sensor.angle_min, step=step, col_offset=seed).numpy()
+    bad = ~keep[r, (c + seed) // 4, b]
+    assert not bad.any(), (
+        f"{bad.sum()} touching (beam, cell) pairs outside their strip's "
+        f"beams, e.g. beam {b[bad][0]} cell {r[bad][0], c[bad][0]}")
+    n_beams = keep.sum(-1)
+    assert (n_beams == sensor.n_beams).any()     # the strips at the sensor
+    assert (n_beams == 0).any()                  # beyond reach, behind
+    bounds = _bounds(pose_t, ranges_t, (H, W), sensor, res, origin_xy)
+    tiled = 8 * (bounds[..., 1] - bounds[..., 0]).sum().item() * 128
+    assert 4 * keep.sum() < tiled / 3
+
+    grid = torch.from_numpy(np.random.default_rng(seed).uniform(
+        -5, 5, (H, W)).astype(np.float32))
+    kw = dict(origin_xy=origin_xy, resolution=res, l_free=-0.4, l_occ=0.85,
+              l_clamp=10.0)
+    full = tupd.update_ray_plain(grid, pose_t, rays, **kw)
+    strip = tupd.update_ray_plain(grid, pose_t, rays, beams=torch.from_numpy(
+        keep), col_offset=seed, **kw)
+    np.testing.assert_array_equal(strip.numpy(), full.numpy())
+
+
+CHAIN_CASES = {
+    # which of a chunk's 8 terms are nonzero (beyond these: a random third)
+    "beams_0_and_1": (True, True),
+    "beam_0_alone": (True, False),
+    "beam_1_first": (False, True),
+    "from_beam_2": (False, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CHAIN_CASES) + ["none", "random"])
+def test_ray_chunk_sum_skipping_zero_terms_keeps_its_bits(case):
+    """A chunk's sum over only its kept beams (`ray_chunk_sum` with keep,
+    the particle form's chain: the first kept term rounded once, fma for
+    each later one, fma(w0, c0, w1 c1) where beams 0 and 1 are both kept)
+    has the bits of the full chain, fma(w0, c0, w1 c1) then fma(wk, ck,
+    sum), wherever every skipped term is zero; kept zeros change nothing
+    either. Added to a running sum, a chunk with no kept beam adds
+    nothing."""
+    rng = np.random.default_rng(sorted(CHAIN_CASES).index(case)
+                                if case in CHAIN_CASES else 7)
+    n = 4096
+    w = torch.from_numpy(rng.uniform(0.05, 20.0, (8, 1)).astype(np.float32))
+    chord = rng.uniform(0.0, 0.08, (8, n)).astype(np.float32)
+    nonzero = rng.random((8, n)) < 1 / 3
+    if case in CHAIN_CASES:
+        nonzero[:2] = np.array(CHAIN_CASES[case])[:, None]
+    elif case == "none":
+        nonzero[:] = False
+    chord = torch.from_numpy(np.where(nonzero, chord, np.float32(0)))
+    keep = torch.from_numpy(nonzero | (rng.random((8, n)) < 0.2))
+    full = tupd.ray_chunk_sum(w, chord)
+    kept = tupd.ray_chunk_sum(w, chord, keep)
+    some = keep.any(0)
+    assert torch.equal(kept[some], full[some])
+    for base in (0.0, 0.3, -1.7, 123.4):
+        assert torch.equal(base + kept, base + full)

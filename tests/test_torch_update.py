@@ -339,6 +339,56 @@ def _jax_tile_chunks(g, sensor, pose, ranges, shape, ox, oy):
         out.repeat(32 // ty, axis=0).repeat(128 // tx, axis=1))
 
 
+def test_ray_particle_tables_match_the_reference_wrapper(pf_log):
+    """Kernel 1 `ray`'s particle form builds each particle's tables once
+    (`ray_particle_tables`); against the TPU kernel's wrapper's tables
+    (pallas_update.py:321-370, jitted) at each particle's window origin,
+    three particles at PF_SLOT_EDGE's poses with one scan: w_free and
+    r_free are bit-equal; the direction rows and those derived from them
+    differ at most by XLA's cos/sin against torch's (a few ulps); an
+    endpoint moves by one cell where that last bit crosses a cell edge,
+    for at most 2% of the beams; on the reference's own tables the plain
+    update of each window is the reference kernel's, as
+    test_ray_chord_is_the_reference_kernels holds it."""
+    cfg, log = pf_log
+    g, sensor = cfg.grid, cfg.sensor
+    poses = np.array([[float.fromhex(h) for h in PF_SLOT_EDGE[k]]
+                      for k in sorted(PF_SLOT_EDGE)], np.float32)
+    ranges = np.asarray(log["ranges"][508], np.float32)
+    kw = tocc.update_constants(g, sensor)
+    (r0, c0), (ox, oy), rays = tupd.ray_particle_tables(
+        torch.from_numpy(poses), torch.from_numpy(ranges),
+        tocc.beam_angles(sensor, torch.device("cpu")), region=PF_WINDOW,
+        shape=(g.height, g.width), origin_xy=(g.origin_x, g.origin_y),
+        resolution=g.resolution, min_range=kw["min_range"],
+        max_range=kw["max_range"], ray_samples=g.ray_samples)
+    for p in range(len(poses)):
+        ref = _jax_ray_tables(g, sensor, poses[p], ranges, float(ox[p]),
+                              float(oy[p]))
+        port = rays[p].numpy()
+        np.testing.assert_array_equal(port[[2, 6]], ref[[2, 6]])
+        np.testing.assert_allclose(port[:2], ref[:2], rtol=0, atol=2e-7)
+        np.testing.assert_allclose(port[3:6], ref[3:6], rtol=1e-5, atol=0)
+        moved = np.abs(port[7:] - ref[7:])
+        assert moved.max() <= 1 and (moved != 0).any(0).mean() <= 0.02
+        win = np.random.default_rng(p).uniform(-3, 3, PF_WINDOW).astype(
+            np.float32)
+        clip = _jax_tile_chunks(g, sensor, poses[p], ranges, PF_WINDOW,
+                                float(ox[p]), float(oy[p]))
+        out = tupd.update_ray_plain(
+            torch.from_numpy(win), torch.from_numpy(poses[p]),
+            torch.from_numpy(ref), origin_xy=(float(ox[p]), float(oy[p])),
+            resolution=g.resolution, l_free=g.l_free, l_occ=g.l_occ,
+            l_clamp=g.l_clamp, bounds=clip).numpy()
+        jcfg = GridConfig(**dataclasses.asdict(g))
+        jsensor = SensorConfig(**dataclasses.asdict(sensor))
+        want = np.asarray(pallas_dense_update(
+            jnp.asarray(win), jnp.asarray(poses[p]), jnp.asarray(ranges),
+            jcfg, jsensor, origin_xy=(float(ox[p]), float(oy[p])),
+            interpret=True, variant="ray"))
+        np.testing.assert_array_equal(out, want)
+
+
 @pytest.mark.parametrize("scan", sorted(PF_SLOT_EDGE))
 def test_ray_chord_is_the_reference_kernels(pf_log, scan):
     """Kernel 1 `ray`'s plain version on the reference's beam tables at the
@@ -402,6 +452,41 @@ def test_ray_chunk_bounds_drop_no_beam_at_slot_edge_windows(pf_log, scan):
     np.testing.assert_array_equal(clipped.numpy(), full.numpy())
     trips = (bounds[..., 1] - bounds[..., 0]).sum().item()
     assert trips < 0.5 * bounds[..., 0].numel() * (rays.shape[1] // 8)
+
+
+@pytest.mark.parametrize("fov", ["180", "90", "270"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hybrid_blind_cone_holds_no_free_cell(fov, seed):
+    """Kernel 1 `hybrid`'s particle form skips the free test of the cells
+    in the cone of bearings no beam's slot reaches (`hybrid_blind_cells`):
+    on a 200^2 window around seeded poses (headings beyond a turn too) and
+    scans, no cell there is free in the plain version's test, and at 180
+    and 90 degrees the cone holds a third of the cells or more."""
+    rng = np.random.default_rng(seed)
+    fov_rad = {"180": np.pi, "90": np.pi / 2, "270": 1.5 * np.pi}[fov]
+    sensor = to_port(dataclasses.replace(
+        SENSOR, fov_rad=fov_rad, angle_min=-0.5 * fov_rad))
+    res, H = 0.05, 200
+    pose = np.array([5.0, 5.0, rng.uniform(-9.0, 9.0)], np.float32)
+    origin_xy = (0.0, 0.0)
+    B = sensor.n_beams
+    ranges = rng.uniform(0.3, 6.0, B).astype(np.float32)
+    ranges[3::29] = np.inf
+    kw = tocc.update_constants(GCFG, sensor)
+    kw.update(resolution=res, l_free=-1.0, l_occ=0.0, l_clamp=10.0,
+              enable=1.0)
+    pose_t = torch.from_numpy(pose)
+    free = tupd.update_hybrid_plain(
+        torch.zeros((H, H)), pose_t, torch.from_numpy(ranges),
+        tocc.beam_angles(sensor, torch.device("cpu")), origin_xy=origin_xy,
+        **kw) == -1.0
+    blind = tupd.hybrid_blind_cells(
+        pose_t, (H, H), origin_xy=origin_xy, resolution=res, n_beams=B,
+        step=kw["step"], angle_min=kw["angle_min"])
+    assert free.sum() > 1000
+    assert not (free & blind).any()
+    if fov != "270":
+        assert blind.float().mean() > 1 / 3
 
 
 def test_fma_f32_rounds_once():
