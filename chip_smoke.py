@@ -2,11 +2,11 @@
 """Drive the PyTorch port (slam2d_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--kernels-only | --multi-device-only |
-                           --pf-graph-only]
+                           --pf-graph-only | --twins-only]
 
 from the repository root (--kernels-only: phases 1-3 alone;
 --multi-device-only: phases 1, 2 and 22; --pf-graph-only: phases 1, 2
-and 23). It needs a
+and 23; --twins-only: phases 1, 2 and 24). It needs a
 CUDA card, PyTorch built for CUDA and nvcc; it imports nothing of JAX.
 Phases, each of which raises on failure:
 
@@ -342,6 +342,32 @@ Phases, each of which raises on failure:
    correlation kernel launched twice a scan; (g) FastSLAM-16 with
    update_impl "pallas_hybrid", "pallas_ray", "sparse" and "dense" over
    the first 128 scans: graph = host-gated bits with the same draws.
+24. the twins of two JAX benchmark scripts: (a)
+   scripts/bench_fullslam_torch.py (config 5's throughput:
+   run_full_slam_tiled at bench_configs.fullslam_script_config, 256^2
+   tiles at 0.1 m, corrections up to 2.5 m, over fullslam_bench_log's two
+   laps, 715 scans), for incremental_rebuild True and False: a whole warm
+   run with every solve, finalize and rebuild synced and timed (their
+   medians printed), the twin's timed run and JSON line (scans/s), then
+   the route with the noise of seeds 3 to 7 through phase 16's checks
+   (every launch accounted for, the rebuilds' scans among them) beside
+   the JAX package's runs of the same config, variant and log
+   (scripts/fullslam_script_reference{,_seed4.._seed7}{,_full_rebuild}
+   .json), each variant's five held as phase 15's set; (b)
+   scripts/bench_graph_scale_torch.py's table (the dense solve to 2048
+   nodes, Schur with 8 blocks to 4096, optimize_hier to 16384, on the
+   serpentine with one rung closure per ~34 nodes; each solver first
+   runs on the graph with every node's x but the anchor's moved by -2,
+   -1, 1 and 2 float32 ulps, which stands for the script's first,
+   untimed call, then one timed call on the graph itself, where the
+   script takes the mean of three), the five runs of each solver at
+   each size held as a set against the JAX package's five on the CPU
+   (scripts/graph_scale_reference.json; one ulp moves JAX's own dense
+   and Schur errors 5-60x, its V-cycle's at 4096 nodes to NaN): a run
+   solved where finite and below the error before the solve, the
+   port's unsolved runs at most JAX's, the median error of its solved
+   runs at most 2x the median of JAX's, its run on the graph itself
+   finite where JAX's is; printed beside where no JAX run solved it.
 Phase 3 also holds kernel 2 at a 1081-beam scan and kernel 3 in place on
 the whole 1024^2 map (phase 20's shapes), and the block-Thomas factor
 (csrc/tridiag_factor.cu, the sparse solvers' sequential recurrence; it
@@ -355,7 +381,10 @@ window) against their plain loops over the particles, at their main
 path's inputs, phase 21 (d)'s (float32 1024^2 maps at 0.05 m, [16,
 496^2] windows), whose times and bound their rows carry, and at
 FastSLAM-100's and FastSLAM-16's bench_pf shapes (bf16 512^2 maps, 256^2
-windows): `ray` bit for bit, `hybrid` to phase 3's map tolerance.
+windows): `ray` bit for bit, `hybrid` to phase 3's map tolerance. Kernel
+7 (the shift stack) is timed beside its library form, F.unfold over the
+splats padded at the low edges with its channels reversed, after that
+form is held equal to the plain version (`library_ms`).
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -446,9 +475,11 @@ from slam2d_tpu_torch.run.bench_configs import (
     card,
     fullslam_bench_config,
     fullslam_bench_log,
+    fullslam_script_config,
     fullslam_tiled_bench_config,
     fullslam_tiled_bench_log,
     fullslam_tiled_killian_config,
+    GRAPH_ULPS,
     kidnap_log,
     localization_log,
     pf1000_bench_config,
@@ -459,6 +490,7 @@ from slam2d_tpu_torch.run.bench_configs import (
     ray_bench_config,
     tiled_bench_config,
     tiled_bench_log,
+    ulp_moved,
     wide_fov_config,
 )
 from slam2d_tpu_torch.run import fastslam_run
@@ -540,6 +572,9 @@ TRIDIAG_RTOL = 1e-6          # tridiag_factor against its plain version, x
                              # may add in another order)
 FULLSLAM_COUNTS = ("attempts", "submaps", "submap_scans", "rebuilt_scans",
                    "corrections")
+GRAPH_SCALE_REFERENCE = "scripts/graph_scale_reference.json"  # phase 24
+                             # (b): JAX's solver table on the CPU
+SOLVER_TABLE_REPS = 1        # phase 24 (b): timed calls after the first
 CORR_RTOL = 1e-5          # kernel 5: |err| <= this x sum|E| x max|Sp|
 # the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): the
 # least time of a call is the larger of bytes / HBM rate and operations /
@@ -2384,12 +2419,26 @@ def pf_kernel_checks(cfg, pf, log, device, big_particles):
           f"{cdtype}: bit-exact {same}")
     if not same:
         raise AssertionError("shift_stack disagrees with its plain version")
+    # the library's form: F.unfold over E padded by R-1 rows and columns
+    # at the low edges gives channel kr*R+kc = E shifted by (R-1-kr,
+    # R-1-kc), the stack's channel reversed
+    library = lambda: F.unfold(  # noqa: E731
+        F.pad(E[:, None], (R - 1, 0, R - 1, 0)), (R, R)).flip(1).view(
+            G, R * R, win, win)
+    lib_same = torch.equal(library(), shift_stack(E, R, R, plain=True))
+    print(f"shift_stack: padded F.unfold with its channels reversed "
+          f"bit-exact {lib_same}")
+    if not lib_same:
+        raise AssertionError("the unfold form of the shift stack disagrees "
+                             "with its plain version")
     results["shift_stack"] = dict(
         max_abs_err=0.0, tolerance="bit-exact",
         shape=[G, R * R, win, win],
+        library="F.unfold(F.pad(E, low edges)).flip(1)",
         **_times(lambda: shift_stack(E, R, R),
                  lambda: shift_stack(E, R, R, plain=True),
-                 _bound((1 + R * R) * E.numel() * E.element_size(), 0)),
+                 _bound((1 + R * R) * E.numel() * E.element_size(), 0),
+                 library=library),
     )
     return results
 
@@ -3785,7 +3834,7 @@ def _accept_timers():
 
 
 def _tiled_fullslam_run(cfg, tcfg, gcfg, log, device, ref_file, label,
-                        hold=True):
+                        hold=True, incremental_rebuild=True):
     """One timed run_full_slam_tiled over `log` through the kernels with
     the counts set to 0 just before it, beside the JAX package's run
     (held_to_jax, holding its kf ATE when `hold`; a run of a set is held
@@ -3799,13 +3848,35 @@ def _tiled_fullslam_run(cfg, tcfg, gcfg, log, device, ref_file, label,
     `hybrid`:
     the tracking's updates, the submaps' and the rebuilds' scans; kernel
     3: the tracking's updates, a submap each and the rebuilds' builds;
-    kernel 2: a match's passes and an attempt's three). Returns (launches,
-    result, FullSLAMResult, held_to_jax's dict)."""
+    kernel 2: a match's passes and an attempt's three). With
+    `incremental_rebuild=False` each accept's rebuild replays every
+    keyframe whose pose moved at all (eps 0). Returns (launches, result,
+    FullSLAMResult, held_to_jax's dict)."""
     from slam2d_tpu_torch.run import full_slam_tiled as fst
 
     warm = {k: np.asarray(v)[: cfg.chunk] for k, v in log.items()}
-    fst.run_full_slam_tiled(warm, cfg, tcfg, gcfg, device=device)
+    fst.run_full_slam_tiled(warm, cfg, tcfg, gcfg, device=device,
+                            incremental_rebuild=incremental_rebuild)
     torch.cuda.synchronize()
+    _reset_tiled_fullslam_counts(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = fst.run_full_slam_tiled(log, cfg, tcfg, gcfg, device=device,
+                                  incremental_rebuild=incremental_rebuild)
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    return _tiled_fullslam_checks(
+        cfg, tcfg, gcfg, log, device, res, start.elapsed_time(end) / 1e3,
+        wall, ref_file, label, hold)
+
+
+def _reset_tiled_fullslam_counts(device):
+    """The counts _tiled_fullslam_checks reads, and the peak memory, to 0."""
+    from slam2d_tpu_torch.run import full_slam_tiled as fst
+
     for fn in _counters().values():
         fn.launches = 0
     for name in ("host_syncs", "matches", "updates"):
@@ -3816,14 +3887,15 @@ def _tiled_fullslam_run(cfg, tcfg, gcfg, log, device, ref_file, label,
         setattr(fst.run_full_slam_tiled, name, 0)
     fetch.reads = 0
     torch.cuda.reset_peak_memory_stats(device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    res = fst.run_full_slam_tiled(log, cfg, tcfg, gcfg, device=device)
-    end.record()
-    end.synchronize()
-    wall = time.perf_counter() - t0
+
+
+def _tiled_fullslam_checks(cfg, tcfg, gcfg, log, device, res, elapsed, wall,
+                           ref_file, label, hold=True):
+    """_tiled_fullslam_run's checks of a run `res` over `log` made with
+    the counts set to 0 just before it (_reset_tiled_fullslam_counts),
+    `elapsed` its seconds on the device's clock, `wall` on the host's."""
+    from slam2d_tpu_torch.run import full_slam_tiled as fst
+
     launches = {k: fn.launches for k, fn in _counters().items()}
     peak = torch.cuda.max_memory_allocated(device)
     counts = dict(
@@ -3840,7 +3912,6 @@ def _tiled_fullslam_run(cfg, tcfg, gcfg, log, device, ref_file, label,
     idx = res.kf_scan_idx
     coords = res.grid.coords[:-1].cpu().numpy()
     n_active = int((coords[:, 0] > FREE_SLOT).sum())
-    elapsed = start.elapsed_time(end) / 1e3
     reads = counts["host_syncs"] + counts["fetch_reads"]
     result = dict(
         scans=T, scans_per_sec=T / elapsed, seconds_cuda_events=elapsed,
@@ -5708,15 +5779,234 @@ def run_pf_graph(device, pf_log, host_rates):
     print(f"phase 23 took {time.perf_counter() - t_start:.1f} s")
     return by_path, gates
 
+# ---- phase 24: the twins of scripts/bench_fullslam.py and
+# scripts/bench_graph_scale.py ------------------------------------------------
+
+
+def script_reference(seed: int, variant: str) -> str:
+    """The JAX package's run of scripts/bench_fullslam.py's `variant` over
+    the log of `seed` (scripts/fullslam_reference.py --run script...)."""
+    return ("scripts/fullslam_script_reference"
+            + ("" if seed == 3 else f"_seed{seed}")
+            + ("" if variant == "incremental" else "_full_rebuild") + ".json")
+
+
+def _scripts_dir():
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "scripts"))
+
+
+def run_script_fullslam(device):
+    """Phase 24 (a): scripts/bench_fullslam_torch.py, for each variant
+    (incremental_rebuild True and False): the twin's whole warm run with
+    each solve, finalize and rebuild synced and timed (_accept_timers),
+    its timed run with the counts set to 0 just before it, and its JSON
+    line; that run (seed 3) and one over the log of each of seeds 4-7
+    through _tiled_fullslam_run's checks at that variant (every launch
+    accounted for, the rebuilds' scans among them), beside the JAX
+    package's run of the script's config over the same log and variant
+    (script_reference), the five held as a set (held_as_set). Returns
+    ({path: launches}, {variant: its dict})."""
+    _scripts_dir()
+    from bench_fullslam_torch import VARIANTS, bench_fullslam, script_log
+
+    cfg, tcfg, gcfg = fullslam_script_config()
+    paths, out = {}, {}
+    for variant, inc in VARIANTS.items():
+        # the twin's warm run with its accepts synced and timed; its timed
+        # run, untimed accepts and the counts from 0, seed 3's of the set
+        times, undo = _accept_timers()
+
+        def start():
+            undo()
+            _reset_tiled_fullslam_counts(device)
+
+        try:
+            line, res, log = bench_fullslam(variant, device=device,
+                                            before_run=start)
+        finally:
+            undo()
+        accept = [a + b for a, b in zip(times["solve"], times["finalize"])]
+        synced = dict(
+            accepts=len(times["finalize"]), rebuilds=len(times["rebuild"]),
+            **{f"{k}_ms_median": statistics.median(v or [0.0])
+               for k, v in dict(times, accept=accept).items()})
+        print(f"phase 24 (a) bench_fullslam_torch.py {variant}:",
+              json.dumps(line))
+        print(f"phase 24 (a) {variant}, the warm run's synced accepts:",
+              json.dumps(synced))
+        runs = {}
+        launches, result, _, runs[3] = _tiled_fullslam_checks(
+            cfg, tcfg, gcfg, log, device, res, line["wall_s"],
+            line["wall_s"], script_reference(3, variant),
+            f"script full SLAM {variant} seed 3", hold=False)
+        paths[f"24 script full SLAM, {variant}"] = launches
+        rebuilt = {3: result["rebuilt_scans"]}
+        for seed in FULLSLAM_EXTRA_SEEDS:
+            _, result, _, runs[seed] = _tiled_fullslam_run(
+                cfg, tcfg, gcfg, script_log(cfg.sensor, seed), device,
+                script_reference(seed, variant),
+                f"script full SLAM {variant} seed {seed}", hold=False,
+                incremental_rebuild=inc)
+            rebuilt[seed] = result["rebuilt_scans"]
+        out[variant] = dict(
+            line=line, synced=synced, rebuilt_scans=rebuilt,
+            set=held_as_set(f"script full SLAM, {variant}", runs))
+    return paths, out
+
+
+def _solver_set_held(K, name, port, jax_runs, err0):
+    """One (K, solver) set of phase 24 (b): `port` and `jax_runs` the five
+    runs' dicts (err_m, finite; or failed) at bench_configs.GRAPH_ULPS,
+    a run solved where it is finite with its error below err0. Held: (i)
+    the graph itself (k = 0): the port's run finite where JAX's is; (ii)
+    the port's unsolved runs at most as many as JAX's; (iii) the median
+    error of the port's solved runs at most HIER_ERR_JAX_FACTOR x the
+    median of JAX's solved runs. Where no JAX run solved the graph, (i)
+    alone. Returns the set's dict (`held`)."""
+    def finite(r):
+        return "failed" not in r and r["finite"] and bool(
+            np.isfinite(r["err_m"]))
+
+    def solved(runs):
+        return [r["err_m"] for r in runs if finite(r) and r["err_m"] < err0]
+
+    i0 = GRAPH_ULPS.index(0)
+    out = dict(K=K, solver=name, ulps=list(GRAPH_ULPS),
+               err_m=[r.get("err_m", r.get("failed")) for r in port],
+               jax_err_m=[r.get("err_m", r.get("failed")) for r in jax_runs],
+               err0=err0)
+    held = finite(port[i0]) or not finite(jax_runs[i0])
+    ok, jok = solved(port), solved(jax_runs)
+    out.update(unsolved=len(port) - len(ok), jax_unsolved=len(jax_runs)
+               - len(jok))
+    if jok:
+        held = held and out["unsolved"] <= out["jax_unsolved"]
+        jmed = float(np.median(jok))
+        out.update(median_err_m=float(np.median(ok)) if ok else None,
+                   jax_median_err_m=jmed,
+                   limit_m=HIER_ERR_JAX_FACTOR * jmed)
+        held = held and bool(ok) and out["median_err_m"] <= out["limit_m"]
+    else:
+        out["note"] = "no JAX run solved the graph: printed beside"
+    out["held"] = held
+    return out
+
+
+def run_solver_table(device):
+    """Phase 24 (b): scripts/bench_graph_scale_torch.py's table (the
+    device= line and one row a K, printed as made), where before each
+    solver is timed at K it runs once on each of the graphs with the x of
+    every node but the anchor moved by k float32 ulps, k in GRAPH_ULPS
+    but 0 (the table's first, untimed call: the same solver on the same
+    shapes); the table's run is k = 0. The five runs are held as a set
+    against the JAX package's five on the CPU
+    (scripts/graph_scale_reference.json, made by
+    scripts/graph_scale_reference.py; _solver_set_held). A float32
+    solve's error on these graphs is a draw of its rounding: one ulp moves
+    JAX's own dense and Schur errors 5-60x, and the V-cycle's at 4096
+    nodes to NaN, so one run against one run measures the draw. A port
+    solve of the graph itself that raises or gives NaN where JAX's is
+    finite fails the phase. Returns ({path: launches}, the rows and the
+    sets)."""
+    _scripts_dir()
+    from bench_graph_scale_torch import (
+        SOLVERS,
+        scale_graph,
+        script_row,
+        table,
+        xy_err,
+    )
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           GRAPH_SCALE_REFERENCE)) as fh:
+        ref = json.load(fh)["sizes"]
+    moved = {}     # (K, solver): the runs at each k but 0
+    gts = {}
+
+    def first(K, name, arrays, cfg):
+        if K not in gts:
+            gts[K] = scale_graph(K)[1]
+        gt = gts[K]
+        runs = {}
+        for k in GRAPH_ULPS:
+            if k == 0:
+                continue
+            g = se2_graph.PoseGraph(**{
+                f: torch.as_tensor(v, device=device)
+                for f, v in ulp_moved(arrays, k).items()})
+            try:
+                out, _ = SOLVERS[name](g, cfg)
+                poses = out.poses.cpu().numpy()
+            except Exception as e:  # noqa: BLE001 — a failed run
+                runs[k] = dict(failed=f"failed: {type(e).__name__}")
+                continue
+            runs[k] = dict(err_m=xy_err(poses, gt),
+                           finite=bool(np.isfinite(poses).all()))
+        moved[K, name] = runs
+
+    print(f"phase 24 (b) device={card()}")
+    tridiag_factor.launches = 0
+    t0 = time.perf_counter()
+    # one timed call, where the script takes the mean of three: the
+    # phase's time budget
+    rows = table(device, reps=SOLVER_TABLE_REPS, first=first,
+                 on_row=lambda r: print("phase 24 (b)",
+                                        json.dumps(script_row(r))))
+    seconds = time.perf_counter() - t0
+    launches = {"tridiag_factor": tridiag_factor.launches}
+    sets, bad = [], []
+    for row in rows:
+        K = row["K"]
+        jr = ref[str(K)]
+        if abs(row["err0"] - jr["err0"]) > 1e-9:
+            raise AssertionError(f"K={K}: the graph's error before the "
+                                 f"solve {row['err0']}, JAX's {jr['err0']}")
+        for name in (n for n in SOLVERS if f"{n}_ms" in row):
+            at0 = (dict(err_m=row[f"{name}_err"],
+                        finite=row[f"{name}_finite"])
+                   if f"{name}_err" in row else dict(failed=row[f"{name}_ms"]))
+            port = [at0 if k == 0 else moved[K, name][k] for k in GRAPH_ULPS]
+            h = _solver_set_held(K, name, port, jr[name]["runs"], jr["err0"])
+            h["ms"] = row[f"{name}_ms"]
+            print("phase 24 (b) beside JAX:", json.dumps(h))
+            sets.append(h)
+            if not h["held"]:
+                bad.append(h)
+    print(f"phase 24 (b) took {seconds:.1f} s; tridiag_factor launched "
+          f"{launches['tridiag_factor']} times")
+    if bad:
+        raise AssertionError(f"solver table against JAX's: {bad}")
+    if launches["tridiag_factor"] <= 0:
+        raise AssertionError("the hierarchical solves launched no "
+                             "tridiag_factor")
+    return {"24 solver table": launches}, dict(rows=rows, sets=sets,
+                                               seconds=seconds)
+
+
+def run_twins(device):
+    """Phase 24: (a) run_script_fullslam, (b) run_solver_table. Returns
+    ({path: launches}, {"fullslam": ..., "graph_scale": ...})."""
+    t0 = time.perf_counter()
+    paths, fs = run_script_fullslam(device)
+    t1 = time.perf_counter()
+    table_paths, gs = run_solver_table(device)
+    paths.update(table_paths)
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s ((a) "
+          f"{t1 - t0:.1f} s)")
+    return paths, {"fullslam": fs, "graph_scale": gs}
+
 
 def main(kernels_only: bool = False, multi_device_only: bool = False,
-         pf_graph_only: bool = False):
+         pf_graph_only: bool = False, twins_only: bool = False):
     """Every phase; with `kernels_only` (--kernels-only) phases 1-3 alone,
     for work on a kernel: the last line is then the checks' JSON, not the
     {"ok": ...} line of a whole run; with `multi_device_only`
     (--multi-device-only) phases 1, 2 and 22 alone (the single-device
     runs phase 22 compares with made first), for work on parallel/: the
-    last line is then phase 22's JSON."""
+    last line is then phase 22's JSON; likewise `pf_graph_only`
+    (--pf-graph-only, phase 23) and `twins_only` (--twins-only, phase
+    24)."""
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device; it runs only on a GPU")
     device = torch.device("cuda", 0)
@@ -5743,6 +6033,10 @@ def main(kernels_only: bool = False, multi_device_only: bool = False,
     if pf_graph_only:
         paths, gates = run_pf_graph(device, pf_log, {})
         print(json.dumps({"pf_graph": gates, "launches": paths}))
+        return
+    if twins_only:
+        paths, twins = run_twins(device)
+        print(json.dumps({"twins": twins, "launches": paths}, default=str))
         return
     if multi_device_only:
         tiled_cfg, tcfg = tiled_bench_config()
@@ -5906,6 +6200,8 @@ def main(kernels_only: bool = False, multi_device_only: bool = False,
     by_path.update(graph_paths)
     for name, entry in gates.items():
         checks[name].update(entry)
+    twin_paths, _ = run_twins(device)
+    by_path.update(twin_paths)
 
     sources = {
         "update_hybrid": ("slam2d_tpu_torch/csrc/update_hybrid.cu",
@@ -5958,4 +6254,5 @@ def main(kernels_only: bool = False, multi_device_only: bool = False,
 if __name__ == "__main__":
     main(kernels_only="--kernels-only" in sys.argv[1:],
          multi_device_only="--multi-device-only" in sys.argv[1:],
-         pf_graph_only="--pf-graph-only" in sys.argv[1:])
+         pf_graph_only="--pf-graph-only" in sys.argv[1:],
+         twins_only="--twins-only" in sys.argv[1:])

@@ -33,7 +33,14 @@ file under scripts/):
   the same lap with other noise (phase 16's five-seed set with tiled);
 - killian (fullslam_tiled_killian_reference.json): the same log at
   `bench_configs.fullslam_tiled_killian_config`, tests/test_killian_scale
-  .py's (256^2 tiles at 0.1 m; phase 16's second run).
+  .py's (256^2 tiles at 0.1 m; phase 16's second run);
+- script, script_seed4 to script_seed7 (fullslam_script_reference.json,
+  _seed4.json to _seed7.json): the JAX package's scripts/bench_fullslam
+  .py, `run_full_slam_tiled` at `bench_configs.fullslam_script_config`
+  over `fullslam_bench_log(seed=3 .. 7)` with the incremental rebuild,
+  and each with the suffix _full_rebuild (the file's too) at
+  incremental_rebuild=False (phase 24's two five-seed sets; ~4.5-8 min
+  a run on 4 CPU cores).
 
 Each phase holds the port's keyframe ATE to at most the run's + 0.1 m
 and prints the keyframes, the attempt decisions and the rest beside
@@ -75,6 +82,13 @@ RUNS = {
        for k in (4, 5, 6, 7)},
     "killian": ("fullslam_tiled_killian_reference.json",
                 dict(tiled="fullslam_tiled_killian_config")),
+    **{f"script{s}{v}": (f"fullslam_script_reference{s}{v}.json",
+                         dict(tiled="fullslam_script_config",
+                              log="fullslam_bench_log",
+                              seed=3 if not s else int(s[-1]),
+                              incremental=not v))
+       for s in ("", "_seed4", "_seed5", "_seed6", "_seed7")
+       for v in ("", "_full_rebuild")},
 }
 DEFAULT_OUT = os.path.join(ROOT, "scripts", RUNS["bench"][0])
 
@@ -99,15 +113,19 @@ def _one_run(run: str) -> dict:
 
         cfg, tcfg, gcfg = getattr(bc, kw["tiled"])()
         seed = kw.get("seed", 3)
-        log = bc.fullslam_tiled_bench_log(cfg.sensor, seed=seed)
-        config = f"bench_configs.{kw['tiled']} / fullslam_tiled_bench_log"
+        log_fn = kw.get("log", "fullslam_tiled_bench_log")
+        log = getattr(bc, log_fn)(cfg.sensor, seed=seed)
+        config = f"bench_configs.{kw['tiled']} / {log_fn}"
         if seed != 3:
             config += f"(seed={seed})"
+        incremental = kw.get("incremental", True)
+        if not incremental:
+            config += ", incremental_rebuild False"
 
         def run_it(jcfg):
             return run_full_slam_tiled(
                 log, jcfg, TileConfig(**dataclasses.asdict(tcfg)),
-                _to_jax(gcfg))
+                _to_jax(gcfg), incremental_rebuild=incremental)
     else:
         from slam2d_tpu.run.full_slam import run_full_slam
 

@@ -19,6 +19,14 @@ math library does.
 The JAX package's solvers run under `default_matmul_precision("highest")`;
 `highest_matmul_precision` keeps float32 matmuls in full float32 (TF32 off)
 for a block of the port's code in the same way.
+
+The JAX package's dense pose-graph solve factors a float32 matrix with
+LAPACK's spotrf on the CPU. cuSOLVER's single-matrix float32 potrf on an
+H100 returns a factor about 16x further from the exact one on the pose
+graph's normal matrix, which left the port's dense solve ~10x less
+accurate than the JAX package's on the serpentine graphs
+(scripts/dense_factor_probe_torch.py); `cholesky_f32` takes that factor
+on CUDA from a float64 factorization, rounded to float32.
 """
 
 from __future__ import annotations
@@ -112,3 +120,19 @@ def highest_matmul_precision():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def cholesky_f32(A):
+    """(L, info) of torch.linalg.cholesky_ex for a float32 matrix A [n, n]:
+    on the CPU LAPACK's float32 factor (the JAX package's), on CUDA
+    cholesky_via_f64's (module docstring). `info` is nonzero where the
+    factor fails, as cholesky_ex's."""
+    if A.is_cuda:
+        return cholesky_via_f64(A)
+    return torch.linalg.cholesky_ex(A)
+
+
+def cholesky_via_f64(A):
+    """(L, info): the float64 Cholesky factor of A rounded to A's dtype."""
+    L, info = torch.linalg.cholesky_ex(A.double())
+    return L.to(A.dtype), info

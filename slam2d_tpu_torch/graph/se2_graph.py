@@ -11,7 +11,10 @@ validity masks, as in the JAX package. Per Gauss-Newton iteration:
   `index_put_(accumulate=True)` of the [E, 3, 3] blocks;
 - node 0 anchored by a 1e8 prior block, Levenberg damping on the
   diagonal, an identity block on every inactive node slot, then
-  `torch.linalg.cholesky_ex` and `torch.cholesky_solve`.
+  `core/numerics.cholesky_f32` (LAPACK's float32 factor on the CPU, as
+  the JAX package's; on CUDA the float64 factor rounded to float32, as
+  cuSOLVER's float32 one is ~10x less accurate here) and
+  `torch.cholesky_solve`.
 
 Everything is float32. The 3x3 block products are elementwise multiplies
 and sums, so TF32 never applies to them (the JAX package asks for
@@ -38,6 +41,7 @@ import torch
 
 from slam2d_tpu_torch.config import GraphConfig
 from slam2d_tpu_torch.core import se2
+from slam2d_tpu_torch.core.numerics import cholesky_f32
 
 
 class PoseGraph(NamedTuple):
@@ -317,7 +321,7 @@ def _gn_iterate(poses, H, b, node_mask, cfg: GraphConfig, K: int):
     # symmetrize: the scatter's float rounding leaves H asymmetric by a
     # few ulp, and Cholesky assumes exact symmetry
     Hd = 0.5 * (H + H.T) + torch.diag(diag)
-    L, info = torch.linalg.cholesky_ex(Hd)
+    L, info = cholesky_f32(Hd)
     # a failed factorization is all NaN, as the JAX package's
     L = torch.where(info == 0, L, torch.full_like(L, torch.nan))
     delta = torch.cholesky_solve((-b)[:, None], L)[:, 0]

@@ -525,7 +525,11 @@ def _coarse_iterate(poses, H, b, node_mask, cfg: GraphConfig, K: int):
     is solved with node 0's three unknowns eliminated instead, the limit
     of that prior: Hd[3:, 3:] factored and node 0's step 0. The two are
     selected on the device; where the anchored factor succeeds the step
-    is se2_graph._gn_iterate's to the bit."""
+    is se2_graph._gn_iterate's to the bit on the CPU. On CUDA both factors
+    stay cuSOLVER's float32 ones (_gn_iterate takes a float64 factor
+    rounded to float32, core/numerics.cholesky_f32): the V-cycle's error
+    on the card is the JAX package's over ulp-moved serpentines
+    (chip_smoke.py phase 24 (b))."""
     dev = poses.device
     diag = torch.zeros(3 * K, dtype=torch.float32, device=dev)
     diag[:3] = 1e8                                   # node 0's anchor

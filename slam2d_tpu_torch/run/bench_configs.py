@@ -218,6 +218,15 @@ def fullslam_tiled_killian_config():
     return cfg, TileConfig(tile=256, n_slots=48, resolution=0.1), gcfg
 
 
+def fullslam_script_config():
+    """(cfg, tcfg, graph_cfg) of the JAX package's scripts/bench_fullslam.py
+    (config 5's throughput run over fullslam_bench_log):
+    fullslam_tiled_killian_config with corrections up to 2.5 m, the
+    script's long-drift setting (GraphConfig's default is 1.0 m)."""
+    cfg, tcfg, gcfg = fullslam_tiled_killian_config()
+    return cfg, tcfg, dataclasses.replace(gcfg, loop_max_correction_xy=2.5)
+
+
 def fullslam_tiled_bench_log(sensor, seed: int = 3):
     """tests/test_killian_scale.py's lap: the 60 m ring corridor at 0.25 m
     steps, odometry noise 0.02 m / 0.004 rad, seed 3 (911 scans, ~230 m
@@ -318,6 +327,24 @@ def hier_bench_graph(K: int):
     arrays, gt, est, cfg = serpentine_graph_arrays(
         K, int(round(K * 120 / 4096)), drift=0.01)
     return arrays, gt, est, dict(cfg, sparse_max_loops=128)
+
+
+# the ulp moves of a solver set: one run a move of every node's x
+GRAPH_ULPS = (-2, -1, 0, 1, 2)
+
+
+def ulp_moved(arrays: dict, k: int) -> dict:
+    """serpentine_graph_arrays' `arrays` with the x of every node but node
+    0 (the anchor, at the origin) moved by k float32 ulps (np.nextafter,
+    |k| steps toward the sign of k): one draw of a solver's float32
+    rounding over the same graph."""
+    poses = np.array(arrays["poses"], np.float32)
+    x = poses[1:, 0]
+    toward = np.float32(np.inf if k > 0 else -np.inf)
+    for _ in range(abs(k)):
+        x = np.nextafter(x, toward).astype(np.float32)
+    poses[1:, 0] = x
+    return dict(arrays, poses=poses)
 
 
 def card() -> str:

@@ -23,6 +23,7 @@ that differ (measured 1.8e-7: the blur's summation order) and at most
 import dataclasses
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -194,31 +195,55 @@ def _assert_rebuild_close_to_jax(cfg, coords, pools, jax_pools):
     assert (np.abs(s - js) > 1e-5).mean() <= S_CELL_SHARE
 
 
-def test_incremental_tiled_rebuild_bitexact_after_tracking_writes():
+@pytest.mark.parametrize("eps_cells", [0.25, 0.0])
+def test_incremental_tiled_rebuild_bitexact_after_tracking_writes(eps_cells):
     """tests/test_incremental_rebuild.py's tiled correction rounds in the
-    port: the incremental rebuild equals a from-scratch rebuild at the
-    snapped poses bit for bit, also after the returned pools were written
-    into in place (as the tracking writes them) before the next round.
-    Every round has padded slots (20 keyframes in chunks of 8): their
-    search-space windows are written, one build a round; the first
-    round's from-scratch rebuild is held to the JAX package's."""
+    port, at the incremental rebuild's snap (0.25 cells) and at
+    incremental_rebuild=False's (0: only keyframes whose float32 pose did
+    not move keep their integrations): the incremental rebuild equals a
+    from-scratch rebuild at the snapped poses bit for bit, also after the
+    returned pools were written into in place (as the tracking writes
+    them) before the next round. Each round it replays the keyframes
+    that the JAX package's IncrementalTiledRebuilder at the same
+    eps_cells replays (the same snapped poses, cached prefix and count of
+    integrated scans; JAX's chunk rebuild is left out of that one, as the
+    choice does not read the pools). The last two rounds move only a
+    suffix, leaving a prefix's bits as they were, so that eps 0 caches
+    and replays from the cache too. Every round has padded slots (20
+    keyframes in chunks of 8): their search-space windows are written,
+    one build a round; the first round's from-scratch rebuild is held to
+    the JAX package's."""
     cfg = _rebuild_cfg()
     port = to_port(cfg)
     capacity, chunk = 32, 8
     poses, scans = _keyframes(cfg)
     inc = tfst.IncrementalTiledRebuilder(port, TTCFG, capacity, chunk=chunk,
-                                         device=CPU)
+                                         eps_cells=eps_cells, device=CPU)
     full = tfst.make_tiled_rebuild_fn(port, TTCFG, capacity, chunk=chunk,
                                       device=CPU)
+    jinc = jfst.IncrementalTiledRebuilder(cfg, JTCFG, capacity, chunk=chunk,
+                                          eps_cells=eps_cells)
+    jax_integrated = []
+
+    def jax_chunk(grid, sgrid, poses_, scans_, mask_):
+        jax_integrated[-1] += int(np.asarray(mask_).sum())
+        return grid, sgrid
+
+    jinc._rebuild_chunk = jax_chunk
     rng = np.random.default_rng(1)
     table = ttiles.TileTable(TTCFG)
     grid = ttiles.tiled_init(TTCFG, CPU)
     reach = cfg.sensor.max_range + 2.0
     cur = poses
-    for round_i, k0 in enumerate([0, 12, len(poses), 18]):
+    # (k0, every pose moved by a float epsilon as well)
+    rounds = [(0, True), (12, True), (len(poses), True), (18, True),
+              (17, False), (18, False)]
+    for round_i, (k0, eps_noise) in enumerate(rounds):
         if round_i:
             cur = cur.copy()
-            cur[:, :2] += rng.normal(0, 1e-5, (len(cur), 2)).astype(np.float32)
+            if eps_noise:
+                cur[:, :2] += rng.normal(0, 1e-5, (len(cur), 2)).astype(
+                    np.float32)
             cur[k0:, :2] += rng.normal(0, 0.05, (len(cur) - k0, 2)).astype(
                 np.float32)
             cur[k0:, 2] += rng.normal(0, 0.05, len(cur) - k0).astype(
@@ -227,7 +252,14 @@ def test_incremental_tiled_rebuild_bitexact_after_tracking_writes():
                                                            TTCFG))
         pb, sb, mb = _pad(capacity, cur, scans)
         tfst.run_full_slam_tiled.rebuilt_fields = 0
+        tfst.run_full_slam_tiled.rebuilt_scans = 0
         g_inc, s_inc = inc(table, pb, sb, mb, n_active=len(cur))
+        jax_integrated.append(0)
+        jinc(jnp.asarray(table.coords), pb, sb, mb, n_active=len(cur))
+        assert inc.cache_k == jinc.cache_k, f"round {round_i}"
+        assert (tfst.run_full_slam_tiled.rebuilt_scans
+                == jax_integrated[-1]), f"round {round_i}"
+        np.testing.assert_array_equal(inc.map_poses, jinc.map_poses)
         pb2, _, _ = _pad(capacity, inc.map_poses[: len(cur)], scans)
         g_ref, s_ref = full(table, pb2, sb, mb, n_active=len(cur))
         assert torch.equal(g_inc.tiles, g_ref.tiles), f"round {round_i}"
@@ -247,11 +279,16 @@ def test_incremental_tiled_rebuild_bitexact_after_tracking_writes():
                 jgrid.coords, pb2, sb, mb, n_active=len(cur))
             _assert_rebuild_close_to_jax(cfg, table.coords, (g_ref, s_ref),
                                          jax_pools)
-        if round_i == 3:
+        if round_i == 3 and eps_cells:
             assert inc.cache_k == 16
         # tracking writes into the returned pools in place
         g_inc.tiles[:, 40:60, 20:90] += 0.5
         s_inc.tiles[0].fill_(3.0)
+    # eps 0: a full replay every round until the prefix stays put, then
+    # from the cache (16 of the 20 keyframes kept)
+    want = [20] * 5 + [4] if not eps_cells else None
+    if want is not None:
+        assert jax_integrated == want
     assert inc.cache_k > 0
 
 

@@ -164,6 +164,9 @@ def _port_sources():
                     ROOT / "scripts" / "device_parity_torch.py",
                     ROOT / "scripts" / "bench_tiled_rebuild_torch.py",
                     ROOT / "scripts" / "bench_ate_torch.py",
+                    ROOT / "scripts" / "bench_fullslam_torch.py",
+                    ROOT / "scripts" / "bench_graph_scale_torch.py",
+                    ROOT / "scripts" / "dense_factor_probe_torch.py",
                     ROOT / "scripts" / "sharded_pinned_probe.py"]
 
 
@@ -171,8 +174,10 @@ def test_port_imports_nothing_of_the_jax_package():
     """No file of slam2d_tpu_torch/, nor chip_smoke.py, bench_torch.py,
     bench_pf_torch.py, bench_scaling_torch.py, scripts/profile_torch.py,
     scripts/bench_endurance_torch.py, scripts/device_parity_torch.py,
-    scripts/bench_tiled_rebuild_torch.py, scripts/bench_ate_torch.py or
-    scripts/sharded_pinned_probe.py, imports slam2d_tpu or jax."""
+    scripts/bench_tiled_rebuild_torch.py, scripts/bench_ate_torch.py,
+    scripts/bench_fullslam_torch.py, scripts/bench_graph_scale_torch.py,
+    scripts/dense_factor_probe_torch.py or scripts/sharded_pinned_probe.py,
+    imports slam2d_tpu or jax."""
     bad = []
     files = _port_sources()
     assert len(files) > 20
