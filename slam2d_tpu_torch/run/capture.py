@@ -13,12 +13,22 @@ into the static buffers, each chunk is `run_chunk` (the chunk's inputs
 copied in, one replay, the outputs copied out on the device), and
 `finish` clones the state out and adds the replays' counts to the step's
 device counters. `chunk_graph_of` keeps one graph per key.
+
+Each of the three is a span of utils/profiling.py with its device marks:
+`chunk.load` (`load` before the state's copies), `chunk.replay` (`copied`
+after the inputs' copies, `head` recorded by the graph itself at the
+head of the captured body, `replayed` after the replay) and
+`chunk.finish` (`cloned` after the state's clone). `head` - `copied` is
+the device's wait for the graph's submission, `replayed` - `head` the
+graph's own run.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from slam2d_tpu_torch.utils import profiling
 
 
 def capture(device, warm, body, counters):
@@ -74,7 +84,10 @@ def use_graph(device, plain, graph) -> bool:
 
 def pinned(a) -> torch.Tensor:
     """A pinned float32 host copy of the array `a` (the host allocator
-    keeps the block until the copy from it ran)."""
+    keeps the block until the copy from it ran); a pinned tensor is
+    returned as it is."""
+    if isinstance(a, torch.Tensor) and a.is_pinned():
+        return a
     return torch.from_numpy(np.ascontiguousarray(a, np.float32)).pin_memory()
 
 
@@ -90,15 +103,19 @@ class ChunkCapture:
     WARMUP_STEPS = 3
 
     def _capture(self, kernels):
-        """Warm-up steps, then the K steps captured; the state the last
-        step returns is copied into the buffers where it is not them."""
+        """Warm-up steps, then the K steps captured, with the `head` mark's
+        event recorded first; the state the last step returns is copied
+        into the buffers where it is not them."""
+        self.head = torch.cuda.Event(enable_timing=True, external=True)
 
         def warm():
+            self.head.record()    # made here, outside the capture
             state = self.state
             for k in range(min(self.WARMUP_STEPS, self.K)):
                 state = self._one(k, state)
 
         def body():
+            self.head.record()
             state = self.state
             for k in range(self.K):
                 state = self._one(k, state)
@@ -122,9 +139,12 @@ class ChunkCapture:
     def load(self, state):
         """Copy a run's state into the static buffers (a tensor that is
         the buffer itself is skipped)."""
-        for dst, src in zip(self._buffers(self.state), self._buffers(state)):
-            if dst is not src:
-                dst.copy_(src)
+        with profiling.span("chunk.load"):
+            profiling.mark("load", self.device)
+            for dst, src in zip(self._buffers(self.state),
+                                self._buffers(state)):
+                if dst is not src:
+                    dst.copy_(src)
 
     def run_chunk(self, *args):
         """One chunk from the static state: `args` are the chunk's inputs
@@ -133,11 +153,15 @@ class ChunkCapture:
         graph replays once, and the outputs are copied into `out` on the
         device."""
         *inputs, out = args
-        for dst, src in zip(self.inputs, inputs):
-            dst.copy_(src, non_blocking=True)
-        replay(self.graph, self.launches)
-        self.replays += 1
-        out.copy_(self.out)
+        with profiling.span("chunk.replay", scans=self.K):
+            for dst, src in zip(self.inputs, inputs):
+                dst.copy_(src, non_blocking=True)
+            profiling.mark("copied", self.device)
+            profiling.mark("head", self.device, self.head)
+            replay(self.graph, self.launches)
+            profiling.mark("replayed", self.device)
+            self.replays += 1
+            out.copy_(self.out)
 
     def flush_counts(self):
         """Add the replays' counts to the step's device counters (no host
@@ -148,8 +172,11 @@ class ChunkCapture:
     def finish(self):
         """The new state, cloned (a later chunk or run reuses the static
         buffers), and the counts flushed."""
-        self.flush_counts()
-        return self._clone(self.state)
+        with profiling.span("chunk.finish"):
+            self.flush_counts()
+            state = self._clone(self.state)
+            profiling.mark("cloned", self.device)
+        return state
 
 
 _GRAPHS: dict = {}

@@ -50,6 +50,7 @@ from slam2d_tpu_torch.run.capture import (
     cuda_device,
     pinned,
 )
+from slam2d_tpu_torch.utils import profiling
 
 # every kernel wrapper a FastSLAM step can launch (score_window: the
 # per-particle refine with the gather scorer)
@@ -138,7 +139,8 @@ def _run_host_gated(odom, ranges, cfg, pf, device, seed, state, draws,
     """The host-gated strategy (module docstring)."""
     T = len(odom)
     if state is None:
-        state = fastslam_init(cfg, pf, device, start_pose=odom[0])
+        with profiling.span("session.init"):
+            state = fastslam_init(cfg, pf, device, start_pose=odom[0])
         dist0, su0, sm0, prev0 = 0.0, np.inf, 0.0, odom[0]
     else:
         fastslam_step.host_syncs += 1
@@ -182,13 +184,21 @@ def _run_device_gated(odom, ranges, cfg, pf, device, seed, state, draws,
     graph replays on CUDA, the rest eagerly."""
     T, K, P = len(odom), cfg.chunk, pf.n_particles
     if state is None:
-        state = fastslam_init(cfg, pf, device, start_pose=odom[0])
-    if draws is None:
-        generator = torch.Generator(device=device)
-        generator.manual_seed(seed)
-    else:
-        noise_d = torch.as_tensor(draws[0], dtype=torch.float32, device=device)
-        u_d = torch.as_tensor(draws[1], dtype=torch.float32, device=device)
+        with profiling.span("session.init"):
+            state = fastslam_init(cfg, pf, device, start_pose=odom[0])
+    graphed = device.type == "cuda" and T >= K
+    with profiling.span("call.stage"):
+        if draws is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(seed)
+        else:
+            noise_d = torch.as_tensor(draws[0], dtype=torch.float32,
+                                      device=device)
+            u_d = torch.as_tensor(draws[1], dtype=torch.float32,
+                                  device=device)
+        out = torch.empty((T, 5), dtype=torch.float32, device=device)
+        if graphed:
+            odom_p, ranges_p = pinned(odom), pinned(ranges)
 
     def chunk_draws(s, n):
         """The draws of scans [s, s + n): given, or a chunk's worth from
@@ -199,32 +209,34 @@ def _run_device_gated(odom, ranges, cfg, pf, device, seed, state, draws,
         return (torch.randn((n, P, 3), generator=generator, device=device),
                 torch.rand(n, generator=generator, device=device))
 
-    out = torch.empty((T, 5), dtype=torch.float32, device=device)
     start = 0
-    if device.type == "cuda" and T >= K:
+    if graphed:
         start = T // K * K
         g = pf_chunk_graph(cfg, pf, device, K)
         g.load(state)
-        odom_p, ranges_p = pinned(odom), pinned(ranges)
         for s in range(0, start, K):
             g.run_chunk(odom_p[s : s + K], ranges_p[s : s + K],
                         *chunk_draws(s, K), out[s : s + K])
             if frame_cb is not None:
                 frame_cb(g.best_map(), out[s : s + K, :3].cpu().numpy())
         state = g.finish()
-    odom_d = torch.as_tensor(odom, device=device)
-    ranges_d = torch.as_tensor(ranges, device=device)
+    if start < T:
+        # staged only where a tail is left: each is a blocking copy, which
+        # would wait for the replay before the driver's own read
+        odom_d = torch.as_tensor(odom, device=device)
+        ranges_d = torch.as_tensor(ranges, device=device)
     for s in range(start, T, K):
         n = min(K, T - s)
-        noise, u = chunk_draws(s, n)
-        for k in range(n):
-            state, (bp, ne, sc) = fastslam_step(
-                state, odom_d[s + k], ranges_d[s + k], cfg, pf,
-                noise=noise[k], u=u[k],
-            )
-            out[s + k, :3] = bp
-            out[s + k, 3] = ne
-            out[s + k, 4] = sc
+        with profiling.span("chunk.eager", scans=n):
+            noise, u = chunk_draws(s, n)
+            for k in range(n):
+                state, (bp, ne, sc) = fastslam_step(
+                    state, odom_d[s + k], ranges_d[s + k], cfg, pf,
+                    noise=noise[k], u=u[k],
+                )
+                out[s + k, :3] = bp
+                out[s + k, 3] = ne
+                out[s + k, 4] = sc
         if frame_cb is not None:
             best = torch.argmax(state.log_w).reshape(1)
             frame_cb(state.logodds.index_select(0, best)[0],
@@ -281,7 +293,8 @@ def run_fastslam(
     if host_gated is None:
         host_gated = pf.n_particles >= pf.host_gate_min_particles
     run = _run_host_gated if host_gated else _run_device_gated
-    state, out = run(odom, ranges, cfg, pf, device, seed, state, draws,
-                     frame_cb)
-    out = out.cpu().numpy()
+    with profiling.call(state is None):
+        state, out = run(odom, ranges, cfg, pf, device, seed, state, draws,
+                         frame_cb)
+        out = out.cpu().numpy()
     return state, out[:, :3].copy(), out[:, 3].copy(), out[:, 4].copy()

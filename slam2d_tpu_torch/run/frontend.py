@@ -67,6 +67,7 @@ from slam2d_tpu_torch.run.capture import (
     pinned,
     use_graph,
 )
+from slam2d_tpu_torch.utils import profiling
 
 # the kernels a frontend step can launch (corr_scores: the match under
 # score_impl "cmx" / "emx"), whose counts a chunk graph corrects
@@ -361,17 +362,19 @@ def run_chunk(state, odom, ranges, cfg: FrontendConfig, out,
     (the state's map tensors updated in place). Returns the new state."""
     device = out.device
     if not use_graph(device, plain, graph):
-        o = torch.as_tensor(odom, device=device)
-        r = torch.as_tensor(ranges, device=device)
-        for k in range(len(odom)):
-            state, (pose, score) = frontend_step(state, o[k], r[k], cfg,
-                                                 plain=plain)
-            out[k, :3] = pose
-            out[k, 3] = score
+        with profiling.span("chunk.eager", scans=len(odom)):
+            o = torch.as_tensor(odom, device=device)
+            r = torch.as_tensor(ranges, device=device)
+            for k in range(len(odom)):
+                state, (pose, score) = frontend_step(state, o[k], r[k], cfg,
+                                                     plain=plain)
+                out[k, :3] = pose
+                out[k, 3] = score
         return state
     g = chunk_graph(cfg, device, len(odom))
+    odom, ranges = pinned(odom), pinned(ranges)
     g.load(state)
-    g.run_chunk(pinned(odom), pinned(ranges), out)
+    g.run_chunk(odom, ranges, out)
     return g.finish()
 
 
@@ -403,23 +406,29 @@ def run_frontend(
     Returns (final_state, traj [T, 3] np.ndarray, scores [T] np.ndarray),
     both fetched from the device in one copy.
     """
-    odom = np.asarray(log["odom"], np.float32)
-    ranges = np.asarray(log["ranges"], np.float32)
-    T = len(odom)
-    K = cfg.chunk
-    if state is None:
-        state = frontend_init(
-            cfg, device, start_pose=odom[0], start_odom=odom[0], plain=plain
-        )
-    odom, ranges = _pad_log(odom, ranges, K)
-    # [n_pad, 4]: the pose and the score of each scan
-    out = torch.empty((len(odom), 4), dtype=torch.float32, device=device)
-    for s in range(0, len(odom), K):
-        state = run_chunk(state, odom[s : s + K], ranges[s : s + K], cfg,
-                          out[s : s + K], plain, graph)
-        if frame_cb is not None:
-            frame_cb(state.logodds, out[s : min(s + K, T), :3].cpu().numpy())
-    out = out[:T].cpu().numpy()
+    with profiling.call(state is None):
+        odom = np.asarray(log["odom"], np.float32)
+        ranges = np.asarray(log["ranges"], np.float32)
+        T = len(odom)
+        K = cfg.chunk
+        if state is None:
+            with profiling.span("session.init"):
+                state = frontend_init(cfg, device, start_pose=odom[0],
+                                      start_odom=odom[0], plain=plain)
+        with profiling.span("call.stage"):
+            odom, ranges = _pad_log(odom, ranges, K)
+            # [n_pad, 4]: the pose and the score of each scan
+            out = torch.empty((len(odom), 4), dtype=torch.float32,
+                              device=device)
+            if use_graph(device, plain, graph):
+                odom, ranges = pinned(odom), pinned(ranges)
+        for s in range(0, len(odom), K):
+            state = run_chunk(state, odom[s : s + K], ranges[s : s + K], cfg,
+                              out[s : s + K], plain, graph)
+            if frame_cb is not None:
+                frame_cb(state.logodds,
+                         out[s : min(s + K, T), :3].cpu().numpy())
+        out = out[:T].cpu().numpy()
     return state, out[:, :3].copy(), out[:, 3].copy()
 
 

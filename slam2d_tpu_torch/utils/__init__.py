@@ -1,1 +1,1 @@
-from slam2d_tpu_torch.utils.profiling import PhaseTimer, Throughput  # noqa: F401
+from slam2d_tpu_torch.utils.profiling import PhaseTimer  # noqa: F401
