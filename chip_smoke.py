@@ -384,7 +384,14 @@ FastSLAM-100's and FastSLAM-16's bench_pf shapes (bf16 512^2 maps, 256^2
 windows): `ray` bit for bit, `hybrid` to phase 3's map tolerance. Kernel
 7 (the shift stack) is timed beside its library form, F.unfold over the
 splats padded at the low edges with its channels reversed, after that
-form is held equal to the plain version (`library_ms`).
+form is held equal to the plain version (`library_ms`). The shared
+refine's product (no Pallas kernel: the JAX package's dot) is held to
+its plain version, the float32 library product, bit for bit (the kernel
+takes the library's split of K at these shapes), at kernel 6's fields
+against kernel 7's stack at FastSLAM-100's and FastSLAM-1000's particle
+counts, and timed beside torch.mm of the bf16 operands with a float32
+output (`library_ms`), a yardstick the port never calls; its bound counts
+two operations for each nonzero product of the stack.
 
 Prints one JSON line with the kernels' numbers, then as its last line
 {"ok": true, "device": {...}}.
@@ -411,6 +418,7 @@ from slam2d_tpu_torch.config import (
     MatcherConfig,
     SensorConfig,
 )
+from slam2d_tpu_torch.core.numerics import highest_matmul_precision
 from slam2d_tpu_torch.data import native
 from slam2d_tpu_torch.graph import schur, se2_graph, sparse
 from slam2d_tpu_torch.grid import occupancy
@@ -451,6 +459,7 @@ from slam2d_tpu_torch.ops.apply import shared_apply
 from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.gather import gather_rows
+from slam2d_tpu_torch.ops.refine_product import refine_product
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.search_space import search_space, search_space_window
 from slam2d_tpu_torch.ops.stack import shift_stack
@@ -2440,7 +2449,73 @@ def pf_kernel_checks(cfg, pf, log, device, big_particles):
                  _bound((1 + R * R) * E.numel() * E.element_size(), 0),
                  library=library),
     )
+
+    # the refine's product: the fields of kernel 6 against the stack of
+    # kernel 7, at FastSLAM-100's and FastSLAM-1000's particle counts (the
+    # latter the former's fields ten times over)
+    fields = window_field(maps, origins[:P], win, taps, out_dtype=cdtype,
+                          **fkw).reshape(P, win * win)
+    stack = shift_stack(E, R, R).reshape(G * R * R, win * win)
+    _, valid = occupancy.scan_endpoints_local(ranges, s)
+    denom = torch.clamp(valid.to(torch.float32).sum(), min=1.0)
+    results["refine_product"] = _product_entry(fields, stack, denom)
+    results["refine_product"]["at_fastslam1000"] = _product_entry(
+        fields.repeat(big_particles // P, 1), stack, denom)
     return results
+
+
+def _product_entry(Sp, stack, denom):
+    """The refine's product checked against its plain version (on the card
+    the float32 library product) and timed. At the FastSLAM paths' shapes
+    the kernel takes the library's split, so their bits must agree (the
+    benchmark's check needs them at FastSLAM-100's): a change of the
+    library's split fails here; the message gives the largest difference in
+    float32 epsilons of each output's sum of |products| over denom. Also
+    the gate-0 launch's device time; the bound: both operands read once and
+    the output written once, and two operations for each nonzero product of
+    the stack (the work these operands need); `library_ms`: torch.mm of the
+    bf16 operands with a float32 output, a yardstick the port never
+    calls."""
+    P, K = Sp.shape
+    N = stack.shape[0]
+    out = refine_product(Sp, stack, denom)
+    plain = refine_product(Sp, stack, denom, plain=True)
+    same = torch.equal(out, plain)
+    again = torch.equal(out, refine_product(Sp, stack, denom))
+    print(f"refine_product [{P}, {K}] x [{N}, {K}] bf16: bits equal to the "
+          f"plain version {same}, the same bits twice {again}")
+    if not again:
+        raise AssertionError(f"refine_product [{P}, {K}]: two calls differ")
+    if not same:
+        with highest_matmul_precision():
+            mag = Sp.float().abs() @ stack.float().abs().T
+        unit = torch.finfo(torch.float32).eps * mag / denom
+        err = float(((out - plain).abs() / unit.clamp(min=1e-30)).max())
+        raise AssertionError(
+            f"refine_product [{P}, {K}]: not the library product's bits (up "
+            f"to {err:.3g} eps of the sum of |products|): has the library's "
+            f"split of K changed? (ops/refine_product.py:_slices)")
+    g0 = torch.zeros(1, dtype=torch.bool, device=Sp.device)
+    if not torch.equal(refine_product(Sp, stack, denom, gate=g0),
+                       torch.zeros_like(out)):
+        raise AssertionError("refine_product: a gate of 0 gave no zeros")
+    gate0_ms, gate0_by = _cuda_device_ms(
+        lambda: refine_product(Sp, stack, denom, gate=g0))
+    try:
+        torch.mm(Sp, stack.T, out_dtype=torch.float32)
+        library = lambda: torch.mm(Sp, stack.T,  # noqa: E731
+                                   out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        library = None
+    nonzero = int((stack != 0).sum())
+    return dict(
+        bits_equal=same, shape=[P, N, K],
+        gate0_device_ms=gate0_ms, gate0_device_by=gate0_by,
+        **_times(lambda: refine_product(Sp, stack, denom),
+                 lambda: refine_product(Sp, stack, denom, plain=True),
+                 _bound((P + N) * K * 2 + P * N * 4, 2 * P * nonzero),
+                 library=library),
+    )
 
 
 # the ISM kernel's edge operands (ism_edge_operands)
@@ -3050,6 +3125,7 @@ def _pf_counters():
         "update_ism": update_ism,
         "window_field": window_field,
         "shift_stack": shift_stack,
+        "refine_product": refine_product,
         "gather_rows": gather_rows,
         "shared_apply": shared_apply,
         "corr_scores": corr_scores,
@@ -3079,6 +3155,9 @@ def _pf_expected(cfg, pf, counts):
         "update_ism": counts["updates"],
         "window_field": counts["refines"],
         "shift_stack": counts["refines"] if shared_refine else 0,
+        # bf16 operands only (score_bf16); float32 ones take the library's
+        "refine_product": (counts["refines"]
+                           if shared_refine and mcfg.score_bf16 else 0),
         "gather_rows": counts["resamples"],
         "shared_apply": counts["updates"] if mode == "shared" else 0,
         "corr_scores": 0 if shared_refine else passes * counts["refines"],
@@ -5660,11 +5739,17 @@ def pf_gate_checks(cfg, pf, cfg16, pf16, cfg1k, pf1k, log, device):
                                  device=device)] = 0.25
     Sp = torch.tensor(rng.random((pf16.n_particles, swin + 5, swin + 5)),
                       dtype=torch.float32, device=device)
+    fields = window_field(maps, origins, swin, taps, out_dtype=torch.bfloat16,
+                          **fkw).reshape(pf.n_particles, swin * swin)
+    stack = shift_stack(E, 5, 5).reshape(15 * 25, swin * swin)
+    denom = torch.tensor(180.0, device=device)
     out_of_place = {
         "window_field": lambda gate: window_field(
             maps, origins, swin, taps, out_dtype=torch.bfloat16, gate=gate,
             **fkw),
         "shift_stack": lambda gate: shift_stack(E, 5, 5, gate=gate),
+        "refine_product": lambda gate: refine_product(fields, stack, denom,
+                                                      gate=gate),
         "corr_scores": lambda gate: corr_scores(E16, Sp, 5, 5, gate=gate),
     }
     results = {}
@@ -6222,6 +6307,9 @@ def main(kernels_only: bool = False, multi_device_only: bool = False,
                          "slam2d_tpu/ops/pallas_field.py:46"),
         "shift_stack": ("slam2d_tpu_torch/csrc/shift_stack.cu",
                         "slam2d_tpu/ops/pallas_stack.py:31"),
+        # no Pallas kernel: the JAX package's dot of the bf16 operands
+        "refine_product": ("slam2d_tpu_torch/csrc/refine_product.cu",
+                           "slam2d_tpu/pf/shared_refine.py:240"),
         "shared_apply": ("slam2d_tpu_torch/csrc/shared_apply.cu",
                          "slam2d_tpu/ops/pallas_apply.py:42"),
         # kernel 1's particle filter forms: a grid axis over the particles

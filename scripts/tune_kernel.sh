@@ -5,7 +5,7 @@
 #   scripts/tune_kernel.sh KERNEL NAME[@FILE]:SED ...
 #
 # KERNEL is window_field, shared_apply, update_ray, update_ism, score, corr,
-# update_hybrid or search_space: the harness scripts/tune_KERNEL.cu includes the kernel
+# update_hybrid, search_space or refine_product: the harness scripts/tune_KERNEL.cu includes the kernel
 # source and times it at its main path's shapes. Each further argument is one variant: FILE (default:
 # the repository's slam2d_tpu_torch/csrc/KERNEL.cu) with the sed -z -E
 # expression SED applied ("s/XXXX//" changes nothing), built and timed

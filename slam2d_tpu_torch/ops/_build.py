@@ -110,6 +110,8 @@ _SIGNATURES = {
     + [_F] * 14 + [_P, _P],
     # D, O, Cinv, K, stream
     "slam2d_tridiag_factor": [_P, _P, _P, _I, _P],
+    # A, B, ws, masks, out, denom, M, N, K, S, gate, stream
+    "slam2d_refine_product": [_P] * 6 + [_I] * 4 + [_P, _P],
 }
 
 

@@ -13,19 +13,24 @@ particles are scored by one product:
 S_p is particle p's likelihood field over the window centered on its
 prior's cell (kernel: ops/field.py); the stack holds every shift of every
 E_g (kernel: ops/stack.py); E is splatted in plain PyTorch, as the JAX
-package does it in XLA. The product is a library GEMM in full float32: the
-JAX package asks XLA for a float32 result of its bf16 operands, and bf16
-values are exact in float32, so both operands are widened and TF32 is off.
-The selection (motion prior, theta range mask, argmax, sub-cell and
-sub-bin peak, keep-the-prior rule) follows the JAX function line by line.
+package does it in XLA. The product, its `/ denom` and the gate's zeros are
+one kernel (ops/refine_product.py): the JAX package asks XLA for a float32
+result of its bf16 operands, bf16 products are exact in float32, and the
+kernel reads the bf16 operands as they are, skips the stack's zero columns
+and sums in float32 in the order of the float32 library product it
+replaces. float32 operands (score_bf16 false) take that library product,
+TF32 off. The selection (motion prior, theta range mask, argmax, sub-cell
+and sub-bin peak, keep-the-prior rule) follows the JAX function line by
+line.
 
 Only the unpadded window frame of the JAX package's stack is ported: the
 fused field kernel, which the port always runs, emits that frame.
 
 The device-gated step passes its refine gate (a bool device tensor): the
-field and stack kernels return at once when it is false, the splat's
-zeros and the product's zeros are selected by `torch.where`, and the
-product itself still runs (no GEMM here takes a gate).
+field, stack and product kernels return at once when it is false (the
+product after writing its zeros), and the splat's zeros are selected by
+`torch.where`. On float32 operands the library product still runs and its
+zeros are selected.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 
 from slam2d_tpu_torch.config import FrontendConfig, MatcherConfig, PFConfig
 from slam2d_tpu_torch.core import se2
-from slam2d_tpu_torch.core.numerics import highest_matmul_precision, inv_f32
+from slam2d_tpu_torch.core.numerics import inv_f32
 from slam2d_tpu_torch.grid.occupancy import (
     cell_center_world,
     scan_endpoints_local,
@@ -49,8 +54,8 @@ from slam2d_tpu_torch.match.correlative import (
     splat_image,
     splat_inputs,
 )
-from slam2d_tpu_torch.ops import _build
 from slam2d_tpu_torch.ops.field import window_field
+from slam2d_tpu_torch.ops.refine_product import refine_product
 from slam2d_tpu_torch.ops.stack import shift_stack
 
 
@@ -108,12 +113,6 @@ def endpoint_shift_stack(ranges, sensor, thetas, win: int, R: int, C: int,
     )
 
 
-def _product_f32(a, b):
-    """a @ b^T in full float32: TF32 off for the call."""
-    with highest_matmul_precision():
-        return a @ b.T
-
-
 def shared_scores(grids, ranges, priors, cfg: FrontendConfig,
                   mcfg: MatcherConfig, pf: PFConfig, plain: bool = False,
                   gate=None):
@@ -161,10 +160,9 @@ def shared_scores(grids, ranges, priors, cfg: FrontendConfig,
         free_penalty=mcfg.free_penalty, out_dtype=cdtype, gate=gate,
         plain=plain,
     )
-    raw = _product_f32(
-        Sp.reshape(P, win * win).to(torch.float32), stack.to(torch.float32)
-    ) / denom
-    return _build.gated(gate, raw, 0.0).reshape(P, G, R, C), anchors, thetas
+    raw = refine_product(Sp.reshape(P, win * win), stack, denom, gate=gate,
+                         plain=plain)
+    return raw.reshape(P, G, R, C), anchors, thetas
 
 
 def shared_refine(grids, ranges, priors, cfg: FrontendConfig,

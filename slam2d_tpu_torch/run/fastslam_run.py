@@ -31,6 +31,7 @@ from slam2d_tpu_torch.ops.apply import shared_apply
 from slam2d_tpu_torch.ops.corr import corr_scores
 from slam2d_tpu_torch.ops.field import window_field
 from slam2d_tpu_torch.ops.gather import gather_rows
+from slam2d_tpu_torch.ops.refine_product import refine_product
 from slam2d_tpu_torch.ops.score import score_window
 from slam2d_tpu_torch.ops.stack import shift_stack
 from slam2d_tpu_torch.ops.update import (
@@ -55,8 +56,8 @@ from slam2d_tpu_torch.utils import profiling
 # every kernel wrapper a FastSLAM step can launch (score_window: the
 # per-particle refine with the gather scorer)
 _KERNELS = (update_ism, update_hybrid_particles, update_ray_particles,
-            window_field, shift_stack, corr_scores, score_window,
-            gather_rows, shared_apply)
+            window_field, shift_stack, refine_product, corr_scores,
+            score_window, gather_rows, shared_apply)
 
 
 class PFChunkGraph(ChunkCapture):
